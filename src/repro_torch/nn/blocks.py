@@ -1,0 +1,163 @@
+"""Attention and dense-FFN blocks of the serving path, init + apply style
+(counterpart of ``repro/nn/blocks.py``; MoE, RWKV and RG-LRU are not
+ported yet).
+
+Parameters are plain dicts of tensors in the reference's layouts (weights
+``(in, out)``); ``lead`` prepends stacking dims, so a model initializes all
+its layers in one call per leaf.  Caches are dicts of tensors that the
+apply functions update IN PLACE (the reference donates them to XLA
+instead).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .layers import (decode_attention, gather_block_rows,
+                     paged_decode_attention_ref, rms_norm, rope, swiglu)
+from .types import ArchConfig
+
+
+def _dense(gen, shape, lead=(), scale=None):
+    scale = scale or 1.0 / math.sqrt(shape[0])
+    return torch.randn((*lead, *shape), generator=gen, device=gen.device,
+                       dtype=torch.float32) * scale
+
+
+def _zeros(gen, shape, lead=()):
+    return torch.zeros((*lead, *shape), dtype=torch.float32,
+                       device=gen.device)
+
+
+# ---------------------------------------------------------------------------
+# Attention, GQA + optional QKV bias
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig, lead=()):
+    hd = cfg.head_dim_
+    p = {
+        "wq": _dense(gen, (cfg.d_model, cfg.n_heads * hd), lead),
+        "wk": _dense(gen, (cfg.d_model, cfg.n_kv_heads * hd), lead),
+        "wv": _dense(gen, (cfg.d_model, cfg.n_kv_heads * hd), lead),
+        "wo": _dense(gen, (cfg.n_heads * hd, cfg.d_model), lead),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = _zeros(gen, (cfg.n_heads * hd,), lead)
+        p["bk"] = _zeros(gen, (cfg.n_kv_heads * hd,), lead)
+        p["bv"] = _zeros(gen, (cfg.n_kv_heads * hd,), lead)
+    return p
+
+
+def _qkv(p, x, cfg: ArchConfig):
+    hd = cfg.head_dim_
+    B, S, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def kv_writes(cache_k, pos, block_table=None):
+    """Where one decode token per row lands in a layer's cache.
+
+    Returns ``(rows, index)``: the batch rows whose write lands and the
+    cache index tuple it lands at.  The reference scatters with
+    ``mode="drop"``; here a write that would be dropped (a sentinel block
+    NB, or a logical block past the table) is left out explicitly -- never
+    clamped onto a real location.  The plan is the same for every layer,
+    so a model computes it once per dispatch."""
+    B = pos.shape[0]
+    rows = torch.arange(B, device=pos.device)
+    if block_table is None:
+        return rows, (rows, pos % cache_k.shape[1])
+    NB, bs = cache_k.shape[0], cache_k.shape[1]
+    nb = block_table.shape[1]
+    lb = pos // bs                                            # logical block
+    phys = torch.gather(block_table.to(torch.int64), 1,
+                        torch.clamp(lb, max=nb - 1)[:, None])[:, 0]
+    phys = torch.where(lb < nb, phys, NB)
+    keep = torch.nonzero(phys < NB, as_tuple=True)[0]
+    return keep, (phys[keep], (pos % bs)[keep])
+
+
+def attention_step(p, x, cache, pos, cfg: ArchConfig, *, block_table=None,
+                   kv_gather: str = "take", decode_kernel: str = "dense",
+                   writes=None):
+    """One decode token.  cache: {k, v} of one layer, updated in place;
+    pos: a per-row (B,) position tensor, or an int shared by every row.
+
+    Contiguous cache (B, C, Hkv, D): row b writes at pos % C.  With
+    ``block_table`` (B, nb) the leaves are (NB, bs, Hkv, D) pools: the
+    token's K/V lands at (table[b, pos // bs], pos % bs) unless that entry
+    is the sentinel (see :func:`kv_writes`; ``writes`` passes its plan in),
+    and attention reads the pool per ``decode_kernel``: ``"dense"`` gathers
+    the logical rows (``kv_gather``: ``"take"`` or the ``"cuda"`` kernel)
+    and runs the dense masked pass; ``"reference"`` runs the
+    block-sequential loop; ``"fused"`` runs the fused paged-attention
+    kernel.  Returns (output (B, 1, d_model), cache)."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg)
+    if not torch.is_tensor(pos):
+        if block_table is not None:
+            raise ValueError("block-paged attention_step needs per-row pos")
+        pos = torch.full((B,), int(pos), dtype=torch.int64, device=x.device)
+    posv = pos.to(torch.int64).reshape(B)
+    q = rope(q, posv[:, None], cfg.rope_theta)
+    k = rope(k, posv[:, None], cfg.rope_theta)
+    k_cache, v_cache = cache["k"], cache["v"]
+    if writes is None:
+        writes = kv_writes(k_cache, posv, block_table)
+    rows, index = writes
+    k_cache[index] = k[rows, 0].to(k_cache.dtype)
+    v_cache[index] = v[rows, 0].to(v_cache.dtype)
+    if block_table is not None:
+        bs, nb = k_cache.shape[1], block_table.shape[1]
+        cache_len = torch.clamp(posv + 1, max=nb * bs)
+        if decode_kernel == "dense":
+            krow = gather_block_rows(k_cache, block_table, engine=kv_gather)
+            vrow = gather_block_rows(v_cache, block_table, engine=kv_gather)
+            out = decode_attention(q, krow, vrow, cache_len)
+        elif decode_kernel == "reference":
+            out = paged_decode_attention_ref(q, k_cache, v_cache,
+                                             block_table, cache_len)
+        elif decode_kernel == "fused":
+            from repro_torch.kernels import paged_attention
+            out = paged_attention(q, k_cache, v_cache, block_table,
+                                  cache_len)
+        else:
+            raise ValueError(f"unknown decode_kernel {decode_kernel!r}")
+    else:
+        cache_len = torch.clamp(posv + 1, max=k_cache.shape[1])
+        out = decode_attention(q, k_cache, v_cache, cache_len)
+    out = out.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
+    return out, cache
+
+
+def init_attn_cache(cfg: ArchConfig, batch: int, context: int, *,
+                    window: int = 0, dtype=torch.bfloat16, device="cuda"):
+    C = min(context, window) if window else context
+    shape = (batch, C, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN (swiglu)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, f: int, lead=()):
+    return {"wg": _dense(gen, (d, f), lead), "wu": _dense(gen, (d, f), lead),
+            "wd": _dense(gen, (f, d), lead)}
+
+
+def mlp_apply(p, x):
+    return swiglu(x, p["wg"].to(x.dtype), p["wu"].to(x.dtype),
+                  p["wd"].to(x.dtype))

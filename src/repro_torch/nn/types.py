@@ -1,0 +1,108 @@
+"""Architecture configuration types (counterpart of ``repro/nn/types.py``).
+
+Every supported architecture is a single :class:`ArchConfig`; the file
+``repro_torch/configs/<id>.py`` instantiates it with the published
+numbers.  ``reduced()`` returns a tiny same-family config for CPU tests.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+__all__ = ["ArchConfig", "register", "get_config", "list_configs"]
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                 # dense | moe | vlm | ssm | audio | hybrid
+    n_layers: int
+    d_model: int
+    n_heads: int                # 0 for attention-free (ssm)
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    qkv_bias: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_dense_residual: bool = False
+    dense_ff: int = 0
+    capacity_factor: float = 1.25
+    # --- recurrence (ssm / hybrid) ---
+    head_dim: int = 0           # derived when 0
+    rwkv_head_dim: int = 64
+    rglru_width: int = 0
+    local_window: int = 0
+    attn_every: int = 0
+    # --- enc-dec / modality stubs ---
+    is_encdec: bool = False
+    n_enc_layers: int = 0
+    n_frames: int = 1500
+    n_patches: int = 0
+    # --- numerics / training ---
+    norm_eps: float = 1e-6
+    rope_theta: float = 1e4
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"       # master weights
+    opt_state_dtype: str = "float32"
+    remat: bool = True
+    subquadratic: bool = False
+
+    @property
+    def head_dim_(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(1, self.n_heads)
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU tests."""
+        return dataclasses.replace(
+            self,
+            n_layers=min(self.n_layers, 4 if not self.attn_every else 3),
+            d_model=64,
+            n_heads=min(self.n_heads, 4) if self.n_heads else 0,
+            n_kv_heads=max(1, min(self.n_kv_heads,
+                                  min(self.n_heads, 4) if self.n_heads else 1)),
+            d_ff=128,
+            dense_ff=64 if self.dense_ff else 0,
+            vocab=256,
+            n_experts=min(self.n_experts, 8) if self.n_experts else 0,
+            n_shared_experts=min(self.n_shared_experts, 2),
+            head_dim=16 if (self.head_dim or not self.n_heads) else 0,
+            rwkv_head_dim=16,
+            rglru_width=64 if self.rglru_width else 0,
+            local_window=min(self.local_window, 32) if self.local_window else 0,
+            n_enc_layers=min(self.n_enc_layers, 2),
+            n_frames=24,
+            n_patches=min(self.n_patches, 8) if self.n_patches else 0,
+            remat=False,
+            opt_state_dtype="float32",
+        )
+
+
+_REGISTRY: dict = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ArchConfig:
+    if not _REGISTRY:
+        _load_all()
+    return _REGISTRY[name]
+
+
+def list_configs() -> list:
+    if not _REGISTRY:
+        _load_all()
+    return sorted(_REGISTRY)
+
+
+def _load_all():
+    import importlib
+    for mod in ["qwen2_0_5b"]:
+        importlib.import_module(f"repro_torch.configs.{mod}")
