@@ -6,14 +6,18 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions, and the build of every CUDA kernel of the serving path from
+   versions, and the build of every CUDA kernel of both paths from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
    together);
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (bf16, Hq=14, Hkv=2, D=64, block 32, 8 slots
-   of mixed lengths up to 1024, sentinel table entries) -- the gather
-   bit-exact, the attention within atol 2e-3 + rtol 1e-2 -- and their
-   device times beside the bound and the plain and library times;
+   its path's shapes, and their device times beside the bound and the
+   plain and library times.  The serving kernels at bf16, Hq=14, Hkv=2,
+   D=64, block 32, 8 slots of mixed lengths up to 1024, sentinel table
+   entries -- the gather bit-exact, the attention within atol 2e-3 + rtol
+   1e-2.  The CSD digit-plane kernels bit-exact (``torch.equal``) at one
+   polish call's tail (287,744 x 10 rows by 10 x 10 planes, D = 1, 8, 16),
+   the sweep's three layers of 16-16-10-10 (4 networks x 2248 rows) and
+   odd shapes;
 3. a small-input reference: a tiny f32 model served on the card through
    both kernels gives the CPU engine's greedy tokens;
 4. serving, full width: qwen2-0.5b (24 layers, d_model 896, vocab 151936)
@@ -23,7 +27,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    requests then go through ``kv_gather="take"``, ``decode_kernel="dense"``
    and the first decode step's logits are compared;
 5. a ``torch.profiler`` window over a few engine steps: device busy share
-   and the top kernels.
+   and the top kernels;
+6. the paper's search and tuning path, full size: 16-16-10-10 trained on
+   the card on the pendigits surrogate (5246 train / 2248 validation /
+   3498 test rows, 40 epochs), ``find_min_q`` and ``tune_parallel(cost=
+   "adders", max_sweeps=4)`` with their default ``auto`` backend (``csd``
+   on the card, so both CSD kernels run; counters zeroed just before and
+   read just after), the test split scored, a ``torch.profiler`` rerun of
+   the tune call for the device busy share and a cProfile rerun for the
+   host's time by function, and the same search and tune on the ``numpy``
+   backend from the same float weights, which must give identical
+   results.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -41,7 +55,9 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
+L2_BYTES = 50 * 2**20              # H100 SXM L2 cache, NVIDIA data sheet
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
 ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2  # bf16 outputs, f32 sums in another order
 # first-decode logits of the fused and the dense route: the two reduce the
 # softmax in another order and round p to bf16 at other places, and the
@@ -375,6 +391,234 @@ def profile_phase(torch, eng, spec):
         eng.step()
 
 
+def _csd_inputs(torch, rng, x_shape, w_shape, depth):
+    """8-bit activations and CSD planes of random integer weights whose
+    digits reach ``depth`` (stacked per network for a 3-d ``x_shape``)."""
+    from repro_torch.kernels import ops
+    x = torch.from_numpy(rng.integers(-128, 128, x_shape).astype(np.int32))
+    hi = (1 << depth) // 3 + 1
+    nets = x_shape[0] if len(x_shape) == 3 else 1
+    ws = [rng.integers(-hi, hi + 1, w_shape) for _ in range(nets)]
+    if len(x_shape) == 3:
+        planes = ops.csd_expand_stack(ws)
+    else:
+        planes = ops.csd_expand(ws[0], depth=depth)
+    return x.cuda(), torch.from_numpy(planes).cuda()
+
+
+def csd_kernel_phase(torch):
+    """Both CSD digit-plane kernels against their plain versions on the
+    card, bit for bit, at the paper path's shapes and odd ones; their
+    times beside the bound and the plain and library times."""
+    from repro_torch.kernels.csd_matvec import (csd_matvec_kernel,
+                                                csd_matvec_plain,
+                                                csd_qsweep_kernel,
+                                                csd_qsweep_plain)
+    rng = np.random.default_rng(0)
+    rows = 128 * 2248                  # one polish call: 128 candidates
+    cases = [("csd_matvec", (rows, 10), (10, 10), d) for d in (1, 8, 16)]
+    cases += [("csd_matvec", (1001, 37), (37, 45), 9),
+              ("csd_matvec", (3, 200), (200, 70), 30)]
+    cases += [("csd_qsweep", (4, 2248, k), (k, n), 8)
+              for k, n in ((16, 16), (16, 10), (10, 10))]
+    cases += [("csd_qsweep", (3, 77, 19), (19, 5), 11)]
+    fns = {"csd_matvec": (csd_matvec_kernel, csd_matvec_plain),
+           "csd_qsweep": (csd_qsweep_kernel, csd_qsweep_plain)}
+    timed = {"csd_matvec": ((rows, 10), (10, 10), 8),
+             "csd_qsweep": ((4, 2248, 16), (16, 16), 8)}
+    results = {}
+    for name, xs, ws, depth in cases:
+        kernel, plain = fns[name]
+        x, planes = _csd_inputs(torch, rng, xs, ws, depth)
+        got, want = kernel(x, planes), plain(x, planes)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"{name} kernel != plain version at x {xs}, planes "
+              f"{tuple(planes.shape)}")
+        print(f"{name}: bit-exact against the plain version at x {xs}, "
+              f"planes {tuple(planes.shape)}")
+        if timed[name] != (xs, ws, depth):
+            continue
+        # distinct inputs per call, together at least twice the 50 MB L2,
+        # so each call reads its inputs from HBM, as the bound assumes
+        M, K = xs[-2], xs[-1]
+        Q = xs[0] if len(xs) == 3 else 1
+        D, N = planes.shape[-3], planes.shape[-1]
+        nbytes = Q * (M * K * 4 + D * K * N + M * N * 4)
+        sets = [_csd_inputs(torch, rng, xs, ws, depth)
+                for _ in range(max(6, -(-2 * L2_BYTES // nbytes)))]
+        ms, eager_ms = time_calls(torch, kernel, sets, 20)
+        plain_ms, _ = time_calls(torch, plain, sets, 3)
+        pw = (torch.arange(planes.shape[-3], device="cuda", dtype=torch.float64)
+              .exp2().reshape(-1, 1, 1))
+        lib_sets = [(a.double(), (p.double() * pw).sum(dim=-3))
+                    for a, p in sets]
+        lib_ms, _ = time_calls(torch, torch.matmul, lib_sets, 20)
+        ops_ = 2 * Q * M * N * K * D
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / INT8_OPS
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/csd_matvec.cu",
+            "replaces": ("src/repro/kernels/csd_matvec.py:50"
+                         if name == "csd_matvec"
+                         else "src/repro/kernels/csd_matvec.py:90"),
+            "max_abs_err": 0.0, "ms": ms, "eager_ms": eager_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "library": "torch.matmul in float64 on the reconstructed "
+                       "W = sum_d p_d 2^d",
+            "shape": f"x {xs} int32, planes {tuple(planes.shape)} int8, "
+                     f"timed over {len(sets)} input sets of "
+                     f"{nbytes/1e6:.2f} MB"}
+    for r in results.values():
+        print(f"{r['name']}: {r['ms']*1e3:.2f} us on the card "
+              f"({r['eager_ms']*1e3:.2f} us per eager call), plain "
+              f"{r['plain_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.2f} us "
+              f"({r['bound_by']}), library {r['library_ms']*1e3:.2f} us; "
+              f"{r['shape']}")
+    return [results["csd_matvec"], results["csd_qsweep"]]
+
+
+# host functions of the tune call whose cumulative time the paper phase
+# reads off cProfile (nested ones overlap: commit_many holds _refresh)
+HOST_SPANS = ("tuning.py:_adders_polish_batched", "batched.py:evaluate_chain",
+              "batched.py:_chain_np", "batched.py:commit_many",
+              "batched.py:commit", "batched.py:evaluate",
+              "torchtail.py:counts", "torchtail.py:sync",
+              "planner.py:plan", "mcm.py:synthesize")
+
+
+def host_breakdown(torch, fn):
+    """Run ``fn`` under cProfile; its wall time and the cumulative host
+    seconds of each ``HOST_SPANS`` function."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    out = fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    spans = {}
+    for (path, _, name), (_, calls, _, cum, _) in \
+            pstats.Stats(prof).stats.items():
+        key = f"{os.path.basename(path)}:{name}"
+        if key in HOST_SPANS:
+            c0, t0_ = spans.get(key, (0, 0.0))
+            spans[key] = (c0 + calls, t0_ + cum)
+    return out, wall, spans
+
+
+def _tune_summary(tp):
+    return (tp.bha, tp.initial_ha, tp.replacements, tp.sweeps, tp.log,
+            [w.tolist() for w in tp.mlp.weights + tp.mlp.biases],
+            {k: v for k, v in tp.stats.items() if k != "backend"})
+
+
+def paper_phase(torch):
+    """The paper's search and tuning path at full size on the card, through
+    the quickstart's pipeline, held against the numpy backend from the same
+    float weights."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import find_min_q, tune_parallel
+    from repro_torch.core.csd import tnzd
+    from repro_torch.eval import QSweepEvaluator
+    from repro_torch.kernels.csd_matvec import (csd_matvec_kernel,
+                                                csd_qsweep_kernel)
+    from repro_torch.launch import quickstart
+    sweeps = quickstart.MAX_SWEEPS
+    csd_qsweep_kernel.launches = 0
+    csd_matvec_kernel.launches = 0
+    run = quickstart.run_pipeline("cuda")
+    launches = {"csd_qsweep": csd_qsweep_kernel.launches,
+                "csd_matvec": csd_matvec_kernel.launches}
+    res, qr, tp, sweep_ev = run.train, run.qr, run.tp, run.sweep_ev
+    xval_int, yval = run.x_val, run.y_val
+    test_ha, tune_test_ha = run.test_ha
+    print(f"paper: trained 16-16-10-10 on the card in "
+          f"{run.seconds['train']:.3f} s: train {res.train_acc:.2f} %, "
+          f"val {res.val_acc:.2f} % ({len(res.loss_history)} epochs)")
+    check(res.val_acc > 80.0, f"float validation accuracy {res.val_acc}")
+    check(sweep_ev.backend == run.test_ev.backend == "csd"
+          and tp.stats["backend"] == "csd",
+          f"auto did not pick csd: {sweep_ev.backend}, {tp.stats['backend']}")
+    check(all(v > 0 for v in launches.values()),
+          f"a CSD kernel of the path was not launched: {launches}")
+    s = tp.stats
+    print(f"paper min-q (csd): q={qr.q} ha={qr.ha!r} history="
+          f"{[(q, h) for q, h in qr.history]}; {run.seconds['min_q']:.3f} s, "
+          f"{sweep_ev.stats['eval_calls']} evaluator calls, "
+          f"{sweep_ev.stats['networks']} networks, "
+          f"{sweep_ev.stats['demoted']} demoted; test ha {test_ha!r}")
+    print(f"paper tune (csd, cost=adders, max_sweeps={sweeps}): "
+          f"{run.seconds['tune']:.3f} s; bha {tp.initial_ha!r} -> {tp.bha!r}, "
+          f"{tp.replacements} replacements in {tp.sweeps} sweeps, log "
+          f"{tp.log}; tnzd {s['tnzd_initial']} -> {s['tnzd_final']} "
+          f"(check {tnzd(tp.mlp.weights + tp.mlp.biases)}), adders "
+          f"{s['adders_initial']} -> {s['adders_after_drop']} -> "
+          f"{s['adders_final']}; {s['eval_calls']} evaluator calls, "
+          f"{s['candidates']} candidates, {s['commits']} commits, "
+          f"demoted: {s.get('demoted', 'no')}; test ha {tune_test_ha!r}")
+    print(f"launches on the paper path: {launches}")
+
+    # the same tune call under the profiler: device busy share
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tp_prof = tune_parallel(qr.mlp, xval_int, yval, cost="adders",
+                                max_sweeps=sweeps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs = device_events(prof)
+    busy = busy_us(evs)
+    check(busy > 0, "profiler window recorded no device time")
+    check(_tune_summary(tp_prof) == _tune_summary(tp),
+          "profiled tune rerun differs")
+    by_name = {}
+    for e in evs:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
+    print(f"profile (tune call, csd): wall {wall_us/1e3:.3f} ms, device "
+          f"busy {busy/1e3:.3f} ms ({100*busy/wall_us:.3f} %), idle "
+          f"{100*(1-busy/wall_us):.3f} %")
+    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
+        print(f"  {t/1e3:9.3f} ms {n:6d} x  {name[:90]}")
+
+    # and under cProfile: where the host's time goes
+    tp_host, wall, spans = host_breakdown(torch, lambda: tune_parallel(
+        qr.mlp, xval_int, yval, cost="adders", max_sweeps=sweeps))
+    check(_tune_summary(tp_host) == _tune_summary(tp),
+          "cProfile tune rerun differs")
+    print(f"host spans (tune call, csd, under cProfile): wall {wall:.3f} s")
+    for key in HOST_SPANS:
+        calls, cum = spans.get(key, (0, 0.0))
+        print(f"  {cum:8.3f} s {calls:7d} x  {key}")
+
+    # the same search and tune on the host's numpy backend
+    t0 = time.perf_counter()
+    qr_np = find_min_q(res.weights, res.biases, run.acts, xval_int, yval,
+                       backend="numpy")
+    t_q_np = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp_np = tune_parallel(qr_np.mlp, xval_int, yval, cost="adders",
+                          max_sweeps=sweeps, backend="numpy")
+    t_tune_np = time.perf_counter() - t0
+    test_np = QSweepEvaluator(run.x_test, run.y_test, backend="numpy")
+    check((qr.q, qr.ha, qr.history) == (qr_np.q, qr_np.ha, qr_np.history),
+          f"min-q differs: csd {qr.history} numpy {qr_np.history}")
+    check(_tune_summary(tp) == _tune_summary(tp_np),
+          "tune_parallel on csd differs from numpy")
+    check(test_np.evaluate([qr.mlp, tp.mlp]) == [test_ha, tune_test_ha],
+          "test-split scores differ between csd and numpy")
+    print(f"paper on numpy: min-q {t_q_np:.3f} s, tune {t_tune_np:.3f} s; "
+          f"(q, ha, history), TuneResult and test scores identical to csd")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -388,15 +632,16 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
     t0 = time.perf_counter()
-    build.build(["paged_gather", "paged_attention"])
+    build.build(["paged_gather", "paged_attention", "csd_matvec"])
     print(f"build: {time.perf_counter()-t0:.2f} s (paged_gather.cu, "
-          f"paged_attention.cu, in parallel)")
-    for name in ("paged_gather", "paged_attention"):
+          f"paged_attention.cu, csd_matvec.cu, in parallel)")
+    for name in ("paged_gather", "paged_attention", "csd_matvec"):
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     t0 = time.perf_counter()
     kernels = kernel_phase(torch)
+    kernels += csd_kernel_phase(torch)
     print(f"kernel phase: {time.perf_counter()-t0:.2f} s")
     t0 = time.perf_counter()
     tiny_reference_phase(torch)
@@ -405,6 +650,9 @@ def main() -> int:
     launches, eng, spec, cfg = serving_phase(torch)
     print(f"serving phase: {time.perf_counter()-t0:.2f} s")
     profile_phase(torch, eng, spec)
+    t0 = time.perf_counter()
+    launches.update(paper_phase(torch))
+    print(f"paper phase: {time.perf_counter()-t0:.2f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

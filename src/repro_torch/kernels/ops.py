@@ -7,12 +7,35 @@ the kernel's plain PyTorch version only for tensors on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core.csd import to_csd_array
+
+from .csd_matvec import (csd_matvec_kernel, csd_matvec_plain,
+                         csd_qsweep_kernel, csd_qsweep_plain)
 from .paged_attention import paged_attention_kernel, paged_attention_plain
 from .paged_gather import paged_gather_kernel, paged_gather_plain
 
-__all__ = ["quantize_pot", "exp2_int", "paged_gather", "paged_attention"]
+__all__ = ["quantize_pot", "exp2_int", "paged_gather", "paged_attention",
+           "csd_expand", "csd_expand_stack", "csd_matvec", "csd_qsweep"]
+
+
+def csd_expand(w_int, depth: int | None = None) -> np.ndarray:
+    """(n, m) integer matrix -> (D, n, m) int8 CSD digit planes, LSB first,
+    by the whole-array CSD recoder (``repro_torch.core.csd.to_csd_array``,
+    DESIGN.md 11.1).  ``depth`` pads the plane stack to a common D."""
+    return to_csd_array(np.asarray(w_int, dtype=np.int64), depth=depth)
+
+
+def csd_expand_stack(ws) -> np.ndarray:
+    """Q same-shape integer matrices -> one (Q, D, n, m) int8 plane stack at
+    the shared depth D = max over the batch: :func:`csd_qsweep`'s input
+    contract (zero planes pad the shallower networks, adding nothing)."""
+    per = [csd_expand(w) for w in ws]
+    depth = max(p.shape[0] for p in per)
+    return np.stack([np.pad(p, ((0, depth - p.shape[0]),) + ((0, 0),) * 2)
+                     for p in per])
 
 
 def exp2_int(e: torch.Tensor) -> torch.Tensor:
@@ -41,6 +64,37 @@ def quantize_pot(w: torch.Tensor, *, bits: int = 8, axis=0):
 def _plain_or_raise(t: torch.Tensor, what: str) -> None:
     if t.device.type != "cpu":
         raise RuntimeError(f"{what}: no kernel for device {t.device}")
+
+
+def csd_matvec(x_int: torch.Tensor, w_int=None, planes=None) -> torch.Tensor:
+    """Bit-exact shift-add CAVM: y = x @ W via CSD digit planes, (M, N)
+    int32.  ``planes`` (D, K, N), or ``w_int`` (K, N) to expand here.  The
+    kernel takes any M, N and K, so nothing is padded."""
+    if planes is None:
+        planes = csd_expand(w_int)
+    planes = torch.as_tensor(planes, device=x_int.device).to(
+        torch.int8).contiguous()
+    x = x_int.to(torch.int32).contiguous()
+    if x.is_cuda:
+        return csd_matvec_kernel(x, planes)
+    _plain_or_raise(x, "csd_matvec")
+    return csd_matvec_plain(x, planes)
+
+
+def csd_qsweep(x_int: torch.Tensor, planes) -> torch.Tensor:
+    """Sweep-mode shift-add matvec: y[q] = x[q] @ W[q] via stacked CSD digit
+    planes, every q level in one launch (DESIGN.md 11.4).  ``x_int``:
+    (Q, M, K) per-network activations; ``planes``: (Q, D, K, N) at a shared
+    depth (:func:`csd_expand_stack`).  (Q, M, N) int32, exact provided
+    every network satisfies the sweep engine's CSD accumulator bound
+    (``repro_torch.eval.batched.csd_net_accum_bound``)."""
+    planes = torch.as_tensor(planes, device=x_int.device).to(
+        torch.int8).contiguous()
+    x = x_int.to(torch.int32).contiguous()
+    if x.is_cuda:
+        return csd_qsweep_kernel(x, planes)
+    _plain_or_raise(x, "csd_qsweep")
+    return csd_qsweep_plain(x, planes)
 
 
 def paged_gather(leaf: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

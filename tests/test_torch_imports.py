@@ -35,9 +35,16 @@ def test_port_files_exist():
                 "kernels/paged_gather.py", "kernels/paged_attention.py",
                 "kernels/ops.py", "nn/layers.py", "nn/blocks.py",
                 "nn/model.py", "quant/ptq.py", "runtime/kvcache.py",
-                "runtime/serve.py", "launch/serve.py"):
+                "runtime/serve.py", "launch/serve.py",
+                "configs/pendigits_mlp.py", "data/pendigits.py",
+                "core/csd.py", "core/intmlp.py", "core/mcm.py",
+                "core/planner.py", "core/quantize.py", "core/tuning.py",
+                "kernels/csd_matvec.py", "train/zaal.py", "eval/batched.py",
+                "eval/torchtail.py", "eval/__init__.py",
+                "launch/quickstart.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES,
