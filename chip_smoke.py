@@ -18,8 +18,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    polish call's tail (287,744 x 10 rows by 10 x 10 planes, D = 1, 8, 16),
    the sweep's three layers of 16-16-10-10 (4 networks x 2248 rows) and
    odd shapes;
-3. a small-input reference: a tiny f32 model served on the card through
-   both kernels gives the CPU engine's greedy tokens;
+   The flash-attention kernel against its plain version in f32 (within
+   2e-5) and bf16 (both at the kernel's key tile, under
+   ``bf16_disagreement``: each element within two bf16 ulps of its own
+   magnitude plus 2^-8 of its row's largest, at most 1 % of elements
+   different; the kernel in f32 on the same inputs, i.e. p left unrounded,
+   must fail it at the loss shape): causal GQA 7:1, a window with an offset, rows that see no key,
+   non-causal, MHA, the loss shape (8 x 1024, 14 / 2 heads of 64) and the
+   first reference prefill batch's shape; timed at the loss shape beside
+   ``scaled_dot_product_attention``;
+3. small-input references: a tiny f32 model served on the card through
+   both serving kernels gives the CPU engine's greedy tokens; the tiny
+   model's ``Model.loss`` on the card is the CPU's within 1e-5 relative and
+   ``ReferenceEngine`` (float and int8-PoT) gives the CPU's greedy tokens;
 4. serving, full width: qwen2-0.5b (24 layers, d_model 896, vocab 151936)
    with random weights from a seed, int8-PoT quantized, block-paged KV,
    ``kv_gather="cuda"``, ``decode_kernel="fused"``, 16 requests; launch
@@ -37,7 +48,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the tune call for the device busy share and a cProfile rerun for the
    host's time by function, and the same search and tune on the ``numpy``
    backend from the same float weights, which must give identical
-   results.
+   results;
+7. the LM-scale quantization path, full width, through
+   ``repro_torch.launch.serve_quantized.run_pipeline``: qwen2-0.5b with
+   random weights from seed 0, ``min_bitwidth_search(budget=0.02)`` on one
+   8 x 1024 ``TokenPipeline`` batch, batched and serial (identical bits and
+   history), ``sls_rescale(max_raise=1)``, then ``ReferenceEngine``
+   (int8-PoT at the searched bits, 8 rows x 2048 context) serving 16
+   seeded prompts of 128-1536 tokens, 32 new tokens each.  The
+   flash-attention counter is zeroed just before and read just after: 24
+   launches per ``Model.loss`` call and per prefill batch;
+8. a ``torch.profiler`` window over one more ``ReferenceEngine`` batch:
+   device busy share and the top kernels.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -59,6 +81,7 @@ L2_BYTES = 50 * 2**20              # H100 SXM L2 cache, NVIDIA data sheet
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
 ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2  # bf16 outputs, f32 sums in another order
+FLASH_F32_TOL = 2e-5               # the reference's kernel-vs-oracle bound
 # first-decode logits of the fused and the dense route: the two reduce the
 # softmax in another order and round p to bf16 at other places, and the
 # difference passes through the bf16 residual stream of the layers above
@@ -89,6 +112,23 @@ def busy_us(events):
     if cur_e is not None:
         total += cur_e - cur_s
     return total
+
+
+def report_profile(prof, wall_us, label, top, digits=2):
+    """Print the device busy share of a profiled window and its ``top``
+    kernels by device time; fails if the device recorded nothing."""
+    evs = device_events(prof)
+    busy = busy_us(evs)
+    check(busy > 0, "profiler window recorded no device time")
+    by_name = {}
+    for e in evs:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
+    print(f"profile ({label}): wall {wall_us/1e3:.3f} ms, device busy "
+          f"{busy/1e3:.3f} ms ({100*busy/wall_us:.{digits}f} %), idle "
+          f"{100*(1-busy/wall_us):.{digits}f} %")
+    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:top]:
+        print(f"  {t/1e3:9.3f} ms {n:6d} x  {name[:90]}")
 
 
 def time_calls(torch, fn, arg_sets, reps):
@@ -375,18 +415,7 @@ def profile_phase(torch, eng, spec):
             eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    evs = device_events(prof)
-    busy = busy_us(evs)
-    check(busy > 0, "profiler window recorded no device time")
-    by_name = {}
-    for e in evs:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
-    print(f"profile (6 engine steps): wall {wall_us/1e3:.3f} ms, device busy "
-          f"{busy/1e3:.3f} ms ({100*busy/wall_us:.2f} %), idle "
-          f"{100*(1-busy/wall_us):.2f} %")
-    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:10]:
-        print(f"  {t/1e3:9.3f} ms {n:6d} x  {name[:90]}")
+    report_profile(prof, wall_us, "6 engine steps", 10)
     while eng.queue or eng.slots:
         eng.step()
 
@@ -481,6 +510,191 @@ def csd_kernel_phase(torch):
     return [results["csd_matvec"], results["csd_qsweep"]]
 
 
+def visible_pairs(Sq, Skv, causal, window, offset):
+    """(query, key) pairs the mask lets through, for these shapes."""
+    qp = np.arange(Sq)[:, None] + offset
+    kv = np.arange(Skv)[None, :]
+    ok = np.ones((Sq, Skv), bool)
+    if causal:
+        ok &= kv <= qp
+    if window:
+        ok &= kv > qp - window
+    return int(ok.sum())
+
+
+def flash_kernel_phase(torch):
+    """The flash-attention kernel against its plain version on the card,
+    f32 and bf16, and its time at the loss shape beside the bound, the
+    plain version and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        BF16_SHARE, KEY_TILE, bf16_disagreement, flash_attention_kernel,
+        flash_attention_plain)
+    from repro_torch.launch import serve_quantized as sq
+    S_pre = max(len(p) for p in sq.prompts(151936)[:sq.MAX_BATCH])
+    chunked = dict(bk=512, offset=0)          # chunked_attention's call
+    # name, (B, Sq, Skv, Hq, Hkv, D), semantics
+    cases = [
+        ("causal GQA 7:1", (2, 1024, 1024, 14, 2, 64),
+         dict(causal=True, **chunked)),
+        ("window 40, cross-length, offset 200", (1, 100, 300, 4, 1, 64),
+         dict(causal=True, window=40)),
+        ("rows past kv_len see no key", (2, 70, 70, 4, 2, 16),
+         dict(causal=True, window=9, offset=13, bk=64)),
+        ("rows before every key", (1, 96, 40, 2, 1, 32),
+         dict(causal=True, bk=48)),
+        ("non-causal", (2, 64, 200, 4, 4, 32), dict(causal=False)),
+        ("MHA", (1, 333, 333, 14, 14, 64), dict(causal=True)),
+        ("loss shape", (8, 1024, 1024, 14, 2, 64),
+         dict(causal=True, **chunked)),
+        (f"prefill shape (first batch, S={S_pre})",
+         (8, S_pre, S_pre, 14, 2, 64), dict(causal=True, **chunked)),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def qkv(shape, dt):
+        B, Sq, Skv, Hq, Hkv, D = shape
+        return [torch.randn(s, generator=gen, device="cuda", dtype=dt)
+                for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D))]
+
+    loss_err = bf16_check = None
+    for name, shape, kw in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(shape, dt)
+            # in bf16, p is rounded against the running max of a key tile
+            args = kw if dt == torch.float32 else dict(kw, bk=KEY_TILE)
+            got = flash_attention_kernel(q, k, v, **args)
+            want = flash_attention_plain(q, k, v, **args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if dt == torch.float32:
+                ok = torch.allclose(got, want, atol=FLASH_F32_TOL,
+                                    rtol=FLASH_F32_TOL)
+                tol = f"atol = rtol = {FLASH_F32_TOL}"
+            else:
+                ratio, share = bf16_disagreement(got, want)
+                ok = ratio <= 1 and share <= BF16_SHARE
+                tol = (f"largest err / limit {ratio:.3f} (<= 1), share of "
+                       f"elements that differ {share:.3e} (<= {BF16_SHARE})")
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"flash_attention kernel vs plain, {name} {dt}: max abs "
+                  f"err {err}, {tol}")
+            print(f"flash_attention {name} {tuple(shape)} {dt}: max abs err "
+                  f"{err:.3e} ({tol})")
+            if name == "loss shape" and dt == torch.bfloat16:
+                loss_err = err
+                # the control: the same kernel in f32 leaves p unrounded
+                ctl = flash_attention_kernel(q.float(), k.float(), v.float(),
+                                             **args).bfloat16()
+                c_ratio, c_share = bf16_disagreement(ctl, want)
+                bf16_check = {"ratio": ratio, "share": share,
+                              "control_ratio": c_ratio,
+                              "control_share": c_share}
+                check(c_share > BF16_SHARE, "flash_attention bf16 check: "
+                      f"p left unrounded passes it (share {c_share})")
+                print(f"flash_attention {name} bf16 control, p left "
+                      f"unrounded: largest err / limit {c_ratio:.3f}, share "
+                      f"{c_share:.3e} (must exceed {BF16_SHARE})")
+
+    def timing(shape, kw, reps):
+        B, Sq, Skv, Hq, Hkv, D = shape
+        one = 2 * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)  # q,o,k,v
+        sets = [qkv(shape, torch.bfloat16)
+                for _ in range(max(2, -(-2 * L2_BYTES // one)))]
+        ms, eager_ms = time_calls(
+            torch, lambda q, k, v: flash_attention_kernel(q, k, v, **kw),
+            sets, reps)
+        plain_ms, _ = time_calls(
+            torch, lambda q, k, v: flash_attention_plain(q, k, v, **kw),
+            sets, 1)
+        lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
+                    for s in sets]
+        lib_ms, _ = time_calls(
+            torch, lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), lib_sets, reps)
+        pairs = visible_pairs(Sq, Skv, True, 0, kw["offset"])
+        t_ops = 4 * D * pairs * Hq * B / BF16_FLOPS
+        t_bytes = one / HBM_BYTES_PER_S
+        return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib_ms, "visible_pairs": pairs,
+                "sets": len(sets)}
+
+    row = timing((8, 1024, 1024, 14, 2, 64), dict(causal=True, **chunked), 3)
+    pre = timing((8, S_pre, S_pre, 14, 2, 64), dict(causal=True, **chunked),
+                 2)
+    row.update({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "max_abs_err": loss_err, "bf16_check": bf16_check,
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "(is_causal, enable_gqa), (B, H, S, D) layout",
+        "shape": f"q (8,1024,14,64), k/v (8,1024,2,64) bf16 causal: one "
+                 f"Model.loss layer; timed over {row['sets']} input sets",
+        "prefill": {k: pre[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms", "visible_pairs")},
+    })
+    for name, r in (("loss shape", row), (f"prefill S={S_pre}", pre)):
+        print(f"flash_attention ({name}): {r['ms']*1e3:.2f} us on the card "
+              f"({r['eager_ms']*1e3:.2f} us per eager call), plain "
+              f"{r['plain_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.2f} us "
+              f"({r['bound_by']}, {r['visible_pairs']} visible pairs per "
+              f"head), scaled_dot_product_attention "
+              f"{r['library_ms']*1e3:.2f} us")
+    return row
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def tiny_lm_phase(torch):
+    """A tiny f32 model: Model.loss on the card equals the CPU's within 1e-5
+    relative, through the flash kernel (one launch per layer), and
+    ReferenceEngine gives the CPU's greedy tokens, float and int8-PoT."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.nn import Model, get_config
+    from repro_torch.runtime.serve import ReferenceEngine, Request
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(), n_layers=2,
+                              vocab=64, dtype="float32")
+    params = Model(cfg, device="cpu").init(0)
+    batch = TokenPipeline(vocab=64, seq_len=200, global_batch=2).batch(0)
+    losses = []
+    for dev in ("cpu", "cuda"):
+        n0 = flash_attention_kernel.launches
+        losses.append(float(Model(cfg, device=dev).loss(_to(params, dev),
+                                                         batch)[0]))
+        launched = flash_attention_kernel.launches - n0
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    check(rel <= 1e-5 and launched == cfg.n_layers,
+          f"tiny Model.loss: card {losses[1]!r} cpu {losses[0]!r} (rel "
+          f"{rel:.3e}), {launched} flash launches")
+    print(f"tiny f32 Model.loss: card {losses[1]!r}, CPU {losses[0]!r}, "
+          f"rel diff {rel:.3e} (tolerance 1e-5), {launched} flash launches")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 64, n).astype(np.int32)
+               for n in (3, 17, 9, 22, 30)]
+    for quantized in (False, True):
+        outs = []
+        for dev in ("cpu", "cuda"):
+            eng = ReferenceEngine(cfg, params, max_batch=2, max_context=48,
+                                  eos_id=-1, quantized=quantized, device=dev)
+            reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=6)
+                    for i, p in enumerate(prompts)]
+            eng.run(reqs)
+            outs.append([r.out_tokens for r in reqs])
+        check(outs[0] == outs[1], f"tiny ReferenceEngine (quantized="
+              f"{quantized}): card {outs[1]} != cpu {outs[0]}")
+        print(f"tiny ReferenceEngine (quantized={quantized}): card tokens == "
+              f"CPU tokens ({outs[1][0]} ...)")
+
+
 # host functions of the tune call whose cumulative time the paper phase
 # reads off cProfile (nested ones overlap: commit_many holds _refresh)
 HOST_SPANS = ("tuning.py:_adders_polish_batched", "batched.py:evaluate_chain",
@@ -573,20 +787,9 @@ def paper_phase(torch):
                                 max_sweeps=sweeps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    evs = device_events(prof)
-    busy = busy_us(evs)
-    check(busy > 0, "profiler window recorded no device time")
     check(_tune_summary(tp_prof) == _tune_summary(tp),
           "profiled tune rerun differs")
-    by_name = {}
-    for e in evs:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
-    print(f"profile (tune call, csd): wall {wall_us/1e3:.3f} ms, device "
-          f"busy {busy/1e3:.3f} ms ({100*busy/wall_us:.3f} %), idle "
-          f"{100*(1-busy/wall_us):.3f} %")
-    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
-        print(f"  {t/1e3:9.3f} ms {n:6d} x  {name[:90]}")
+    report_profile(prof, wall_us, "tune call, csd", 8, digits=3)
 
     # and under cProfile: where the host's time goes
     tp_host, wall, spans = host_breakdown(torch, lambda: tune_parallel(
@@ -619,6 +822,84 @@ def paper_phase(torch):
     return launches
 
 
+def ptq_phase(torch):
+    """The LM-scale search, rescale and ReferenceEngine serving at full
+    width, through the launcher's pipeline, with the flash-attention
+    counter zeroed just before and read just after."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch import serve_quantized as sq
+    flash_attention_kernel.launches = 0
+    run = sq.run_pipeline("cuda")
+    launches = {"flash_attention": flash_attention_kernel.launches}
+    L = run.cfg.n_layers
+    sec, calls, fl = run.seconds, run.loss_calls, run.launches
+    print(f"ptq search (batched): bits={run.bits} history={run.history}; "
+          f"{sec['search']:.3f} s, {calls['search']} Model.loss calls, "
+          f"{fl['search']} flash launches")
+    print(f"ptq search (serial): bits={run.serial[0]} history="
+          f"{run.serial[1]}; {sec['serial']:.3f} s, {calls['serial']} "
+          f"Model.loss calls, {fl['serial']} flash launches")
+    print(f"ptq sls_rescale: {run.raised} exponents raised; "
+          f"{sec['rescale']:.3f} s, {calls['rescale']} Model.loss calls, "
+          f"{fl['rescale']} flash launches; bytes float {run.float_bytes} -> "
+          f"quant {run.quant_bytes}")
+    check(run.serial == (run.bits, run.history),
+          "batched and serial min_bitwidth_search differ")
+    check(all(np.isfinite(loss) for _, loss in run.history),
+          f"a loss is not finite: {run.history}")
+    for step in ("search", "serial", "rescale"):
+        check(fl[step] == L * calls[step],
+              f"{step}: {fl[step]} flash launches for {calls[step]} "
+              f"Model.loss calls")
+    reqs = run.requests
+    n_batches = -(-len(reqs) // sq.MAX_BATCH)
+    check(all(r.status == "done" and len(r.out_tokens) == sq.MAX_NEW
+              for r in reqs), "a request did not finish with its tokens")
+    toks = np.array([r.out_tokens for r in reqs])
+    check(toks.min() >= 0 and toks.max() < run.cfg.vocab,
+          "token out of range")
+    check(fl["serve"] == L * n_batches,
+          f"serve: {fl['serve']} flash launches for {n_batches} prefills")
+    s = run.engine.stats
+    first = [run.token_s[r.rid][0] for r in reqs]
+    total = [run.token_s[r.rid][1] for r in reqs]
+    from repro_torch.runtime.serve import percentile as pct
+    print(f"reference serving (int8-PoT, bits={run.bits}): {len(reqs)} "
+          f"requests in {sec['serve']:.3f} s, {n_batches} batches; prefill "
+          f"{s['prefill_tokens']} tok in {s['prefill_s']:.3f} s "
+          f"({s['prefill_tokens']/s['prefill_s']:.1f} tok/s); decode "
+          f"{s['decode_tokens']} tok in {s['decode_s']:.3f} s "
+          f"({s['decode_tokens']/s['decode_s']:.1f} tok/s); "
+          f"{fl['serve']} flash launches")
+    print(f"reference latency: first token p50 {pct(first, 50)*1e3:.1f} ms "
+          f"p99 {pct(first, 99)*1e3:.1f} ms; total p50 "
+          f"{pct(total, 50)*1e3:.1f} ms p99 {pct(total, 99)*1e3:.1f} ms; "
+          f"peak memory {run.peak_bytes/2**30:.3f} GiB")
+    print(f"serving ledger totals: {run.ledger.to_dict()['totals']}")
+    print(f"launches on the ptq path: {launches}")
+    return launches, run
+
+
+def reference_profile_phase(torch, run):
+    """Device busy share and top kernels over one more ReferenceEngine
+    batch (prefill and 31 decode steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve_quantized as sq
+    from repro_torch.runtime.serve import Request
+    eng = run.engine
+    reqs = [Request(rid=100 + i, prompt=p, max_new_tokens=sq.MAX_NEW)
+            for i, p in enumerate(sq.prompts(run.cfg.vocab)[:sq.MAX_BATCH])]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check(all(r.status == "done" for r in reqs), "a profiled request failed")
+    report_profile(prof, wall_us, "one ReferenceEngine batch", 12)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -631,20 +912,24 @@ def main() -> int:
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
+    sources = ("paged_gather", "paged_attention", "csd_matvec",
+               "flash_attention")
     t0 = time.perf_counter()
-    build.build(["paged_gather", "paged_attention", "csd_matvec"])
-    print(f"build: {time.perf_counter()-t0:.2f} s (paged_gather.cu, "
-          f"paged_attention.cu, csd_matvec.cu, in parallel)")
-    for name in ("paged_gather", "paged_attention", "csd_matvec"):
+    build.build(sources)
+    print(f"build: {time.perf_counter()-t0:.2f} s "
+          f"({', '.join(n + '.cu' for n in sources)}, in parallel)")
+    for name in sources:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     t0 = time.perf_counter()
     kernels = kernel_phase(torch)
     kernels += csd_kernel_phase(torch)
+    kernels.append(flash_kernel_phase(torch))
     print(f"kernel phase: {time.perf_counter()-t0:.2f} s")
     t0 = time.perf_counter()
     tiny_reference_phase(torch)
+    tiny_lm_phase(torch)
     print(f"tiny reference phase: {time.perf_counter()-t0:.2f} s")
     t0 = time.perf_counter()
     launches, eng, spec, cfg = serving_phase(torch)
@@ -653,6 +938,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(paper_phase(torch))
     print(f"paper phase: {time.perf_counter()-t0:.2f} s")
+    t0 = time.perf_counter()
+    ptq_launches, run = ptq_phase(torch)
+    launches.update(ptq_launches)
+    print(f"ptq phase: {time.perf_counter()-t0:.2f} s")
+    reference_profile_phase(torch, run)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

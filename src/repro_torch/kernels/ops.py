@@ -14,11 +14,13 @@ from repro_torch.core.csd import to_csd_array
 
 from .csd_matvec import (csd_matvec_kernel, csd_matvec_plain,
                          csd_qsweep_kernel, csd_qsweep_plain)
+from .flash_attention import flash_attention_kernel, flash_attention_plain
 from .paged_attention import paged_attention_kernel, paged_attention_plain
 from .paged_gather import paged_gather_kernel, paged_gather_plain
 
 __all__ = ["quantize_pot", "exp2_int", "paged_gather", "paged_attention",
-           "csd_expand", "csd_expand_stack", "csd_matvec", "csd_qsweep"]
+           "csd_expand", "csd_expand_stack", "csd_matvec", "csd_qsweep",
+           "flash_attention"]
 
 
 def csd_expand(w_int, depth: int | None = None) -> np.ndarray:
@@ -136,3 +138,20 @@ def paged_attention(q, k_pool, v_pool, table, cache_len, *, window: int = 0):
                                       window=window)
     _plain_or_raise(q, "paged_attention")
     return paged_attention_plain(q, k_pool, v_pool, eff, clen, window=window)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    bk: int = 256, offset=None):
+    """Flash attention for any Sq / Skv: q (B, Sq, Hq, D), k/v
+    (B, Skv, Hkv, D), every key real, query row i at position
+    ``i + offset`` (default ``Skv - Sq``).  ``bk`` is the key tile; it
+    only matters to a row that sees no key (see
+    ``kernels/flash_attention.py``)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    kw = dict(causal=causal, window=window, kv_len=Skv,
+              offset=Skv - Sq if offset is None else offset, bk=bk)
+    if q.is_cuda:
+        return flash_attention_kernel(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), **kw)
+    _plain_or_raise(q, "flash_attention")
+    return flash_attention_plain(q, k, v, **kw)

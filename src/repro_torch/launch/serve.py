@@ -7,7 +7,9 @@ the admission queue, and reports per-request latency percentiles plus
 prefill/decode throughput.  ``--kv-gather cuda`` routes the block-table
 gather through the CUDA kernel; ``--decode-kernel fused`` runs decode
 attention straight from the KV block pool through the fused CUDA kernel.
-Parameters are random, from ``--seed``.
+``--engine reference`` runs the reference's continuous-batching-lite
+``ReferenceEngine`` instead (whole-prompt prefill through the
+flash-attention kernel).  Parameters are random, from ``--seed``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import time
 import numpy as np
 
 from repro_torch.nn import Model, get_config
-from repro_torch.runtime.serve import Request, ServeEngine, summarize
+from repro_torch.runtime.serve import (ReferenceEngine, Request, ServeEngine,
+                                       summarize)
 
 
 def main(argv=None):
@@ -27,7 +30,8 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--batch", type=int, default=4, help="KV slots")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="KV slots (paged) / decode batch (reference)")
     ap.add_argument("--context", type=int, default=128)
     ap.add_argument("--quantized", action="store_true")
     ap.add_argument("--bits", type=int, default=8)
@@ -50,6 +54,8 @@ def main(argv=None):
                     default="truncate")
     ap.add_argument("--deadline", type=float, default=None,
                     help="per-request queue deadline in seconds")
+    ap.add_argument("--engine", choices=("paged", "reference"),
+                    default="paged")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -58,16 +64,23 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     params = Model(cfg, device=args.device).init(args.seed)
-    eng = ServeEngine(cfg, params, max_batch=args.batch,
-                      max_context=args.context, eos_id=-1,
-                      quantized=args.quantized, quant_bits=args.bits,
-                      temperature=args.temperature,
-                      prefill_chunk=args.prefill_chunk,
-                      prefill_batch=args.prefill_batch,
-                      kv_block_size=args.kv_block_size,
-                      kv_gather=args.kv_gather,
-                      decode_kernel=args.decode_kernel,
-                      admission=args.admission, device=args.device)
+    if args.engine == "reference" or cfg.family not in ("dense", "moe"):
+        eng = ReferenceEngine(cfg, params, max_batch=args.batch,
+                              max_context=args.context, eos_id=-1,
+                              quantized=args.quantized, quant_bits=args.bits,
+                              temperature=args.temperature,
+                              admission=args.admission, device=args.device)
+    else:
+        eng = ServeEngine(cfg, params, max_batch=args.batch,
+                          max_context=args.context, eos_id=-1,
+                          quantized=args.quantized, quant_bits=args.bits,
+                          temperature=args.temperature,
+                          prefill_chunk=args.prefill_chunk,
+                          prefill_batch=args.prefill_batch,
+                          kv_block_size=args.kv_block_size,
+                          kv_gather=args.kv_gather,
+                          decode_kernel=args.decode_kernel,
+                          admission=args.admission, device=args.device)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i,
                     prompt=rng.integers(0, cfg.vocab, args.prompt_len)
@@ -79,19 +92,20 @@ def main(argv=None):
     eng.run(reqs)
     wall = time.time() - t0
     print(f"served {len(reqs)} requests in {wall:.2f}s on {eng.device} "
-          f"(quantized={args.quantized})")
+          f"(engine={args.engine}, quantized={args.quantized})")
     print(f"prefill: {eng.stats['prefill_tokens']} tok in "
           f"{eng.stats['prefill_s']:.2f}s; decode: "
           f"{eng.stats['decode_tokens']} tok in {eng.stats['decode_s']:.2f}s "
           f"({eng.stats['decode_tokens']/max(eng.stats['decode_s'],1e-9):.1f}"
           f" tok/s)")
-    s = summarize(reqs, eng)
-    print(f"latency: first-token p50={s['p50_first_token_s']*1e3:.1f}ms "
-          f"p99={s['p99_first_token_s']*1e3:.1f}ms; total "
-          f"p50={s['p50_total_s']*1e3:.1f}ms "
-          f"p99={s['p99_total_s']*1e3:.1f}ms; "
-          f"done={s['done']} rejected={s['rejected']} "
-          f"expired={s['expired']} truncated={s['truncated']}")
+    if isinstance(eng, ServeEngine):
+        s = summarize(reqs, eng)
+        print(f"latency: first-token p50={s['p50_first_token_s']*1e3:.1f}ms "
+              f"p99={s['p99_first_token_s']*1e3:.1f}ms; total "
+              f"p50={s['p50_total_s']*1e3:.1f}ms "
+              f"p99={s['p99_total_s']*1e3:.1f}ms; "
+              f"done={s['done']} rejected={s['rejected']} "
+              f"expired={s['expired']} truncated={s['truncated']}")
     for r in reqs[:3]:
         print(f"  req {r.rid}: {r.out_tokens}")
 

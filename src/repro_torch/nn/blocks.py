@@ -1,6 +1,5 @@
-"""Attention and dense-FFN blocks of the serving path, init + apply style
-(counterpart of ``repro/nn/blocks.py``; MoE, RWKV and RG-LRU are not
-ported yet).
+"""Attention and dense-FFN blocks, init + apply style (counterpart of
+``repro/nn/blocks.py``; MoE, RWKV and RG-LRU are not ported yet).
 
 Parameters are plain dicts of tensors in the reference's layouts (weights
 ``(in, out)``); ``lead`` prepends stacking dims, so a model initializes all
@@ -14,7 +13,7 @@ import math
 
 import torch
 
-from .layers import (decode_attention, gather_block_rows,
+from .layers import (chunked_attention, decode_attention, gather_block_rows,
                      paged_decode_attention_ref, rms_norm, rope, swiglu)
 from .types import ArchConfig
 
@@ -63,6 +62,24 @@ def _qkv(p, x, cfg: ArchConfig):
     k = k.reshape(B, S, cfg.n_kv_heads, hd)
     v = v.reshape(B, S, cfg.n_kv_heads, hd)
     return q, k, v
+
+
+def attention_seq(p, x, cfg: ArchConfig, *, positions=None, window: int = 0,
+                  causal: bool = True, kv_override=None):
+    """Full-sequence self-attention (training and prefill).  Every row sees
+    its own key, so the reference's block sizes change no result.
+    Cross-attention (``kv_override``) comes with the audio family."""
+    if kv_override is not None:
+        raise NotImplementedError("cross-attention (kv_override) is not "
+                                  "ported yet")
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(p, x, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = chunked_attention(q, k, v, causal=causal, window=window)
+    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
 def kv_writes(cache_k, pos, block_table=None):

@@ -1,5 +1,4 @@
-"""Layer primitives of the serving path (counterpart of
-``repro/nn/layers.py``).
+"""Layer primitives of the model (counterpart of ``repro/nn/layers.py``).
 
 Plain functions on tensors, in the JAX package's layouts: activations
 (B, S, H, D), caches (B, C, Hkv, D), block pools (NB, bs, Hkv, D).  Where
@@ -39,6 +38,24 @@ def rope(x, positions, theta: float = 1e4):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      block_kv: int = 512, q_offset: int = 0):
+    """Online-softmax attention over blocks of ``block_kv`` keys.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); query row i sits at position
+    ``q_offset + i``; ``window > 0`` limits it to the last ``window``
+    positions.  GQA reads KV head ``h // (Hq // Hkv)``; the repeated K/V
+    never materializes.  On a CUDA tensor this is the flash-attention
+    kernel, on the CPU its plain version (``repro_torch.kernels.
+    flash_attention``), both with this function's contract: every block
+    of the kv length is walked, so a row that sees no key averages v over
+    all of them as the reference's scan does (its query tiling,
+    ``block_q``, changes no result).  Returns (B, Sq, Hq, D)."""
+    from repro_torch.kernels import flash_attention
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           bk=min(block_kv, k.shape[1]), offset=q_offset)
 
 
 def chunk_cache_attention(q, k_cache, v_cache, q_pos):

@@ -9,12 +9,17 @@ takes the place of ``lax.scan``.  Caches are ``{"k", "v"}`` tensors of
 block-paged; the serving dispatches update them IN PLACE and return the
 same dict (the reference donates the cache to XLA instead).
 
-Public surface used by the serving engine:
+Public surface:
     m = Model(cfg, device="cuda")
     params = m.init(seed)
+    loss, metrics = m.loss(params, batch)     # the PTQ search's metric
+    logits, cache = m.prefill(params, batch)  # ReferenceEngine: the prompt
     cache = m.init_cache(batch, context)
     logits, cache = m.prefill_chunks(params, cache, tokens, slots, offs, nv)
     logits, cache = m.decode_step(params, cache, tokens, pos)
+
+Nothing here takes a gradient: every entry point runs under
+``torch.no_grad``, and the backbone has no rematerialization.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ from . import blocks
 from .layers import chunk_cache_attention, gather_block_rows, rms_norm, rope
 from .types import ArchConfig
 
-__all__ = ["Model", "params_from_jax", "layer_params"]
+__all__ = ["Model", "params_from_jax", "layer_params", "XENT_CHUNK"]
+
+XENT_CHUNK = 512  # positions per cross-entropy chunk (bounds logits memory)
 
 
 def resolve_device(device) -> torch.device:
@@ -94,6 +101,85 @@ class Model:
                 "mlp": blocks.init_mlp(gen, d, cfg.d_ff, lead=(L,)),
             },
         }
+
+    # ------------------------------------------------------------- forward
+    def _decoder_block(self, p, x, *, window: int = 0):
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
+        x = x + blocks.attention_seq(p["attn"], h, cfg, window=window)
+        h = rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
+        return x + blocks.mlp_apply(p["mlp"], h)
+
+    def _backbone(self, params, x):
+        """Full-sequence trunk (loss / prefill), x: (B, S, d)."""
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            x = self._decoder_block(layer_params(params["layers"], i), x)
+        return rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+
+    def _embed_inputs(self, params, batch):
+        """Token embedding; returns (x, labels, loss_mask), the last two
+        None without ``batch["labels"]``."""
+        x = params["embed"][self._long(batch["tokens"])].to(self.dtype)
+        if "labels" not in batch:
+            return x, None, None
+        labels = self._long(batch["labels"])
+        return x, labels, torch.ones(labels.shape, dtype=torch.float32,
+                                     device=self.device)
+
+    def _xent(self, params, x, labels, mask):
+        """Chunked softmax cross-entropy: one (B, XENT_CHUNK, V) block of
+        f32 logits at a time."""
+        S = x.shape[1]
+        chunk = min(XENT_CHUNK, S)
+        head = params["lm_head"].to(self.dtype)
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, S, chunk):
+            logits = (x[:, c0:c0 + chunk] @ head).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                labels[:, c0:c0 + chunk, None])[..., 0]
+            del logits
+            mc = mask[:, c0:c0 + chunk]
+            tot = tot + ((lse - gold) * mc).sum()
+            cnt = cnt + mc.sum()
+        return tot / torch.clamp(cnt, min=1.0)
+
+    @torch.no_grad()
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
+        of (B, S)); returns (loss, {"xent", "aux"}) as 0-d f32 tensors."""
+        x, labels, mask = self._embed_inputs(params, batch)
+        x = self._backbone(params, x)
+        xent = self._xent(params, x, labels, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return xent + 0.01 * aux, {"xent": xent, "aux": aux}
+
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        """Ingest whole prompts ``batch["tokens"]`` (B, S); returns
+        (last-position logits (B, 1, V) f32, the cache {k, v} of
+        (L, B, S, Hkv, hd) with K roped at positions 0..S-1 -- the layout
+        :meth:`decode_step` reads)."""
+        cfg = self.cfg
+        x, _, _ = self._embed_inputs(params, batch)
+        B, S, _ = x.shape
+        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim_)
+        cache = {"k": torch.empty(shape, dtype=x.dtype, device=self.device),
+                 "v": torch.empty(shape, dtype=x.dtype, device=self.device)}
+        positions = torch.arange(S, device=self.device)[None, :]
+        for i in range(cfg.n_layers):
+            pl = layer_params(params["layers"], i)
+            # the reference recomputes the layer's K/V for the cache
+            hn = rms_norm(x, pl["ln1"].to(x.dtype), cfg.norm_eps)
+            _, k, v = blocks._qkv(pl["attn"], hn, cfg)
+            cache["k"][i] = rope(k, positions, cfg.rope_theta)
+            cache["v"][i] = v
+            x = self._decoder_block(pl, x)
+        x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+        logits = x[:, -1:] @ params["lm_head"].to(x.dtype)
+        return logits.float(), cache
 
     # -------------------------------------------------------------- serving
     def init_cache(self, batch: int, context: int) -> dict:

@@ -1,2 +1,3 @@
-from .ptq import (dequant, pack_int4, quant_bytes,  # noqa: F401
-                  quantize_tree, serving_quant, unpack_int4)
+from .ptq import (dequant, min_bitwidth_search, pack_int4,  # noqa: F401
+                  quant_bytes, quantize_tree, serving_ledger, serving_quant,
+                  sls_rescale, unpack_int4)

@@ -1,11 +1,21 @@
-"""Post-training quantization for serving (counterpart of the serving part
-of ``repro/quant/ptq.py``).
+"""Post-training quantization for the LM zoo -- the paper's pipeline at
+scale (counterpart of ``repro/quant/ptq.py``).
 
-Per-channel power-of-two-scale int8 (or nibble-packed int4) quantization
-of the matmul weights -- the paper's 2^q conversion, per output channel.
-Norm scales, biases and other small leaves stay float.  ``dequant``
-reconstructs the float weights exactly (the scale is a power of two).
-``serving_ledger`` and the bit-width searches are not ported yet.
+1. ``quantize_tree`` -- per-channel power-of-two-scale int8 (or
+   nibble-packed int4) quantization of the matmul weights, the paper's 2^q
+   conversion per output channel.  Norm scales, biases and other small
+   leaves stay float; ``dequant`` reconstructs the float weights exactly.
+2. ``min_bitwidth_search`` -- the paper's minimum-quantization-value loop
+   (IV-A) with the LM metric: walk down the bit ladder while the loss on a
+   validation batch stays within a relative budget.
+3. ``sls_rescale`` -- the smallest-left-shift tuning (IV-C analogue), PoT
+   form: raise each matmul's shared exponents while the budget holds.
+4. ``serving_ledger`` -- the serving cost sheet of a (params, bits) pair.
+
+Leaves are visited in the reference's tree order (dict keys sorted, a
+qleaf whole), and named by the reference's path strings
+(``"layers/attn/wq"``), so the rescale's greedy walk and the ledger's rows
+come in the reference's order.
 """
 from __future__ import annotations
 
@@ -13,10 +23,12 @@ from collections.abc import Mapping
 
 import torch
 
+from repro_torch.core.hwmodel import ServingCostSheet
 from repro_torch.kernels.ops import exp2_int, quantize_pot
 
-__all__ = ["quantize_tree", "dequant", "quant_bytes", "pack_int4",
-           "unpack_int4", "serving_quant"]
+__all__ = ["quantize_tree", "dequant", "min_bitwidth_search", "sls_rescale",
+           "quant_bytes", "pack_int4", "unpack_int4", "serving_quant",
+           "serving_ledger"]
 
 _SKIP_SUBSTR = ("ln", "norm", "router", "gate_i", "gate_r", "lam", "mu",
                 "u", "w0", "bias", "bq", "bk", "bv")
@@ -134,3 +146,137 @@ def serving_quant(params, *, bits=8, dtype=torch.bfloat16):
         return dequant(tree, dtype=dtype)
 
     return qt, deq, quant_bytes(qt)
+
+
+def _flatten(tree, path=()):
+    """(path tuple, leaf) pairs in the reference's tree order: dict keys
+    sorted, a qleaf kept whole."""
+    if isinstance(tree, dict) and not _is_qleaf(tree):
+        return [item for key in sorted(tree)
+                for item in _flatten(tree[key], path + (key,))]
+    return [(path, tree)]
+
+
+def _with_leaf(tree, path, leaf):
+    """A copy of ``tree`` with the leaf at ``path`` replaced (the dicts on
+    the path are copied, everything else is shared)."""
+    if not path:
+        return leaf
+    out = dict(tree)
+    out[path[0]] = _with_leaf(tree[path[0]], path[1:], leaf)
+    return out
+
+
+def serving_ledger(params, *, bits=8, act_itemsize: float = 2.0,
+                   meta: dict | None = None) -> ServingCostSheet:
+    """Price a (params, bits) pair as a :class:`~repro_torch.core.hwmodel.
+    ServingCostSheet`: weight bytes at each matmul's rung, activation bytes
+    and int-ops per token, roofline intensity.
+
+    Weight bytes are priced at the LOGICAL bitwidth (size * bits / 8 plus
+    the per-channel int32 scale); unquantized leaves (norms, biases) land
+    in ``extra_bytes``.  Rows are named by the reference's path strings and
+    come in its order, so ``to_dict()`` equals the reference's."""
+    sheet = ServingCostSheet(meta=dict(meta or {}))
+    extra = 0.0
+    for path, leaf in _flatten(params):
+        key = "/".join(path)
+        if not _should_quantize(key, leaf):
+            extra += leaf.numel() * leaf.element_size()
+            continue
+        n = int(leaf.shape[-1])
+        sheet.add_layer(key, bits=_bits_for(bits, key),
+                        k=int(leaf.shape[-2]), n=n, size=int(leaf.numel()),
+                        scale_bytes=4.0 * n, act_itemsize=act_itemsize)
+    sheet.extra_bytes = extra
+    if not isinstance(bits, int):
+        sheet.meta.setdefault("bits", {k: _bits_for(bits, k)
+                                       for k in sheet.bits_by_layer()})
+    return sheet
+
+
+def _eval_many_default(eval_fn):
+    """Scorer for an iterable of same-structure trees: ``eval_fn`` on each
+    in turn.  The reference stacks the trees under one ``lax.map``
+    dispatch, which gives the same per-tree losses; here each tree is
+    scored as it comes, so a lazy iterable keeps one dequantized copy
+    alive at a time."""
+    def eval_many(trees):
+        return [eval_fn(t) for t in trees]
+    return eval_many
+
+
+def min_bitwidth_search(params, eval_fn, *, budget: float = 0.01,
+                        bit_ladder=(8, 6, 5, 4), engine: str = "batched",
+                        eval_many=None) -> tuple:
+    """Paper IV-A at LM scale: walk down the bit ladder while quality holds.
+
+    ``eval_fn(float_tree) -> scalar loss`` (lower is better).  Returns
+    (quantized tree, chosen bits, history); the budget is a relative loss
+    increase over the float baseline.
+
+    ``engine="batched"`` quantizes every rung once, scores them all
+    through ``eval_many`` (default: :func:`_eval_many_default`; it receives
+    an iterable of dequantized trees, made one at a time) and then walks
+    the per-rung losses with the serial stopping rule; ``engine="serial"``
+    is the quantize-score-break loop.  Both return the same
+    ``(tree, bits, history)``."""
+    if engine not in ("batched", "serial"):
+        raise ValueError(engine)
+    base = float(eval_fn(params))
+    history = [("float", base)]
+    chosen, bits_used = None, None
+    if engine == "serial":
+        for bits in bit_ladder:
+            qt = quantize_tree(params, bits=bits)
+            loss = float(eval_fn(dequant(qt)))
+            history.append((bits, loss))
+            if loss <= base * (1.0 + budget):
+                chosen, bits_used = qt, bits
+            else:
+                break
+        if chosen is None:                # even the first rung broke it
+            chosen, bits_used = quantize_tree(params, bits=bit_ladder[0]), \
+                bit_ladder[0]
+        return chosen, bits_used, history
+    qts = [quantize_tree(params, bits=b) for b in bit_ladder]
+    if eval_many is None:
+        eval_many = _eval_many_default(eval_fn)
+    losses = [float(x) for x in eval_many(dequant(qt) for qt in qts)]
+    for bits, qt, loss in zip(bit_ladder, qts, losses):  # serial stopping
+        history.append((bits, loss))                     # walk
+        if loss <= base * (1.0 + budget):
+            chosen, bits_used = qt, bits
+        else:
+            break                    # deeper rungs scored but never visited
+    if chosen is None:
+        chosen, bits_used = qts[0], bit_ladder[0]
+    return chosen, bits_used, history
+
+
+def sls_rescale(qtree, eval_fn, *, budget: float = 0.01, max_raise: int = 2):
+    """Paper IV-C analogue: raise shared PoT exponents (coarser grids) while
+    the budget holds.  Raising a leaf's exponent by k zeroes the k LSBs of
+    every mantissa in it -- the paper's 'multiple of 2^k' narrowing.  The
+    qleaves are tried in the reference's order, greedily, k = 1 ..
+    ``max_raise`` each until one breaks the budget.  Returns (tree, number
+    of raises kept)."""
+    base = float(eval_fn(dequant(qtree)))
+    raised = 0
+    tree = qtree
+    for path, leaf in _flatten(qtree):
+        if not _is_qleaf(leaf):
+            continue
+        packed = leaf.get("packed")
+        for k in range(1, max_raise + 1):
+            cand = dict(leaf)
+            mant = unpack_int4(leaf["q"]) if packed else leaf["q"]
+            mant = ((mant.to(torch.int32) >> k) << k).to(torch.int8)
+            cand["q"] = pack_int4(mant) if packed else mant
+            trial = _with_leaf(tree, path, cand)
+            if float(eval_fn(dequant(trial))) <= base * (1.0 + budget):
+                tree = trial
+                raised += 1
+            else:
+                break
+    return tree, raised

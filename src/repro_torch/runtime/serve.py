@@ -23,11 +23,17 @@
 * in-place cache updates: both dispatches write the KV tensors in place.
 
 With ``quantized=True`` the matmul weights stay resident as int8-PoT and
-are dequantized inside each dispatch.  The engine runs on the card unless
-the caller passes ``device="cpu"``; with no card visible it raises.
-Not ported yet: ``ReferenceEngine``, data/tensor-parallel decode,
-``decode_kernel="auto"``, MoE, and the ``serving_ledger`` sheet
-(``serving_sheet`` stays None).
+are dequantized inside each dispatch, and ``serving_sheet`` holds the
+``serving_ledger`` of the served bits.
+
+``ReferenceEngine`` is the reference's parity oracle: a fixed decode batch,
+whole-batch left-padded prefill through ``Model.prefill`` (and so through
+the flash-attention kernel on the card), the prefill cache padded to the
+serving context, and batch refresh only at prefill boundaries.
+
+Both engines run on the card unless the caller passes ``device="cpu"``;
+with no card visible they raise.  Not ported yet: data/tensor-parallel
+decode, ``decode_kernel="auto"``, MoE.
 """
 from __future__ import annotations
 
@@ -40,12 +46,13 @@ import torch
 
 from repro_torch.nn.model import Model, resolve_device
 from repro_torch.nn.types import ArchConfig
-from repro_torch.quant import serving_quant
+from repro_torch.quant import serving_ledger, serving_quant
 from repro_torch.runtime import kvcache
 from repro_torch.runtime.kvcache import (ADMIT_REJECT, ADMIT_TRUNCATE,
                                          PagedKVCache)
 
-__all__ = ["ServeEngine", "Request", "summarize"]
+__all__ = ["ServeEngine", "ReferenceEngine", "Request", "summarize",
+           "percentile"]
 
 
 @dataclass
@@ -66,6 +73,15 @@ class Request:
     stats: dict = field(default_factory=dict)
 
 
+def percentile(xs, p) -> float:
+    """The sorted value at index ``round(p / 100 * (n - 1))`` (0.0 for no
+    values)."""
+    xs = sorted(xs)
+    if not xs:
+        return 0.0
+    return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
+
+
 def summarize(requests, engine=None) -> dict:
     """p50/p99 latency + throughput over a served request list.
 
@@ -78,10 +94,7 @@ def summarize(requests, engine=None) -> dict:
     done = [r for r in requests if r.status == "done"]
 
     def pct(key, p):
-        xs = sorted(r.stats[key] for r in done if key in r.stats)
-        if not xs:
-            return 0.0
-        return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
+        return percentile([r.stats[key] for r in done if key in r.stats], p)
 
     dec_tok = sum(r.stats.get("decode_tokens", 0) for r in done)
     dec_s = engine.stats.get("decode_s", 0.0) if engine is not None else 0.0
@@ -114,6 +127,23 @@ def _to_device(tree, device):
     if torch.is_tensor(tree):
         return tree.to(device)
     return tree
+
+
+def _sync(device):
+    """Wait for the device, so a dispatch's wall time is what the stats
+    read."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _emit(r):
+    """Fire the streaming callback for the token just appended."""
+    if r.on_token is not None:
+        r.on_token(r.rid, len(r.out_tokens) - 1, r.out_tokens[-1])
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def _row_seed(seed: int, rid: int, step: int) -> int:
@@ -163,7 +193,6 @@ class ServeEngine:
         self.kv_gather = kv_gather
         self.decode_kernel = decode_kernel
         self.clock = clock
-        self.serving_sheet = None          # serving_ledger is not ported yet
         params = _to_device(params, self.device)
         if quantized:
             # weights stay resident as int8 + PoT exponents; dequantization
@@ -171,10 +200,14 @@ class ServeEngine:
             self.quant_tree, deq, self.quant_bytes = serving_quant(
                 params, bits=quant_bits, dtype=self.model.dtype)
             self.params = self.quant_tree
+            self.serving_sheet = serving_ledger(
+                params, bits=quant_bits,
+                act_itemsize=float(_itemsize(self.model.dtype)))
         else:
             self.params = params
             self.quant_tree = None
             self.quant_bytes = None
+            self.serving_sheet = None
             deq = lambda t: t                                   # noqa: E731
         self._deq = deq
         self.cache = PagedKVCache(self.model, max_batch, max_context,
@@ -213,10 +246,6 @@ class ServeEngine:
             block_table=tbl, kv_gather=self.kv_gather,
             decode_kernel=self.decode_kernel)
 
-    def _sync(self):
-        """Wait for the dispatch, so its wall time is what the stats read."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def _sample(self, logits: torch.Tensor, rids, steps) -> np.ndarray:
         """logits: (B, V) f32; rids/steps: per-row (B,) ints.  Greedy at
@@ -315,10 +344,6 @@ class ServeEngine:
             self._seq += 1
             self.events.append((self._step_idx, "assign", r.rid, slot))
 
-    def _emit(self, r):
-        """Fire the streaming callback for the token just appended."""
-        if r.on_token is not None:
-            r.on_token(r.rid, len(r.out_tokens) - 1, r.out_tokens[-1])
 
     def _prefill_step(self, now):
         """Ingest up to ``prefill_batch`` chunks from different prefilling
@@ -347,7 +372,7 @@ class ServeEngine:
                 self.cache.ensure(slot, st.n_prefilled + n)
         t0 = time.time()
         logits, self.cache.data = self._prefill(toks, slots, offs, nval)
-        self._sync()
+        _sync(self.device)
         dt = time.time() - t0
         self.stats["prefill_s"] += dt
         self.stats["prefill_tokens"] += int(sum(ns))
@@ -375,7 +400,7 @@ class ServeEngine:
             st = self.slots[slot]
             r = st.req
             r.out_tokens.append(int(nxt[j]))
-            self._emit(r)
+            _emit(r)
             r.stats["first_token_s"] = t_first - r.arrival_s
             st.phase = "decode"
             if len(r.out_tokens) >= r.stats["max_new_eff"]:
@@ -433,7 +458,7 @@ class ServeEngine:
                 self.cache.ensure(slot, int(self.cache.lengths[slot]) + 1)
         t0 = time.time()
         lg, self.cache.data = self._decode(toks, pos.astype(np.int64))
-        self._sync()
+        _sync(self.device)
         dt = time.time() - t0
         self.stats["decode_s"] += dt
         self.stats["decode_steps"] += 1
@@ -448,7 +473,7 @@ class ServeEngine:
             self.cache.lengths[slot] += 1     # the fed token's KV was written
             tok = int(nxt[slot])
             r.out_tokens.append(tok)
-            self._emit(r)
+            _emit(r)
             r.stats["decode_tokens"] = r.stats.get("decode_tokens", 0) + 1
             r.stats["decode_s"] = r.stats.get("decode_s", 0.0) + dt
             if tok == self.eos_id or \
@@ -469,3 +494,125 @@ class ServeEngine:
         self.cache.release(slot)
         self.stats["finished"] += 1
         self.events.append((self._step_idx, "release", r.rid, slot))
+
+
+class ReferenceEngine:
+    """The reference's continuous-batching-lite engine, kept as the parity
+    oracle: fixed decode batch, whole-batch left-padded prefill
+    (``Model.prefill``), ``_pad_kv`` re-padding to ``max_context``, batch
+    refresh only at prefill boundaries.  Prompts beyond ``max_context`` are
+    rejected or tail-truncated at enqueue (``admission``).
+
+    Prompts of a batch are left-padded with token 0 and the padding is not
+    masked, as in the reference: a prompt shorter than its batch's longest
+    attends to the padding.  Decode runs on the contiguous cache with one
+    shared position for the batch (``Model.decode_step`` with an int)."""
+
+    def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
+                 max_context: int = 512, eos_id: int = 0,
+                 quantized: bool = False, quant_bits=8,
+                 temperature: float = 0.0, seed: int = 0,
+                 admission: str = "reject", device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = Model(cfg, device=self.device)
+        self.max_batch = max_batch
+        self.max_context = max_context
+        self.eos_id = eos_id
+        self.temperature = temperature
+        self.admission = admission
+        self.rng = np.random.default_rng(seed)
+        self.serving_sheet = None
+        params = _to_device(params, self.device)
+        if quantized:
+            self.quant_tree, deq, _ = serving_quant(
+                params, bits=quant_bits, dtype=self.model.dtype)
+            self.serving_sheet = serving_ledger(
+                params, bits=quant_bits,
+                act_itemsize=float(_itemsize(self.model.dtype)))
+            self.params = self.quant_tree
+        else:
+            self.params = params
+            self.quant_tree = None
+            deq = lambda t: t                                   # noqa: E731
+        self._deq = deq
+        self.stats = {"prefill_tokens": 0, "decode_tokens": 0,
+                      "prefill_s": 0.0, "decode_s": 0.0, "rejected": 0,
+                      "truncated": 0}
+
+    def _sample(self, logits: np.ndarray) -> np.ndarray:
+        if self.temperature <= 0:
+            return np.argmax(logits, axis=-1)
+        z = logits / self.temperature
+        z = z - z.max(-1, keepdims=True)
+        p = np.exp(z)
+        p /= p.sum(-1, keepdims=True)
+        return np.array([self.rng.choice(p.shape[-1], p=pi) for pi in p])
+
+    def run(self, requests: list) -> list:
+        """Serve a list of Requests to completion; returns them filled."""
+        queue = []
+        for r in requests:
+            verdict, eff = kvcache.admit(len(r.prompt), self.max_context,
+                                         self.admission)
+            if verdict == ADMIT_REJECT:
+                r.status, r.done = "rejected", True
+                self.stats["rejected"] += 1
+                continue
+            if verdict == ADMIT_TRUNCATE:
+                r.prompt = np.asarray(r.prompt)[-eff:]
+                r.truncated = True
+                self.stats["truncated"] += 1
+            queue.append(r)
+        while queue:
+            batch = queue[:self.max_batch]
+            queue = queue[self.max_batch:]
+            self._serve_batch(batch)
+        return requests
+
+    def _serve_batch(self, batch: list):
+        B = len(batch)
+        S = max(len(r.prompt) for r in batch)
+        toks = np.zeros((B, S), np.int32)
+        for i, r in enumerate(batch):
+            toks[i, S - len(r.prompt):] = r.prompt     # left-pad
+        t0 = time.time()
+        logits, cache = self.model.prefill(self._deq(self.params),
+                                           {"tokens": toks})
+        _sync(self.device)
+        self.stats["prefill_s"] += time.time() - t0
+        self.stats["prefill_tokens"] += int(B * S)
+        cache = {k: self._pad_kv(v) for k, v in cache.items()}
+        last = self._sample(logits[:, -1].cpu().numpy())
+        for i, r in enumerate(batch):
+            r.out_tokens.append(int(last[i]))
+            _emit(r)
+        max_new = max(min(r.max_new_tokens, self.max_context + 1 - S)
+                      for r in batch)
+        t0 = time.time()
+        for t in range(1, max_new):
+            lg, cache = self.model.decode_step(
+                self._deq(self.params), cache, last[:, None], S + t - 1)
+            last = self._sample(lg[:, 0].cpu().numpy())
+            self.stats["decode_tokens"] += B
+            for i, r in enumerate(batch):
+                if not r.done and len(r.out_tokens) < r.max_new_tokens:
+                    tok = int(last[i])
+                    r.out_tokens.append(tok)
+                    _emit(r)
+                    if tok == self.eos_id:
+                        r.done = True
+            if all(r.done or len(r.out_tokens) >= r.max_new_tokens
+                   for r in batch):
+                break
+        self.stats["decode_s"] += time.time() - t0
+        for r in batch:
+            r.done = True
+            r.status = "done"
+
+    def _pad_kv(self, leaf):
+        """Grow a prefill KV cache (L, B, S, H, D) to the serving context."""
+        if leaf.shape[2] < self.max_context:
+            return torch.nn.functional.pad(
+                leaf, (0, 0, 0, 0, 0, self.max_context - leaf.shape[2]))
+        return leaf

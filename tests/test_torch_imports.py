@@ -41,10 +41,13 @@ def test_port_files_exist():
                 "core/planner.py", "core/quantize.py", "core/tuning.py",
                 "kernels/csd_matvec.py", "train/zaal.py", "eval/batched.py",
                 "eval/torchtail.py", "eval/__init__.py",
-                "launch/quickstart.py"):
+                "launch/quickstart.py", "kernels/flash_attention.py",
+                "data/tokens.py", "core/hwmodel.py",
+                "launch/serve_quantized.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/flash_attention.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES,
