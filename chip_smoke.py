@@ -23,10 +23,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``bf16_disagreement``: each element within two bf16 ulps of its own
    magnitude plus 2^-8 of its row's largest, at most 1 % of elements
    different; the kernel in f32 on the same inputs, i.e. p left unrounded,
-   must fail it at the loss shape): causal GQA 7:1, a window with an offset, rows that see no key,
-   non-causal, MHA, the loss shape (8 x 1024, 14 / 2 heads of 64) and the
-   first reference prefill batch's shape; timed at the loss shape beside
-   ``scaled_dot_product_attention``;
+   must fail it at the loss shape): causal GQA 7:1, a window with an
+   offset, rows that see no key, non-causal, MHA, the loss shape (8 x
+   1024, 14 / 2 heads of 64), the first reference prefill batch's shape,
+   and the hybrid's loss (1 x 4096) and first prefill batch shapes (16 / 1
+   heads of 256, window 2048); timed at the loss shapes and the prefill
+   shapes beside ``scaled_dot_product_attention``.  The linear-scan kernel
+   bit-exact at the reference test's three shapes and the hybrid's loss,
+   first prefill batch and decode shapes, timed at the last three;
 3. small-input references: a tiny f32 model served on the card through
    both serving kernels gives the CPU engine's greedy tokens; the tiny
    model's ``Model.loss`` on the card is the CPU's within 1e-5 relative and
@@ -59,7 +63,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    flash-attention counter is zeroed just before and read just after: 24
    launches per ``Model.loss`` call and per prefill batch;
 8. a ``torch.profiler`` window over one more ``ReferenceEngine`` batch:
-   device busy share and the top kernels.
+   device busy share and the top kernels;
+9. the hybrid family, full width: recurrentgemma-9b (38 layers, d_model
+   4096, 16 / 1 heads of 256, window 2048, vocab 256000; 9,572,462,592
+   parameters, 35.66 GiB of f32 masters, after the earlier phases free
+   theirs) with random weights from seed 0: the f32 decode of token 2101
+   after ``prefill(2100)`` against ``prefill(2101)`` (the ring wraps), a
+   bf16 ``Model.loss`` on one 4096-token ``TokenPipeline`` row, and
+   ``ReferenceEngine`` (4 rows x 2048 context) serving 8 seeded prompts of
+   256-1536 tokens, 32 new tokens each, then one more batch under the
+   profiler.  The counters are zeroed before the loss and read after the
+   serving: 26 linear-scan and 12 flash launches per prefill or loss
+   forward, 26 linear-scan and no flash launches per decode step.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -67,6 +82,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -86,6 +102,25 @@ FLASH_F32_TOL = 2e-5               # the reference's kernel-vs-oracle bound
 # softmax in another order and round p to bf16 at other places, and the
 # difference passes through the bf16 residual stream of the layers above
 LOGIT_REL_TOL = 5e-2
+# The hybrid path: recurrentgemma-9b at full width, random weights from
+# seed 0; ReferenceEngine serves 8 seeded prompts of 256-1536 tokens, 4
+# rows x 2048 context (= local_window, so the padded K/V ring never meets
+# the reference's ring fault), 32 new tokens each.
+HYB_ARCH = "recurrentgemma-9b"
+HYB_PARAMS = 9_572_462_592     # leaves of the reference's Model.init
+HYB_REQUESTS, HYB_PROMPT_LENS = 8, (256, 1536)
+HYB_BATCH, HYB_CONTEXT, HYB_NEW = 4, 2048, 32
+HYB_LOSS_SEQ = 4096
+# f32 decode of token 2101 against prefill(2101): past the 2048 window, so
+# the ring wraps.  Both routes run the same f32 operations, but their
+# matmuls have other shapes (1 row against 2101: other cuBLAS kernels and
+# summation orders, each off by ~sqrt(K) 2^-24 ~ 1e-5 relative at K =
+# 12288) and attention reduces in another order (a softmax over the ring
+# against the flash kernel's online one).  ~190 products over 38 layers
+# add such errors to ~1e-4-1e-3 of the logits' scale; a wrong ring slot or
+# a lost recurrent or conv state moves them by a large share of it.
+HYB_DECODE_PROMPT = 2100
+HYB_DECODE_REL = 2e-3          # x max |logit|
 
 
 def check(cond, msg):
@@ -168,6 +203,21 @@ def time_calls(torch, fn, arg_sets, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n, eager_ms
+
+
+def ptxas_lines(log):
+    """(kernel, line) for each register and spill line of a ptxas -v log;
+    the kernel is its mangled name cut to the template arguments
+    (``flash_attention_kernelIfLi256EE``: float, D = 256)."""
+    import re
+    fn = "?"
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"[a-z][a-z_]*_kernel(?:I\w*?EE)?", m.group(1))
+            fn = k.group(0) if k else m.group(1)[:60]
+        elif "registers" in line or "spill" in line:
+            yield fn, line.strip()
 
 
 def card_line():
@@ -525,14 +575,17 @@ def visible_pairs(Sq, Skv, causal, window, offset):
 def flash_kernel_phase(torch):
     """The flash-attention kernel against its plain version on the card,
     f32 and bf16, and its time at the loss shape beside the bound, the
-    plain version and scaled_dot_product_attention."""
+    plain version and scaled_dot_product_attention; the same at the hybrid
+    path's shapes (D = 256, MQA 16:1, window 2048)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         BF16_SHARE, KEY_TILE, bf16_disagreement, flash_attention_kernel,
         flash_attention_plain)
     from repro_torch.launch import serve_quantized as sq
     S_pre = max(len(p) for p in sq.prompts(151936)[:sq.MAX_BATCH])
+    H_pre = hybrid_prefill_len()
     chunked = dict(bk=512, offset=0)          # chunked_attention's call
+    local = dict(chunked, window=2048)        # the hybrid's local attention
     # name, (B, Sq, Skv, Hq, Hkv, D), semantics
     cases = [
         ("causal GQA 7:1", (2, 1024, 1024, 14, 2, 64),
@@ -549,6 +602,11 @@ def flash_kernel_phase(torch):
          dict(causal=True, **chunked)),
         (f"prefill shape (first batch, S={S_pre})",
          (8, S_pre, S_pre, 14, 2, 64), dict(causal=True, **chunked)),
+        ("hybrid loss shape, window 2048", (1, HYB_LOSS_SEQ, HYB_LOSS_SEQ,
+                                            16, 1, 256),
+         dict(causal=True, **local)),
+        (f"hybrid prefill shape (first batch, S={H_pre}), window 2048",
+         (HYB_BATCH, H_pre, H_pre, 16, 1, 256), dict(causal=True, **local)),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -609,10 +667,18 @@ def flash_kernel_phase(torch):
             sets, 1)
         lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
                     for s in sets]
+        window = kw.get("window", 0)
+        if window:                     # SDPA takes the window as a mask
+            pos = torch.arange(Sq, device="cuda")[:, None] + kw["offset"]
+            kpos = torch.arange(Skv, device="cuda")[None, :]
+            mask = (kpos <= pos) & (kpos > pos - window)
+            sdpa = dict(attn_mask=mask)
+        else:
+            sdpa = dict(is_causal=True)
         lib_ms, _ = time_calls(
             torch, lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), lib_sets, reps)
-        pairs = visible_pairs(Sq, Skv, True, 0, kw["offset"])
+                q, k, v, enable_gqa=True, **sdpa), lib_sets, reps)
+        pairs = visible_pairs(Sq, Skv, True, window, kw["offset"])
         t_ops = 4 * D * pairs * Hq * B / BF16_FLOPS
         t_bytes = one / HBM_BYTES_PER_S
         return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
@@ -624,6 +690,11 @@ def flash_kernel_phase(torch):
     row = timing((8, 1024, 1024, 14, 2, 64), dict(causal=True, **chunked), 3)
     pre = timing((8, S_pre, S_pre, 14, 2, 64), dict(causal=True, **chunked),
                  2)
+    h_loss = timing((1, HYB_LOSS_SEQ, HYB_LOSS_SEQ, 16, 1, 256),
+                    dict(causal=True, **local), 2)
+    h_pre = timing((HYB_BATCH, H_pre, H_pre, 16, 1, 256),
+                   dict(causal=True, **local), 2)
+    keep = ("ms", "plain_ms", "bound_ms", "library_ms", "visible_pairs")
     row.update({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -633,10 +704,15 @@ def flash_kernel_phase(torch):
                    "(is_causal, enable_gqa), (B, H, S, D) layout",
         "shape": f"q (8,1024,14,64), k/v (8,1024,2,64) bf16 causal: one "
                  f"Model.loss layer; timed over {row['sets']} input sets",
-        "prefill": {k: pre[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "library_ms", "visible_pairs")},
+        "prefill": {k: pre[k] for k in keep},
+        "hybrid_loss": {k: h_loss[k] for k in keep},
+        "hybrid_prefill": {k: h_pre[k] for k in keep},
     })
-    for name, r in (("loss shape", row), (f"prefill S={S_pre}", pre)):
+    for name, r in (("loss shape", row), (f"prefill S={S_pre}", pre),
+                    (f"hybrid loss (1, {HYB_LOSS_SEQ}, 16/1 heads of 256, "
+                     f"window 2048)", h_loss),
+                    (f"hybrid prefill ({HYB_BATCH}, {H_pre}), window 2048",
+                     h_pre)):
         print(f"flash_attention ({name}): {r['ms']*1e3:.2f} us on the card "
               f"({r['eager_ms']*1e3:.2f} us per eager call), plain "
               f"{r['plain_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.2f} us "
@@ -900,6 +976,226 @@ def reference_profile_phase(torch, run):
     report_profile(prof, wall_us, "one ReferenceEngine batch", 12)
 
 
+def hybrid_prompts(vocab):
+    """The hybrid serving phase's prompts: ``HYB_REQUESTS`` seeded token
+    arrays of lengths in ``HYB_PROMPT_LENS``."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(HYB_PROMPT_LENS[0], HYB_PROMPT_LENS[1] + 1,
+                        HYB_REQUESTS)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def hybrid_prefill_len():
+    """The first ReferenceEngine batch's padded prompt length."""
+    return max(len(p) for p in hybrid_prompts(256000)[:HYB_BATCH])
+
+
+def linear_scan_kernel_phase(torch):
+    """The linear-scan kernel against its plain version on the card, bit
+    for bit, at the reference test's shapes and the hybrid path's (the
+    loss, the first prefill batch, a decode step); its times beside the
+    bytes bound and the plain version's."""
+    from repro_torch.kernels.linear_scan import (linear_scan_kernel,
+                                                 linear_scan_plain)
+    W = 4096
+    H_pre = hybrid_prefill_len()
+    shapes = {"reference test": [(2, 64, 128), (1, 100, 70), (2, 256, 256)],
+              "Model.loss": [(1, HYB_LOSS_SEQ, W)],
+              "prefill, first batch": [(HYB_BATCH, H_pre, W)],
+              "decode step": [(HYB_BATCH, 1, W)]}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(shape):
+        a = torch.rand(shape, generator=gen, device="cuda") * 0.3 + 0.7
+        x = torch.randn(shape, generator=gen, device="cuda") * 0.1
+        return a, x
+
+    rows = {}
+    for label, group in shapes.items():
+        for shape in group:
+            a, x = inputs(shape)
+            got, want = linear_scan_kernel(a, x), linear_scan_plain(a, x)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(torch.equal(got, want), f"linear_scan kernel != plain "
+                  f"version at {shape}: max abs err {err}")
+            print(f"linear_scan {shape} ({label}): bit-exact against the "
+                  f"plain version")
+            if label == "reference test":
+                continue
+            # distinct inputs per call, together at least twice the L2
+            nbytes = 3 * 4 * int(np.prod(shape))
+            sets = [inputs(shape)
+                    for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+            ms, eager_ms = time_calls(torch, linear_scan_kernel, sets, 5)
+            plain_ms, _ = time_calls(torch, linear_scan_plain, sets, 1)
+            rows[label] = {"ms": ms, "eager_ms": eager_ms,
+                           "plain_ms": plain_ms,
+                           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                           "shape": shape, "sets": len(sets)}
+            del sets
+    for label, r in rows.items():
+        print(f"linear_scan ({label}, {r['shape']}): {r['ms']*1e3:.2f} us on "
+              f"the card ({r['eager_ms']*1e3:.2f} us per eager call), plain "
+              f"{r['plain_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.2f} us "
+              f"(bytes); {r['sets']} input sets")
+    row = rows["Model.loss"]
+    return {
+        "name": "linear_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan.py:47",
+        "max_abs_err": 0.0, "ms": row["ms"], "eager_ms": row["eager_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "library": "none: no single PyTorch call computes a first-order "
+                   "linear recurrence",
+        "shape": f"a, x (1, {HYB_LOSS_SEQ}, {W}) f32: one Model.loss RG-LRU "
+                 f"layer; timed over {row['sets']} input sets",
+        "prefill": {k: rows["prefill, first batch"][k]
+                    for k in ("ms", "plain_ms", "bound_ms")},
+        "decode": {k: rows["decode step"][k]
+                   for k in ("ms", "plain_ms", "bound_ms")},
+    }
+
+
+def _numel(tree):
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_numel(v) for v in tree)
+    return tree.numel()
+
+
+def hybrid_phase(torch):
+    """recurrentgemma-9b at full width on the card, random weights from
+    seed 0: (a) the f32 decode of token 2101 against prefill(2101), past
+    the window; (b) a 4096-token bf16 ``Model.loss``; (c) ReferenceEngine
+    serving 8 requests in bf16, then one more batch under the profiler.
+    The kernel counters are zeroed just before (b) and read just after
+    (c): the path's launches."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.linear_scan import linear_scan_kernel
+    from repro_torch.nn import Model, get_config
+    from repro_torch.runtime.serve import ReferenceEngine, Request
+    cfg = get_config(HYB_ARCH)
+    n_units, rem = divmod(cfg.n_layers, 3)
+    n_scan, n_flash = 2 * n_units + rem, n_units      # per forward
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n = _numel(params)
+    print(f"{HYB_ARCH} params: {n:,} (f32 masters, "
+          f"{n * 4 / 2**30:.2f} GiB), init {time.perf_counter()-t0:.2f} s")
+    check(n == HYB_PARAMS, f"{n} parameters, the reference has {HYB_PARAMS}")
+
+    def counts():
+        return {"linear_scan": linear_scan_kernel.launches,
+                "flash_attention": flash_attention_kernel.launches}
+
+    def zero():
+        linear_scan_kernel.launches = flash_attention_kernel.launches = 0
+
+    # (a) f32 decode vs prefill, past the window
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), device="cuda")
+    S = HYB_DECODE_PROMPT
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (1, S + 1)) \
+        .astype(np.int32)
+    zero()
+    t0 = time.perf_counter()
+    want, _ = m32.prefill(params, {"tokens": toks})
+    _, cache = m32.prefill(params, {"tokens": toks[:, :S]})
+    check(cache["k"].shape[2] == cfg.local_window, "the ring is not W wide")
+    got, _ = m32.decode_step(params, cache, toks[:, S:], S)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    launched = counts()
+    print(f"hybrid f32: decode of token {S + 1} after prefill({S}) against "
+          f"prefill({S + 1}): max abs diff {diff:.4e}, max |logit| "
+          f"{scale:.4e} (tolerance {HYB_DECODE_REL} x max = "
+          f"{HYB_DECODE_REL * scale:.4e}); {sec:.3f} s; launches {launched}")
+    check(bool(torch.isfinite(got).all()) and diff <= HYB_DECODE_REL * scale,
+          "hybrid f32 decode disagrees with prefill")
+    check(launched == {"linear_scan": 3 * n_scan,
+                       "flash_attention": 2 * n_flash},
+          f"hybrid f32 check launches {launched}")
+    del m32, cache, want, got
+
+    # (b) Model.loss, bf16, one 4096-token sequence
+    m = Model(cfg, device="cuda")
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=HYB_LOSS_SEQ,
+                          global_batch=1, seed=0).batch(0)
+    m.loss(params, {k: v[:, :64] for k, v in batch.items()})   # warm-up
+    torch.cuda.synchronize()
+    zero()
+    t0 = time.perf_counter()
+    loss = float(m.loss(params, batch)[0])
+    loss_s = time.perf_counter() - t0
+    loss_launches = counts()
+    # lm_head ~ N(0, 0.02^2) on unit-rms rows: logits ~ N(0, s2) and the
+    # expected cross-entropy is ln V + s2 / 2
+    s2 = 0.02 ** 2 * cfg.d_model
+    expect = float(np.log(cfg.vocab)) + s2 / 2
+    print(f"hybrid bf16 Model.loss (1 x {HYB_LOSS_SEQ}): {loss!r} (expected "
+          f"ln V + s2/2 = {expect:.4f}, ln V = {np.log(cfg.vocab):.4f}); "
+          f"{loss_s:.3f} s; launches {loss_launches}")
+    check(np.isfinite(loss) and abs(loss - expect) <= 0.2,
+          f"hybrid loss {loss} far from {expect}")
+    check(loss_launches == {"linear_scan": n_scan, "flash_attention": n_flash},
+          f"hybrid loss launches {loss_launches}")
+
+    # (c) ReferenceEngine, bf16
+    prompts = hybrid_prompts(cfg.vocab)
+    eng = ReferenceEngine(cfg, params, max_batch=HYB_BATCH,
+                          max_context=HYB_CONTEXT, eos_id=-1, device="cuda")
+    reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=HYB_NEW)
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()                          # the loss's and the serving's
+    served = {k: v - loss_launches[k] for k, v in launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = -(-len(reqs) // HYB_BATCH)
+    check(all(r.status == "done" and len(r.out_tokens) == HYB_NEW
+              for r in reqs), "a hybrid request did not finish its tokens")
+    out = np.array([r.out_tokens for r in reqs])
+    check(out.min() >= 0 and out.max() < cfg.vocab, "token out of range")
+    check(served == {"linear_scan": n_batches * HYB_NEW * n_scan,
+                     "flash_attention": n_batches * n_flash},
+          f"hybrid serving launches {served}")
+    s = eng.stats
+    print(f"hybrid ReferenceEngine (bf16, {HYB_BATCH} rows x {HYB_CONTEXT}): "
+          f"{len(reqs)} requests in {wall:.3f} s, {n_batches} batches; "
+          f"prefill {s['prefill_tokens']} tok in {s['prefill_s']:.3f} s "
+          f"({s['prefill_tokens']/s['prefill_s']:.1f} tok/s); decode "
+          f"{s['decode_tokens']} tok in {s['decode_s']:.3f} s "
+          f"({s['decode_tokens']/s['decode_s']:.1f} tok/s); peak memory "
+          f"{peak/2**30:.3f} GiB; launches {served}")
+    print(f"  first tokens {out[:, 0].tolist()}")
+
+    # one more batch under the profiler
+    more = [Request(rid=100 + i, prompt=p.copy(), max_new_tokens=HYB_NEW)
+            for i, p in enumerate(prompts[:HYB_BATCH])]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(more)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check(all(r.status == "done" for r in more), "a profiled request failed")
+    report_profile(prof, wall_us, "one hybrid ReferenceEngine batch", 12)
+    print(f"launches on the hybrid path: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -913,19 +1209,19 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
     sources = ("paged_gather", "paged_attention", "csd_matvec",
-               "flash_attention")
+               "flash_attention", "linear_scan")
     t0 = time.perf_counter()
     build.build(sources)
     print(f"build: {time.perf_counter()-t0:.2f} s "
           f"({', '.join(n + '.cu' for n in sources)}, in parallel)")
     for name in sources:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for fn, line in ptxas_lines(build.build_log(name)):
+            print(f"  ptxas {name} {fn}: {line}")
     t0 = time.perf_counter()
     kernels = kernel_phase(torch)
     kernels += csd_kernel_phase(torch)
     kernels.append(flash_kernel_phase(torch))
+    kernels.append(linear_scan_kernel_phase(torch))
     print(f"kernel phase: {time.perf_counter()-t0:.2f} s")
     t0 = time.perf_counter()
     tiny_reference_phase(torch)
@@ -943,8 +1239,21 @@ def main() -> int:
     launches.update(ptq_launches)
     print(f"ptq phase: {time.perf_counter()-t0:.2f} s")
     reference_profile_phase(torch, run)
+    del eng, spec, run                  # the hybrid's 35.66 GiB need room
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hybrid_launches = hybrid_phase(torch)
+    print(f"hybrid phase: {time.perf_counter()-t0:.2f} s")
+    by_path = {"ptq": {"flash_attention": launches["flash_attention"]},
+               "hybrid": hybrid_launches}
+    for name, n in hybrid_launches.items():
+        launches[name] = launches.get(name, 0) + n
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "flash_attention":
+            k["launches_by_path"] = {p: v["flash_attention"]
+                                     for p, v in by_path.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,12 +15,13 @@ from repro_torch.core.csd import to_csd_array
 from .csd_matvec import (csd_matvec_kernel, csd_matvec_plain,
                          csd_qsweep_kernel, csd_qsweep_plain)
 from .flash_attention import flash_attention_kernel, flash_attention_plain
+from .linear_scan import linear_scan_kernel, linear_scan_plain
 from .paged_attention import paged_attention_kernel, paged_attention_plain
 from .paged_gather import paged_gather_kernel, paged_gather_plain
 
 __all__ = ["quantize_pot", "exp2_int", "paged_gather", "paged_attention",
            "csd_expand", "csd_expand_stack", "csd_matvec", "csd_qsweep",
-           "flash_attention"]
+           "flash_attention", "linear_scan"]
 
 
 def csd_expand(w_int, depth: int | None = None) -> np.ndarray:
@@ -155,3 +156,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                       v.contiguous(), **kw)
     _plain_or_raise(q, "flash_attention")
     return flash_attention_plain(q, k, v, **kw)
+
+
+def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """First-order linear recurrence ``h_t = a_t * h_{t-1} + x_t`` with
+    ``h_{-1} = 0``: a, x (B, S, W) -> h (B, S, W) f32, for any B, S, W
+    (nothing is padded).  The CUDA kernel is bit-identical to the plain
+    version."""
+    a = a.to(torch.float32).contiguous()
+    x = x.to(torch.float32).contiguous()
+    if a.is_cuda:
+        return linear_scan_kernel(a, x)
+    _plain_or_raise(a, "linear_scan")
+    return linear_scan_plain(a, x)

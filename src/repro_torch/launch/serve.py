@@ -9,7 +9,10 @@ gather through the CUDA kernel; ``--decode-kernel fused`` runs decode
 attention straight from the KV block pool through the fused CUDA kernel.
 ``--engine reference`` runs the reference's continuous-batching-lite
 ``ReferenceEngine`` instead (whole-prompt prefill through the
-flash-attention kernel).  Parameters are random, from ``--seed``.
+flash-attention kernel).  The hybrid family (``--arch recurrentgemma-9b``)
+always serves through ``ReferenceEngine``, as in the reference: its RG-LRU
+layers run the linear-scan kernel and its local attention the
+flash-attention kernel.  Parameters are random, from ``--seed``.
 """
 from __future__ import annotations
 

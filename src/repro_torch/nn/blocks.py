@@ -1,5 +1,5 @@
-"""Attention and dense-FFN blocks, init + apply style (counterpart of
-``repro/nn/blocks.py``; MoE, RWKV and RG-LRU are not ported yet).
+"""Attention, dense-FFN and RG-LRU blocks, init + apply style (counterpart
+of ``repro/nn/blocks.py``; MoE and RWKV are not ported yet).
 
 Parameters are plain dicts of tensors in the reference's layouts (weights
 ``(in, out)``); ``lead`` prepends stacking dims, so a model initializes all
@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .layers import (chunked_attention, decode_attention, gather_block_rows,
                      paged_decode_attention_ref, rms_norm, rope, swiglu)
@@ -178,3 +179,65 @@ def init_mlp(gen: torch.Generator, d: int, f: int, lead=()):
 def mlp_apply(p, x):
     return swiglu(x, p["wg"].to(x.dtype), p["wu"].to(x.dtype),
                   p["wd"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (recurrentgemma): gated linear recurrence + temporal conv
+# ---------------------------------------------------------------------------
+
+def init_rglru(gen: torch.Generator, cfg: ArchConfig, lead=()):
+    d, w = cfg.d_model, cfg.rglru_width
+    return {
+        "w_in_x": _dense(gen, (d, w), lead),        # recurrence branch
+        "w_in_g": _dense(gen, (d, w), lead),        # gelu gate branch
+        "w_out": _dense(gen, (w, d), lead),
+        "conv_k": _dense(gen, (4, w), lead, scale=0.3),  # causal conv, 4
+        "gate_i": _dense(gen, (w,), lead, scale=1.0),    # input gate
+        "gate_r": _dense(gen, (w,), lead, scale=1.0),    # recurrence gate
+        "lam": torch.full((*lead, w), 3.0, dtype=torch.float32,
+                          device=gen.device),           # a = sigmoid(lam)
+    }
+
+
+def _rglru_scan(p, u, h0):
+    """u: (B, S, w) conv output; h0: (B, w) f32.  Returns (y in u.dtype,
+    hS f32).
+
+    The reference's step ``h = a_t h + sqrt(max(1 - a_t^2, 1e-8)) x_t``
+    from ``h0`` is the linear scan ``h_t = a_t h_{t-1} + x'_t`` from 0
+    with ``x'_t = sqrt(max(1 - a_t^2, 1e-8)) x_t`` and ``a_0 h0`` added to
+    ``x'_0``: the same f32 operations.  The scan is the CUDA kernel on a
+    CUDA tensor and its plain version on the CPU (``kernels.ops``)."""
+    from repro_torch.kernels import linear_scan
+    uf = u.float()
+    i_t = torch.sigmoid(uf * p["gate_i"])
+    r_t = torch.sigmoid(uf * p["gate_r"])
+    a = torch.sigmoid(p["lam"])
+    # a_t = a^(c r_t) with c = 8 (the paper's RG-LRU exponent scaling)
+    a_t = torch.exp(8.0 * r_t * torch.log(torch.clamp(a, min=1e-6)))
+    gated = i_t * uf
+    xs = torch.sqrt(torch.clamp(1 - a_t * a_t, min=1e-8)) * gated
+    xs[:, 0] = xs[:, 0] + a_t[:, 0] * h0
+    h = linear_scan(a_t, xs)
+    return h.to(u.dtype), h[:, -1]
+
+
+def rglru_seq(p, x, cfg: ArchConfig, h0=None, conv_state=None):
+    """Full recurrent block: in-projection, causal conv of width 4 over
+    ``conv_state`` (B, 3, w) and the new inputs, RG-LRU, tanh-GELU-gated
+    out-projection.  Returns (out, hS (B, w) f32, the new conv state)."""
+    B, S, _ = x.shape
+    w = cfg.rglru_width
+    u = x @ p["w_in_x"].to(x.dtype)                            # (B, S, w)
+    g = F.gelu(x @ p["w_in_g"].to(x.dtype), approximate="tanh")
+    if conv_state is None:
+        conv_state = torch.zeros((B, 3, w), dtype=x.dtype, device=x.device)
+    upad = torch.cat([conv_state, u], dim=1)                   # (B, S+3, w)
+    ck = p["conv_k"].to(x.dtype)
+    uc = (upad[:, 0:S] * ck[0] + upad[:, 1:S + 1] * ck[1]
+          + upad[:, 2:S + 2] * ck[2] + upad[:, 3:S + 3] * ck[3])
+    if h0 is None:
+        h0 = torch.zeros((B, w), dtype=torch.float32, device=x.device)
+    y, hS = _rglru_scan(p, uc, h0)
+    out = (y * g) @ p["w_out"].to(x.dtype)
+    return out, hS, upad[:, -3:]

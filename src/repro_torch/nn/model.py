@@ -1,13 +1,22 @@
-"""Model assembly for the dense family (counterpart of
+"""Model assembly for the dense and hybrid families (counterpart of
 ``repro/nn/model.py``).
 
 Parameters are a dict tree in the reference's layout: per-layer leaves are
 stacked on a leading layer axis (``params["layers"]["attn"]["wq"]`` is
 (L, d_model, Hq*hd)), weights are (in, out), and a Python loop over layers
-takes the place of ``lax.scan``.  Caches are ``{"k", "v"}`` tensors of
-(L, batch, context, Hkv, hd), or (L, n_blocks, block_size, Hkv, hd) when
-block-paged; the serving dispatches update them IN PLACE and return the
-same dict (the reference donates the cache to XLA instead).
+takes the place of ``lax.scan``.  Dense caches are ``{"k", "v"}`` tensors
+of (L, batch, context, Hkv, hd), or (L, n_blocks, block_size, Hkv, hd)
+when block-paged; the serving dispatches update them IN PLACE and return
+the same dict (the reference donates the cache to XLA instead).
+
+The hybrid family (recurrentgemma) stacks units of (RG-LRU, RG-LRU, local
+attention), each block followed by an MLP, on ``params["layers"]`` (one
+entry per unit), and ``n_layers % 3`` RG-LRU tail layers as the list
+``params["tail"]``.  Its cache holds each unit's recurrent states
+``h1``/``h2`` (n_units, B, w) f32 and conv states ``c1``/``c2``
+(n_units, B, 3, w), the local attention's K/V as a ring of
+``min(context, local_window)`` slots (position p in slot p % W), and
+``tail_h``/``tail_c`` for the tail.
 
 Public surface:
     m = Model(cfg, device="cuda")
@@ -54,14 +63,16 @@ def layer_params(tree, i: int):
 def params_from_jax(tree, device="cuda"):
     """The JAX package's parameter pytree (float or a ``quantize_tree``
     qtree), as numpy arrays or anything ``np.asarray`` takes, turned into
-    the port's parameters on ``device``: the same dict structure, the same
-    layouts and values.  A qleaf's ``bits`` and ``packed`` stay Python
-    values."""
+    the port's parameters on ``device``: the same dict and list structure
+    (the hybrid's ``tail`` is a list), the same layouts and values.  A
+    qleaf's ``bits`` and ``packed`` stay Python values."""
     dev = resolve_device(device)
 
     def conv(key, x):
         if isinstance(x, dict):
             return {k: conv(k, v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(key, v) for v in x]
         if key in ("bits", "packed"):
             return x if isinstance(x, (bool, int)) else np.asarray(x).item()
         return torch.from_numpy(np.array(x)).to(dev)
@@ -70,12 +81,14 @@ def params_from_jax(tree, device="cuda"):
 
 
 class Model:
-    """Dense decoder LM with the reference's parameter and cache layouts."""
+    """Dense or hybrid decoder LM with the reference's parameter and cache
+    layouts."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "hybrid"):
             raise NotImplementedError(
-                f"repro_torch ports the dense family, not {cfg.family!r}")
+                f"repro_torch ports the dense and hybrid families, not "
+                f"{cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -90,16 +103,43 @@ class Model:
         cfg = self.cfg
         L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
         dev = gen.device
-        return {
+        params = {
             "embed": torch.randn((V, d), generator=gen, device=dev) * 0.02,
             "final_norm": torch.zeros((d,), device=dev),
             "lm_head": torch.randn((d, V), generator=gen, device=dev) * 0.02,
-            "layers": {
+        }
+        if cfg.family == "dense":
+            params["layers"] = {
                 "ln1": torch.zeros((L, d), device=dev),
                 "ln2": torch.zeros((L, d), device=dev),
                 "attn": blocks.init_attention(gen, cfg, lead=(L,)),
                 "mlp": blocks.init_mlp(gen, d, cfg.d_ff, lead=(L,)),
-            },
+            }
+            return params
+        n_units, rem = divmod(L, 3)
+        params["layers"] = self._init_hybrid_unit(gen, lead=(n_units,))
+        if rem:
+            params["tail"] = [
+                {"rg": blocks.init_rglru(gen, cfg),
+                 "mlp": blocks.init_mlp(gen, d, cfg.d_ff),
+                 "ln1": torch.zeros((d,), device=dev),
+                 "ln2": torch.zeros((d,), device=dev)}
+                for _ in range(rem)]
+        return params
+
+    def _init_hybrid_unit(self, gen, lead=()):
+        """recurrentgemma unit: 2 RG-LRU blocks then 1 local-attention
+        block, each followed by an MLP."""
+        cfg = self.cfg
+        d = cfg.d_model
+        return {
+            "rg1": blocks.init_rglru(gen, cfg, lead),
+            "rg2": blocks.init_rglru(gen, cfg, lead),
+            "attn": blocks.init_attention(gen, cfg, lead),
+            "mlp1": blocks.init_mlp(gen, d, cfg.d_ff, lead),
+            "mlp2": blocks.init_mlp(gen, d, cfg.d_ff, lead),
+            "mlp3": blocks.init_mlp(gen, d, cfg.d_ff, lead),
+            "ln": torch.zeros((*lead, 6, d), device=gen.device),
         }
 
     # ------------------------------------------------------------- forward
@@ -110,11 +150,66 @@ class Model:
         h = rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
         return x + blocks.mlp_apply(p["mlp"], h)
 
+    def _hybrid_unit(self, p, x, caches=None, collect_kv=False,
+                     attend=None):
+        """One recurrentgemma unit over x (B, S, d) from the recurrent and
+        conv states ``caches`` (zeros when None).  Local attention is
+        ``attention_seq`` over the last ``cfg.local_window`` positions, or
+        ``attend(p_attn, normed x)`` when given (decode).  Returns (x, the
+        new states {h1, c1, h2, c2}, (roped K, V) of the attention input
+        when ``collect_kv``, else None)."""
+        cfg = self.cfg
+        ln = p["ln"]
+        st = caches or {}
+
+        def norm(h, i):
+            return rms_norm(h, ln[i].to(h.dtype), cfg.norm_eps)
+
+        y, h1, c1 = blocks.rglru_seq(p["rg1"], norm(x, 0), cfg,
+                                     st.get("h1"), st.get("c1"))
+        x = x + y
+        x = x + blocks.mlp_apply(p["mlp1"], norm(x, 1))
+        y, h2, c2 = blocks.rglru_seq(p["rg2"], norm(x, 2), cfg,
+                                     st.get("h2"), st.get("c2"))
+        x = x + y
+        x = x + blocks.mlp_apply(p["mlp2"], norm(x, 3))
+        hn = norm(x, 4)
+        kv = None
+        if collect_kv:
+            _, k, v = blocks._qkv(p["attn"], hn, cfg)
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+            kv = (rope(k, positions, cfg.rope_theta), v)
+        if attend is None:
+            x = x + blocks.attention_seq(p["attn"], hn, cfg,
+                                         window=cfg.local_window)
+        else:
+            x = x + attend(p["attn"], hn)
+        x = x + blocks.mlp_apply(p["mlp3"], norm(x, 5))
+        return x, {"h1": h1, "c1": c1, "h2": h2, "c2": c2}, kv
+
+    def _tail_layer(self, tp, x, h0=None, conv_state=None):
+        """One RG-LRU tail layer; returns (x, hS, conv state)."""
+        cfg = self.cfg
+        y, h, c = blocks.rglru_seq(
+            tp["rg"], rms_norm(x, tp["ln1"].to(x.dtype), cfg.norm_eps), cfg,
+            h0, conv_state)
+        x = x + y
+        x = x + blocks.mlp_apply(
+            tp["mlp"], rms_norm(x, tp["ln2"].to(x.dtype), cfg.norm_eps))
+        return x, h, c
+
     def _backbone(self, params, x):
         """Full-sequence trunk (loss / prefill), x: (B, S, d)."""
         cfg = self.cfg
-        for i in range(cfg.n_layers):
-            x = self._decoder_block(layer_params(params["layers"], i), x)
+        if cfg.family == "dense":
+            for i in range(cfg.n_layers):
+                x = self._decoder_block(layer_params(params["layers"], i), x)
+        else:
+            for i in range(cfg.n_layers // 3):
+                x, _, _ = self._hybrid_unit(
+                    layer_params(params["layers"], i), x)
+            for tp in params.get("tail", []):
+                x, _, _ = self._tail_layer(tp, x)
         return rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
 
     def _embed_inputs(self, params, batch):
@@ -159,15 +254,17 @@ class Model:
     @torch.no_grad()
     def prefill(self, params, batch):
         """Ingest whole prompts ``batch["tokens"]`` (B, S); returns
-        (last-position logits (B, 1, V) f32, the cache {k, v} of
-        (L, B, S, Hkv, hd) with K roped at positions 0..S-1 -- the layout
-        :meth:`decode_step` reads)."""
+        (last-position logits (B, 1, V) f32, the cache :meth:`decode_step`
+        reads).  Dense: {k, v} of (L, B, S, Hkv, hd) with K roped at
+        positions 0..S-1.  Hybrid: the states after position S-1, and K/V
+        of the last W = min(S, local_window) positions in their ring slots
+        (the :meth:`init_cache` layout at context S)."""
         cfg = self.cfg
         x, _, _ = self._embed_inputs(params, batch)
+        if cfg.family == "hybrid":
+            return self._prefill_hybrid(params, x)
         B, S, _ = x.shape
-        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim_)
-        cache = {"k": torch.empty(shape, dtype=x.dtype, device=self.device),
-                 "v": torch.empty(shape, dtype=x.dtype, device=self.device)}
+        cache = self._empty_cache(torch.empty, B, S)
         positions = torch.arange(S, device=self.device)[None, :]
         for i in range(cfg.n_layers):
             pl = layer_params(params["layers"], i)
@@ -181,13 +278,56 @@ class Model:
         logits = x[:, -1:] @ params["lm_head"].to(x.dtype)
         return logits.float(), cache
 
-    # -------------------------------------------------------------- serving
-    def init_cache(self, batch: int, context: int) -> dict:
-        """Zeroed decode cache: {k, v} of (L, batch, context, Hkv, hd)."""
+    def _prefill_hybrid(self, params, x):
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, context, cfg.n_kv_heads, cfg.head_dim_)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+        B, S, _ = x.shape
+        W = min(S, cfg.local_window)
+        # the ring slot of position p is p % W; the last W positions fill
+        # every slot once, and slot s holds ring_pos[s]
+        slots = torch.arange(W, device=self.device)
+        ring_pos = S - 1 - ((S - 1 - slots) % W)
+        cache = self._empty_cache(torch.empty, B, W)
+        for i in range(cfg.n_layers // 3):
+            x, st, (k, v) = self._hybrid_unit(
+                layer_params(params["layers"], i), x, collect_kv=True)
+            for key, val in st.items():
+                cache[key][i] = val
+            cache["k"][i] = k[:, ring_pos]
+            cache["v"][i] = v[:, ring_pos]
+        for j, tp in enumerate(params.get("tail", [])):
+            x, cache["tail_h"][j], cache["tail_c"][j] = self._tail_layer(tp, x)
+        x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+        logits = x[:, -1:] @ params["lm_head"].to(x.dtype)
+        return logits.float(), cache
+
+    # -------------------------------------------------------------- serving
+    def _empty_cache(self, alloc, batch: int, context: int) -> dict:
+        """The decode cache's leaves, made by ``alloc`` (torch.zeros or
+        torch.empty); see :meth:`init_cache`."""
+        cfg = self.cfg
+        dt, dev = self.dtype, self.device
+        if cfg.family == "dense":
+            L, C = cfg.n_layers, context
+        else:
+            L, C = cfg.n_layers // 3, min(context, cfg.local_window)
+        kv = (L, batch, C, cfg.n_kv_heads, cfg.head_dim_)
+        c = {"k": alloc(kv, dtype=dt, device=dev),
+             "v": alloc(kv, dtype=dt, device=dev)}
+        if cfg.family == "dense":
+            return c
+        w = cfg.rglru_width
+        for h, conv, n in (("h1", "c1", L), ("h2", "c2", L),
+                           ("tail_h", "tail_c", cfg.n_layers % 3)):
+            if n:
+                c[h] = alloc((n, batch, w), dtype=torch.float32, device=dev)
+                c[conv] = alloc((n, batch, 3, w), dtype=dt, device=dev)
+        return c
+
+    def init_cache(self, batch: int, context: int) -> dict:
+        """Zeroed decode cache.  Dense: {k, v} of (L, batch, context, Hkv,
+        hd).  Hybrid: the unit states, K/V rings of (n_units, batch,
+        min(context, local_window), Hkv, hd), and the tail's states."""
+        return self._empty_cache(torch.zeros, batch, context)
 
     def _long(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device).to(torch.int64)
@@ -215,6 +355,9 @@ class Model:
         (table[slot, p // bs], p % bs), and reads gather the logical rows
         (``kv_gather``: ``"take"`` or the ``"cuda"`` kernel)."""
         cfg = self.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"chunked prefill serves the dense family, not {cfg.family!r}")
         tokens = self._long(tokens)
         slots, offsets = self._long(slots), self._long(offsets)
         n_valid = self._long(n_valid)
@@ -263,14 +406,20 @@ class Model:
                     kv_gather: str = "take", decode_kernel: str = "dense"):
         """One token for the whole batch.  tokens: (B, 1); pos: an int or a
         (B,) per-row position vector (paged serving).  ``block_table``
-        switches the KV leaves to the block pool and ``decode_kernel`` picks
-        its attention route (see :func:`repro_torch.nn.blocks.
-        attention_step`).  Updates the cache IN PLACE; returns ((B, 1, V)
-        f32 logits, the cache)."""
+        (dense only) switches the KV leaves to the block pool and
+        ``decode_kernel`` picks its attention route (see
+        :func:`repro_torch.nn.blocks.attention_step`).  The hybrid's local
+        attention writes slot pos % C of its ring and attends over the
+        whole ring, which holds the window.  Updates the cache IN PLACE;
+        returns ((B, 1, V) f32 logits, the cache)."""
         cfg = self.cfg
         tokens = self._long(tokens)
         B = tokens.shape[0]
         x = params["embed"][tokens].to(self.dtype)                 # (B, 1, d)
+        if block_table is not None and cfg.family != "dense":
+            raise NotImplementedError(
+                f"block-paged decode serves the dense family, not "
+                f"{cfg.family!r}")
         if block_table is not None:
             block_table = self._long(block_table)
         if torch.is_tensor(pos) or np.ndim(pos):
@@ -280,17 +429,39 @@ class Model:
             raise ValueError("block-paged decode needs per-row pos")
         else:
             writes = None              # one shared int position: no lookup
-        for i in range(cfg.n_layers):
-            pl = layer_params(params["layers"], i)
-            kv = {"k": cache["k"][i], "v": cache["v"][i]}
-            hn = rms_norm(x, pl["ln1"].to(x.dtype), cfg.norm_eps)
-            a, _ = blocks.attention_step(
-                pl["attn"], hn, kv, pos, cfg, block_table=block_table,
-                kv_gather=kv_gather, decode_kernel=decode_kernel,
-                writes=writes)
-            x = x + a
-            hn = rms_norm(x, pl["ln2"].to(x.dtype), cfg.norm_eps)
-            x = x + blocks.mlp_apply(pl["mlp"], hn)
+        if cfg.family == "hybrid":
+            x = self._decode_hybrid(params, cache, x, pos, writes)
+        else:
+            for i in range(cfg.n_layers):
+                pl = layer_params(params["layers"], i)
+                kv = {"k": cache["k"][i], "v": cache["v"][i]}
+                hn = rms_norm(x, pl["ln1"].to(x.dtype), cfg.norm_eps)
+                a, _ = blocks.attention_step(
+                    pl["attn"], hn, kv, pos, cfg, block_table=block_table,
+                    kv_gather=kv_gather, decode_kernel=decode_kernel,
+                    writes=writes)
+                x = x + a
+                hn = rms_norm(x, pl["ln2"].to(x.dtype), cfg.norm_eps)
+                x = x + blocks.mlp_apply(pl["mlp"], hn)
         x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
         logits = x @ params["lm_head"].to(x.dtype)
         return logits.float(), cache
+
+    def _decode_hybrid(self, params, cache, x, pos, writes):
+        cfg = self.cfg
+        for i in range(cfg.n_layers // 3):
+            kv = {"k": cache["k"][i], "v": cache["v"][i]}
+
+            def attend(p_attn, hn):
+                return blocks.attention_step(p_attn, hn, kv, pos, cfg,
+                                             writes=writes)[0]
+            x, st, _ = self._hybrid_unit(
+                layer_params(params["layers"], i), x,
+                {key: cache[key][i] for key in ("h1", "c1", "h2", "c2")},
+                attend=attend)
+            for key, val in st.items():
+                cache[key][i] = val
+        for j, tp in enumerate(params.get("tail", [])):
+            x, cache["tail_h"][j], cache["tail_c"][j] = self._tail_layer(
+                tp, x, cache["tail_h"][j], cache["tail_c"][j])
+        return x

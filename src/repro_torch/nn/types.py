@@ -104,5 +104,5 @@ def list_configs() -> list:
 
 def _load_all():
     import importlib
-    for mod in ["qwen2_0_5b"]:
+    for mod in ["qwen2_0_5b", "recurrentgemma_9b"]:
         importlib.import_module(f"repro_torch.configs.{mod}")

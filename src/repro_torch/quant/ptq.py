@@ -61,8 +61,13 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 
 
 def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of dicts and lists; a list item's
+    path part is ``[i]``, as the reference's key paths print it."""
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path + (f"[{i}]",))
+                for i, v in enumerate(tree)]
     return fn("/".join(path), tree)
 
 
@@ -104,6 +109,8 @@ def _map_qleaves(fn, tree):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: _map_qleaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_qleaves(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -154,6 +161,9 @@ def _flatten(tree, path=()):
     if isinstance(tree, dict) and not _is_qleaf(tree):
         return [item for key in sorted(tree)
                 for item in _flatten(tree[key], path + (key,))]
+    if isinstance(tree, list):
+        return [item for i, v in enumerate(tree)
+                for item in _flatten(v, path + (f"[{i}]",))]
     return [(path, tree)]
 
 

@@ -124,6 +124,8 @@ class _Slot:
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
     if torch.is_tensor(tree):
         return tree.to(device)
     return tree
@@ -498,9 +500,10 @@ class ServeEngine:
 
 class ReferenceEngine:
     """The reference's continuous-batching-lite engine, kept as the parity
-    oracle: fixed decode batch, whole-batch left-padded prefill
-    (``Model.prefill``), ``_pad_kv`` re-padding to ``max_context``, batch
-    refresh only at prefill boundaries.  Prompts beyond ``max_context`` are
+    oracle and the hybrid family's only engine: fixed decode batch,
+    whole-batch left-padded prefill (``Model.prefill``), ``_pad_kv``
+    re-padding the K/V leaves to ``max_context``, batch refresh only at
+    prefill boundaries.  Prompts beyond ``max_context`` are
     rejected or tail-truncated at enqueue (``admission``).
 
     Prompts of a batch are left-padded with token 0 and the padding is not
@@ -582,7 +585,13 @@ class ReferenceEngine:
         _sync(self.device)
         self.stats["prefill_s"] += time.time() - t0
         self.stats["prefill_tokens"] += int(B * S)
-        cache = {k: self._pad_kv(v) for k, v in cache.items()}
+        # embed the prefill K/V into the serving context: only the "k"/"v"
+        # leaves grow; recurrent and conv states are fixed-size and pass
+        # through.  The hybrid's K/V is a ring of min(S, local_window)
+        # slots, so padding it, as the reference does, misplaces positions
+        # once a sequence passes the window with max_context > window.
+        cache = {k: (self._pad_kv(v) if k in ("k", "v") else v)
+                 for k, v in cache.items()}
         last = self._sample(logits[:, -1].cpu().numpy())
         for i, r in enumerate(batch):
             r.out_tokens.append(int(last[i]))

@@ -43,11 +43,13 @@ def test_port_files_exist():
                 "eval/torchtail.py", "eval/__init__.py",
                 "launch/quickstart.py", "kernels/flash_attention.py",
                 "data/tokens.py", "core/hwmodel.py",
-                "launch/serve_quantized.py"):
+                "launch/serve_quantized.py", "configs/recurrentgemma_9b.py",
+                "kernels/linear_scan.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/flash_attention.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/linear_scan.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES,
