@@ -43,16 +43,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    and the first decode step's logits are compared;
 5. a ``torch.profiler`` window over a few engine steps: device busy share
    and the top kernels;
-6. the paper's search and tuning path, full size: 16-16-10-10 trained on
-   the card on the pendigits surrogate (5246 train / 2248 validation /
-   3498 test rows, 40 epochs), ``find_min_q`` and ``tune_parallel(cost=
-   "adders", max_sweeps=4)`` with their default ``auto`` backend (``csd``
-   on the card, so both CSD kernels run; counters zeroed just before and
-   read just after), the test split scored, a ``torch.profiler`` rerun of
-   the tune call for the device busy share and a cProfile rerun for the
-   host's time by function, and the same search and tune on the ``numpy``
-   backend from the same float weights, which must give identical
-   results;
+6. the paper's pipeline, full size, through the quickstart's
+   ``run_pipeline``: 16-16-10-10 trained on the card on the pendigits
+   surrogate (5246 train / 2248 validation / 3498 test rows, 40 epochs),
+   ``find_min_q`` and ``tune_parallel(cost="adders", max_sweeps=4)`` with
+   their default ``auto`` backend (``csd`` on the card, so both CSD
+   kernels run; counters zeroed just before and read just after), the
+   test split scored, ``tune_time_multiplexed(scope="neuron",
+   max_sweeps=2)`` (chains on the host), ``design_cost`` of the six
+   design rows and SIMURG's parallel CMVM design written to
+   ``out/chip_smoke/csd``; a ``torch.profiler`` rerun of the tune call for
+   the device busy share and a cProfile rerun for the host's time by
+   function; then every step on the ``numpy`` backend from the same float
+   weights: identical min-q, ``TuneResult``s and test scores, design rows
+   equal on the array engine and on the scalar one (which must agree),
+   and SIMURG files byte-identical;
+6b. the design-space explorer at the reference walkthrough's size through
+   ``launch/explore.py``: 16-16-10 trained on the card (25 epochs, seed
+   3), ``q_span=2``, tuners ``none``, ``parallel``, ``parallel-adders``
+   and ``tm-neuron`` (``max_sweeps=3``), once with the sweep evaluator on
+   ``auto`` (which must be ``csd``; ``csd_qsweep`` counted from zero and
+   launched), again under ``torch.profiler`` for the device busy share,
+   and once on ``numpy``: every ``DesignPoint``, the three fronts and the
+   non-timing stats identical;
 7. the LM-scale quantization path, full width, through
    ``repro_torch.launch.serve_quantized.run_pipeline``: qwen2-0.5b with
    random weights from seed 0, ``min_bitwidth_search(budget=0.02)`` on one
@@ -121,6 +134,9 @@ HYB_LOSS_SEQ = 4096
 # a lost recurrent or conv state moves them by a large share of it.
 HYB_DECODE_PROMPT = 2100
 HYB_DECODE_REL = 2e-3          # x max |logit|
+# SIMURG output of the paper phase, one directory per backend (git-ignored)
+SIMURG_OUT = os.path.join(HERE, "out", "chip_smoke")
+CARD = "card not read yet"     # nvidia-smi name and power limit, set in main
 
 
 def check(cond, msg):
@@ -808,12 +824,26 @@ def _tune_summary(tp):
             {k: v for k, v in tp.stats.items() if k != "backend"})
 
 
+_REPORT_FIELDS = ("arch", "style", "area_um2", "latency_ns", "energy_pj",
+                  "cycles", "clock_ns", "n_adders", "n_mults")
+
+
+def _report_fields(reps):
+    return [tuple(getattr(r, f) for f in _REPORT_FIELDS) for r in reps]
+
+
+def _dir_bytes(d):
+    return {f: open(os.path.join(d, f), "rb").read()
+            for f in sorted(os.listdir(d))}
+
+
 def paper_phase(torch):
     """The paper's search and tuning path at full size on the card, through
     the quickstart's pipeline, held against the numpy backend from the same
     float weights."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import find_min_q, tune_parallel
+    from repro_torch.core import (find_min_q, simurg, tune_parallel,
+                                  tune_time_multiplexed)
     from repro_torch.core.csd import tnzd
     from repro_torch.eval import QSweepEvaluator
     from repro_torch.kernels.csd_matvec import (csd_matvec_kernel,
@@ -822,7 +852,8 @@ def paper_phase(torch):
     sweeps = quickstart.MAX_SWEEPS
     csd_qsweep_kernel.launches = 0
     csd_matvec_kernel.launches = 0
-    run = quickstart.run_pipeline("cuda")
+    run = quickstart.run_pipeline("cuda",
+                                  out_dir=os.path.join(SIMURG_OUT, "csd"))
     launches = {"csd_qsweep": csd_qsweep_kernel.launches,
                 "csd_matvec": csd_matvec_kernel.launches}
     res, qr, tp, sweep_ev = run.train, run.qr, run.tp, run.sweep_ev
@@ -852,6 +883,21 @@ def paper_phase(torch):
           f"{s['adders_final']}; {s['eval_calls']} evaluator calls, "
           f"{s['candidates']} candidates, {s['commits']} commits, "
           f"demoted: {s.get('demoted', 'no')}; test ha {tune_test_ha!r}")
+    tm = run.tm
+    check(tm.stats["backend"] == "csd", f"TM tuner on {tm.stats['backend']}")
+    print(f"paper tm tune (csd, scope=neuron, max_sweeps="
+          f"{quickstart.TM_SWEEPS}, chains on the host): "
+          f"{run.seconds['tm']:.3f} s [{CARD}]; bha {tm.initial_ha!r} -> "
+          f"{tm.bha!r}, {tm.replacements} replacements in {tm.sweeps} "
+          f"sweeps, log {tm.log}; {tm.stats['eval_calls']} evaluator calls, "
+          f"{tm.stats['candidates']} candidates, {tm.stats['commits']} "
+          f"commits, demoted: {tm.stats.get('demoted', 'no')}")
+    print(f"paper pricing (array engine, {len(run.designs)} rows): "
+          f"{run.seconds['price']*1e3:.3f} ms [{CARD}]")
+    for rep in run.designs:
+        print("  " + rep.row())
+    print(f"paper SIMURG (parallel, cmvm) generate + write: "
+          f"{run.seconds['simurg']*1e3:.3f} ms [{CARD}] -> {run.out_dir}")
     print(f"launches on the paper path: {launches}")
 
     # the same tune call under the profiler: device busy share
@@ -893,8 +939,100 @@ def paper_phase(torch):
           "tune_parallel on csd differs from numpy")
     check(test_np.evaluate([qr.mlp, tp.mlp]) == [test_ha, tune_test_ha],
           "test-split scores differ between csd and numpy")
-    print(f"paper on numpy: min-q {t_q_np:.3f} s, tune {t_tune_np:.3f} s; "
-          f"(q, ha, history), TuneResult and test scores identical to csd")
+    t0 = time.perf_counter()
+    tm_np = tune_time_multiplexed(qr_np.mlp, xval_int, yval, scope="neuron",
+                                  max_sweeps=quickstart.TM_SWEEPS,
+                                  backend="numpy")
+    t_tm_np = time.perf_counter() - t0
+    check(_tune_summary(tm) == _tune_summary(tm_np),
+          "tune_time_multiplexed on csd differs from numpy")
+    designs_np = quickstart.price_designs(tp_np, tm_np)
+    check(designs_np == run.designs,
+          "design_cost rows (array engine) differ between csd and numpy")
+    scalar = quickstart.price_designs(tp, tm, engine="scalar")
+    check(_report_fields(scalar) == _report_fields(
+        quickstart.price_designs(tp_np, tm_np, engine="scalar")),
+        "design_cost rows (scalar engine) differ between csd and numpy")
+    check(_report_fields(scalar) == _report_fields(run.designs),
+          "the array and scalar engines' reports differ")
+    t0 = time.perf_counter()
+    np_dir = os.path.join(SIMURG_OUT, "numpy")
+    simurg.generate(tp_np.mlp, arch="parallel", style="cmvm",
+                    top="pendigits_ann").write(np_dir)
+    t_simurg_np = time.perf_counter() - t0
+    got, want = _dir_bytes(run.out_dir), _dir_bytes(np_dir)
+    check(len(got) == 5 and got == want,
+          f"SIMURG files differ between csd and numpy: {sorted(got)}")
+    print(f"paper on numpy: min-q {t_q_np:.3f} s, tune {t_tune_np:.3f} s, "
+          f"tm tune {t_tm_np:.3f} s, SIMURG {t_simurg_np*1e3:.3f} ms "
+          f"[{CARD}]; (q, ha, history), both TuneResults, test scores, "
+          f"{len(designs_np)} design rows (array and scalar engines, which "
+          f"agree) and {len(got)} SIMURG files "
+          f"({sum(map(len, got.values()))} bytes) identical to csd")
+    return launches
+
+
+def explore_phase(torch):
+    """The design-space explorer at the reference walkthrough's size
+    (16-16-10, 25 epochs, seed 3, full pendigits split, q_span 2,
+    max_sweeps 3) with the TM tuner too, through ``launch/explore.py``:
+    once with the sweep evaluator on ``auto`` (csd on the card), once on
+    ``numpy``; every DesignPoint and front must be equal."""
+    from repro_torch.core.planner import SynthesisPlanner
+    from repro_torch.eval import QSweepEvaluator
+    from repro_torch.kernels.csd_matvec import (csd_matvec_kernel,
+                                                csd_qsweep_kernel)
+    from repro_torch.launch import explore as lx
+    t0 = time.perf_counter()
+    res, x_val, y_val = lx.train_float("cuda")
+    t_train = time.perf_counter() - t0
+    tuners = lx.DEFAULT_TUNERS + ("tm-neuron",)
+    ev = QSweepEvaluator(x_val, y_val, device="cuda")
+    check(ev.backend == "csd", f"auto resolved to {ev.backend}, not csd")
+    csd_qsweep_kernel.launches = 0
+    csd_matvec_kernel.launches = 0
+    r = lx.run_explore(res, x_val, y_val, "cuda", tuners=tuners,
+                       planner=SynthesisPlanner(), evaluator=ev)
+    torch.cuda.synchronize()
+    launches = {"csd_qsweep": csd_qsweep_kernel.launches,
+                "csd_matvec": csd_matvec_kernel.launches}
+    check(launches["csd_qsweep"] > 0,
+          f"csd_qsweep was not launched on the explore path: {launches}")
+    # the same csd run under the profiler: device busy share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r_prof = lx.run_explore(res, x_val, y_val, "cuda", tuners=tuners,
+                                planner=SynthesisPlanner())
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check(r_prof.points == r.points, "profiled explore rerun differs")
+    report_profile(prof, wall_us, "explore call, csd", 6, digits=3)
+    r_np = lx.run_explore(res, x_val, y_val, "cpu", tuners=tuners,
+                          backend="numpy", planner=SynthesisPlanner())
+    check(r.points == r_np.points and r.qs == r_np.qs,
+          "explore DesignPoints differ between csd and numpy")
+    for metric in ("area_um2", "energy_pj", "latency_ns"):
+        check(r.front(metric) == r_np.front(metric),
+              f"the {metric} front differs between csd and numpy")
+    timing = ("tune_s", "wall_s")
+    check({k: v for k, v in r.stats.items() if k not in timing} ==
+          {k: v for k, v in r_np.stats.items() if k not in timing},
+          f"explore stats differ: {r.stats} {r_np.stats}")
+    print(f"explore: trained 16-16-10 on the card in {t_train:.3f} s, val "
+          f"{res.val_acc:.2f} %; q ladder {r.qs} x {r.tuners}")
+    for name, x in (("csd", r), ("numpy", r_np)):
+        s = x.stats
+        print(f"explore ({name}): {s['n_networks']} networks, "
+              f"{s['n_points']} points, {s['eval_calls']} evaluator calls, "
+              f"planner {s['planner_hits']} hits / {s['planner_misses']} "
+              f"misses, tune_s {s['tune_s']:.3f}, wall_s {s['wall_s']:.3f} "
+              f"[{CARD}]")
+    print(f"explore: every DesignPoint ({len(r.points)}), the three fronts "
+          f"and the stats identical on csd and numpy; launches on the "
+          f"explore path: {launches}")
+    lx.report(res, r)
     return launches
 
 
@@ -1197,6 +1335,7 @@ def hybrid_phase(torch):
 
 
 def main() -> int:
+    global CARD
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1205,7 +1344,8 @@ def main() -> int:
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(card_line())
+    CARD = card_line()
+    print(CARD)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
     sources = ("paged_gather", "paged_attention", "csd_matvec",
@@ -1232,8 +1372,12 @@ def main() -> int:
     print(f"serving phase: {time.perf_counter()-t0:.2f} s")
     profile_phase(torch, eng, spec)
     t0 = time.perf_counter()
-    launches.update(paper_phase(torch))
+    paper_launches = paper_phase(torch)
+    launches.update(paper_launches)
     print(f"paper phase: {time.perf_counter()-t0:.2f} s")
+    t0 = time.perf_counter()
+    explore_launches = explore_phase(torch)
+    print(f"explore phase: {time.perf_counter()-t0:.2f} s")
     t0 = time.perf_counter()
     ptq_launches, run = ptq_phase(torch)
     launches.update(ptq_launches)
@@ -1249,11 +1393,17 @@ def main() -> int:
                "hybrid": hybrid_launches}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
+    for name, n in explore_launches.items():
+        launches[name] += n
+    csd_by_path = {"paper": paper_launches, "explore": explore_launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "flash_attention":
             k["launches_by_path"] = {p: v["flash_attention"]
                                      for p, v in by_path.items()}
+        elif k["name"] in explore_launches:
+            k["launches_by_path"] = {p: v[k["name"]]
+                                     for p, v in csd_by_path.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

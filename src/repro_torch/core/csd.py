@@ -8,8 +8,8 @@ all weights/biases under CSD (Section II-B, footnote 1).
 
 Two engines, bit-identical on ``|v| < 2**61`` (DESIGN.md 11.1):
 
-* the scalar digit-at-a-time recoding (``to_csd`` / ``from_csd`` and
-  ``drop_least_significant_digit``), which the serial tuner uses;
+* the scalar digit-at-a-time recoding (``to_csd`` / ``from_csd`` / ``nnz``
+  and the per-value helpers), which the serial tuners use;
 * the array engine: the nonzero-digit positions of ``v`` are the set bits
   of ``(3v XOR v) >> 1`` and the digit at position ``i`` is ``+1`` iff bit
   ``i`` of ``(3v) >> 1`` is set, so three vector ops recode a whole array
@@ -19,10 +19,11 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["to_csd", "from_csd", "tnzd",
-           "drop_least_significant_digit", "to_csd_array", "from_csd_array",
-           "nnz_array", "drop_least_significant_digit_array",
-           "largest_left_shift_array"]
+__all__ = ["to_csd", "from_csd", "nnz", "tnzd",
+           "drop_least_significant_digit", "largest_left_shift",
+           "to_csd_array", "from_csd_array", "nnz_array",
+           "drop_least_significant_digit_array", "largest_left_shift_array",
+           "bit_length_array"]
 
 # Valid domain of the array engine: |v| < 2^61 keeps 3*v inside int64.
 _MAX_ABS = 1 << 61
@@ -50,6 +51,11 @@ def from_csd(digits: list[int]) -> int:
     return sum(d << i for i, d in enumerate(digits))
 
 
+def nnz(value: int) -> int:
+    """Number of nonzero CSD digits of ``value``."""
+    return sum(1 for d in to_csd(value) if d != 0)
+
+
 def drop_least_significant_digit(value: int) -> int:
     """Remove the least-significant nonzero CSD digit (paper IV-B 2a);
     0 when ``value`` has a single nonzero digit."""
@@ -59,6 +65,21 @@ def drop_least_significant_digit(value: int) -> int:
             digits[i] = 0
             return from_csd(digits)
     return 0
+
+
+def largest_left_shift(value: int) -> int:
+    """lls: number of trailing zero bits (value = odd << lls), paper IV-C
+    step 2a; the sentinel 63 for 0, so zero weights never constrain a
+    neuron's smallest left shift."""
+    value = int(value)
+    if value == 0:
+        return 63
+    value = abs(value)
+    lls = 0
+    while value & 1 == 0:
+        value >>= 1
+        lls += 1
+    return lls
 
 
 def _csd_masks(values) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -117,9 +138,19 @@ def nnz_array(values) -> np.ndarray:
     return _popcount(nz)
 
 
-def tnzd(int_arrays) -> int:
+def tnzd(int_arrays, engine: str = "array") -> int:
     """Total nonzero CSD digits over a collection of integer arrays: the
-    paper's high-level hardware cost (Tables I-IV column tnzd)."""
+    paper's high-level hardware cost (Tables I-IV column tnzd).
+    ``engine="array"`` popcounts the closed-form nonzero masks;
+    ``engine="scalar"`` is the per-value loop."""
+    if engine == "scalar":
+        total = 0
+        for arr in int_arrays:
+            flat = np.asarray(arr).ravel()
+            total += int(sum(nnz(int(v)) for v in flat))
+        return total
+    if engine != "array":
+        raise ValueError(engine)
     return int(sum(int(nnz_array(arr).sum()) for arr in int_arrays))
 
 
@@ -138,3 +169,16 @@ def largest_left_shift_array(values) -> np.ndarray:
     v = np.asarray(values, dtype=np.int64)
     low = v & -v
     return np.where(v == 0, np.int64(63), _popcount(low - 1))
+
+
+def bit_length_array(values) -> np.ndarray:
+    """Whole-array ``int(abs(v)).bit_length()`` (0 for 0): the magnitude
+    bitwidths the cost model prices multipliers and adders by (DESIGN.md
+    12.1).  Bit-smearing + popcount on the ``|v| < 2**61`` domain."""
+    v = np.asarray(values, dtype=np.int64)
+    if v.size and (int(v.min()) <= -_MAX_ABS or int(v.max()) >= _MAX_ABS):
+        raise OverflowError("bit_length_array requires |v| < 2**61")
+    x = np.abs(v)
+    for s in (1, 2, 4, 8, 16, 32):
+        x = x | (x >> s)
+    return _popcount(x)

@@ -1,21 +1,29 @@
-"""Hardware-aware post-training weight tuning for the parallel architecture
-(paper Section IV-B), the counterpart of ``tune_parallel`` in
-``repro/core/tuning.py``.
+"""Hardware-aware post-training weight tuning (paper Sections IV-B and
+IV-C), the counterpart of ``repro/core/tuning.py``.
 
-``tune_parallel`` is a greedy hill-climber over *hardware* (integer)
-accuracy on the validation split: repeatedly remove the least significant
-nonzero CSD digit of every weight when accuracy does not drop (reduces
-tnzd, hence the adder count of the shift-add realization), optionally
-followed by a planner-priced polish (``cost="adders"``).
+Two tuners, both greedy hill-climbers over *hardware* (integer) accuracy on
+the validation split:
 
-It runs on the batched hardware-accuracy engine (``repro_torch.eval``,
-DESIGN.md 7) by default: the digit-drop loop follows the serial
-accept/reject chain through each chunk with ``evaluate_chain``, and the
-polish scores its alternatives with ``evaluate``, whose tail runs through
-the ``csd_matvec`` kernel on the card.  Every accept/reject decision
-reproduces the serial hill-climb exactly; ``engine="serial"`` keeps the
-original per-candidate numpy loop.  The time-multiplexed tuner (IV-C) is
-not ported yet.
+* ``tune_parallel``: parallel architecture, repeatedly remove the least
+  significant nonzero CSD digit of every weight when accuracy does not drop
+  (reduces tnzd, hence the adder count of the shift-add realization),
+  optionally followed by a planner-priced polish (``cost="adders"``);
+* ``tune_time_multiplexed``: SMAC architectures, per neuron
+  (scope='neuron') or whole-network (scope='ann'), maximize the smallest
+  left shift (sls) among the weights so the MAC multiplier, adder and
+  register narrow, with the paper's bias-nudging fallback (+-4) when a
+  candidate alone loses accuracy.
+
+Both run on the batched hardware-accuracy engine (``repro_torch.eval``,
+DESIGN.md 7) by default and decide whole candidate runs with *chain scans*
+(DESIGN.md 7.5): ``tune_parallel`` follows the serial accept/reject chain
+through each chunk with ``evaluate_chain`` and its polish scores with
+``evaluate``, whose tail runs through the ``csd_matvec`` kernel on the
+card; ``tune_time_multiplexed`` follows its candidate-pair + bias-nudge
+decision tree with ``evaluate_tm_chain``, on the host (as the reference
+does off a TPU), so it launches no kernel itself.  Every accept/reject
+decision reproduces the serial hill-climb exactly; ``engine="serial"``
+keeps the original per-candidate numpy loop.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import numpy as np
 from . import csd
 from .intmlp import IntMLP, hardware_accuracy
 
-__all__ = ["tune_parallel", "TuneResult", "sls_of"]
+__all__ = ["tune_parallel", "tune_time_multiplexed", "TuneResult", "sls_of"]
 
 
 @dataclass
@@ -341,8 +349,205 @@ def _tune_parallel_serial(mlp: IntMLP, x_val_int: np.ndarray,
                       stats=stats)
 
 
+
+# ---------------------------------------------------------------------------
+# Section IV-C: time-multiplexed architectures — smallest-left-shift tuning
+# ---------------------------------------------------------------------------
+
 def sls_of(values) -> int:
     """Smallest left shift among a set of integer weights (zeros ignored)."""
     v = np.asarray(values, dtype=np.int64).ravel()
     v = v[v != 0]
     return int(csd.largest_left_shift_array(v).min()) if v.size else 0
+
+
+def _bitwidth(v: int) -> int:
+    return int(abs(int(v))).bit_length()
+
+
+def _neuron_groups(mlp: IntMLP, scope: str):
+    """Yield (layer, neuron_indices) weight groups that share one MAC datapath.
+
+    scope='neuron': one group per output neuron (SMAC_NEURON, Fig. 6).
+    scope='ann'   : one group covering every weight in the net (SMAC_ANN, Fig. 7).
+    """
+    if scope == "neuron":
+        for k, w in enumerate(mlp.weights):
+            for m in range(w.shape[1]):
+                yield [(k, m)]
+    elif scope == "ann":
+        yield [(k, m) for k, w in enumerate(mlp.weights) for m in range(w.shape[1])]
+    else:
+        raise ValueError(scope)
+
+
+def _group_weights(mlp: IntMLP, group):
+    return np.concatenate([mlp.weights[k][:, m] for k, m in group])
+
+
+def _sls_candidates(mlp: IntMLP, group):
+    """Serial visit-order weight candidates of one group: (k, m, n, w, [pw]).
+
+    sls / maxbw are fixed at group entry (the serial tuner computes them once
+    per group per sweep); per-weight values are group-entry values too, since
+    a commit only rewrites the committed weight, visited once per pass.
+    """
+    gvals = _group_weights(mlp, group)
+    sls = sls_of(gvals)                              # step 2
+    maxbw = max((_bitwidth(v) for v in gvals if v != 0), default=0)
+    out = []
+    for (k, m) in group:
+        col = mlp.weights[k][:, m]
+        for n in range(col.shape[0]):
+            w_kmn = int(col[n])
+            if w_kmn == 0:
+                continue
+            if csd.largest_left_shift(w_kmn) != sls:    # step 2a
+                continue
+            step = 1 << (sls + 1)
+            pw1 = w_kmn - (w_kmn % step)                # step 2b
+            pws = [pw for pw in (pw1, pw1 + step) if _bitwidth(pw) <= maxbw]
+            if pws:
+                out.append((k, m, n, w_kmn, pws))
+    return out
+
+
+def tune_time_multiplexed(mlp: IntMLP, x_val_int: np.ndarray,
+                          y_val: np.ndarray, *, scope: str = "neuron",
+                          bias_range: int = 4, max_sweeps: int = 50,
+                          engine: str = "batched", backend: str = "auto",
+                          chunk: int = 128, shard: bool = False,
+                          chain_engine: str = "auto",
+                          device="cuda") -> TuneResult:
+    """Greedy smallest-left-shift maximization (paper IV-C) with bias
+    nudging.  Decision-identical engines as in :func:`tune_parallel`;
+    ``engine="batched"`` decides each weight group's candidate-pair +
+    bias-nudge tree in one ``evaluate_tm_chain`` pass (DESIGN.md 7.5) on an
+    evaluator built on ``device``.
+
+    ``chain_engine`` picks that pass's implementation: ``"host"`` (the
+    sparsity-aware numpy chain) or ``"auto"``, which resolves to it, the
+    reference's static rule off a TPU.  ``"device"`` is not ported yet
+    (ROADMAP queue 1, item 7) and raises.  The chain's decisions never read
+    the device mirror, so every backend gives the same result."""
+    if engine == "serial":
+        return _tune_tm_serial(mlp, x_val_int, y_val, scope=scope,
+                               bias_range=bias_range, max_sweeps=max_sweeps)
+    if engine != "batched":
+        raise ValueError(engine)
+    from repro_torch.eval import Candidate, TMStep
+    ev = _batched_ev(mlp, x_val_int, y_val, backend, chunk, shard, device)
+    bha = ev.accuracy()                              # step 1
+    initial = bha
+    replaced_total = 0
+    sweeps = 0
+    log = []
+    dbs = tuple(db for db in range(-bias_range, bias_range + 1) if db != 0)
+    while sweeps < max_sweeps:                       # step 3 loop
+        sweeps += 1
+        improved_any = False
+        for group in _neuron_groups(ev.mlp, scope):
+            wcands = _sls_candidates(ev.mlp, group)
+            # Chain scan (DESIGN.md 7.5): one evaluator pass decides the
+            # whole group's candidate-pair + bias-nudge tree (steps 2b-2d),
+            # each weight scored against the state with every earlier accept
+            # applied, then one commit_many cache refresh per run.  Runs are
+            # truncated at layer boundaries (scope='ann' groups span layers;
+            # evaluator batches must share a layer).
+            pos = 0
+            while pos < len(wcands):
+                k0 = wcands[pos][0]
+                same = next((i for i, wc in enumerate(wcands[pos:])
+                             if wc[0] != k0), len(wcands) - pos)
+                run = wcands[pos:pos + same]
+                steps = [TMStep(k, m, n, tuple(pws), dbs)
+                         for (k, m, n, _w, pws) in run]
+                decisions = ev.evaluate_tm_chain(steps, bha,
+                                                 engine=chain_engine)
+                accepted = []
+                for (k, m, n, _w, _pws), (ok, pw, db, ha) in zip(run,
+                                                                 decisions):
+                    if ok:                           # steps 2c/2d accepts
+                        accepted.append(Candidate(k, m, n, pw, dbias=db))
+                        bha = ha
+                        replaced_total += 1
+                        improved_any = True
+                if accepted:
+                    ev.commit_many(accepted)
+                pos += same
+        log.append((sweeps, replaced_total, bha))
+        if not improved_any:                          # step 4
+            break
+    return TuneResult(mlp=ev.mlp, bha=bha, initial_ha=initial,
+                      replacements=replaced_total, sweeps=sweeps, log=log,
+                      stats=dict(ev.stats, backend=ev.backend))
+
+
+def _tune_tm_serial(mlp: IntMLP, x_val_int: np.ndarray, y_val: np.ndarray,
+                    *, scope: str = "neuron", bias_range: int = 4,
+                    max_sweeps: int = 50) -> TuneResult:
+    ev = _evaluator(x_val_int, y_val)
+    mlp = mlp.copy()
+    bha = ev(mlp)                                    # step 1
+    initial = bha
+    replaced_total = 0
+    sweeps = 0
+    log = []
+    while sweeps < max_sweeps:                       # step 3 loop
+        sweeps += 1
+        improved_any = False
+        for group in _neuron_groups(mlp, scope):
+            gvals = _group_weights(mlp, group)
+            sls = sls_of(gvals)                      # step 2
+            maxbw = max((_bitwidth(v) for v in gvals if v != 0), default=0)
+            for (k, m) in group:
+                col = mlp.weights[k][:, m]
+                for n in range(col.shape[0]):
+                    w_kmn = int(col[n])
+                    if w_kmn == 0:
+                        continue
+                    lls = csd.largest_left_shift(w_kmn)     # step 2a
+                    if lls != sls:
+                        continue
+                    step = 1 << (lls + 1)
+                    pw1 = w_kmn - (w_kmn % step)            # step 2b
+                    pw2 = pw1 + step
+                    cands = []
+                    for pw in (pw1, pw2):
+                        if _bitwidth(pw) <= maxbw:
+                            col[n] = pw
+                            cands.append((ev(mlp), pw))
+                    col[n] = w_kmn
+                    if not cands:
+                        continue
+                    cands.sort(reverse=True)
+                    ha_best, pw_best = cands[0]
+                    if ha_best >= bha:                       # step 2c
+                        col[n] = pw_best
+                        bha = ha_best
+                        replaced_total += 1
+                        improved_any = True
+                        continue
+                    # step 2d: bias nudging with the best candidate assumed
+                    col[n] = pw_best
+                    b_km = int(mlp.biases[k][m])
+                    committed = False
+                    for db in range(-bias_range, bias_range + 1):
+                        if db == 0:
+                            continue
+                        mlp.biases[k][m] = b_km + db
+                        ha = ev(mlp)
+                        if ha >= bha:
+                            bha = ha
+                            replaced_total += 1
+                            improved_any = True
+                            committed = True
+                            break
+                    if not committed:
+                        mlp.biases[k][m] = b_km
+                        col[n] = w_kmn
+        log.append((sweeps, replaced_total, bha))
+        if not improved_any:                          # step 4
+            break
+    return TuneResult(mlp=mlp, bha=bha, initial_ha=initial,
+                      replacements=replaced_total, sweeps=sweeps, log=log)

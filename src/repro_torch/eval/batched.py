@@ -41,8 +41,9 @@ Two evaluators live here:
 
 * :class:`BatchedHWEvaluator`: the tuners' stateful engine, ONE committed
   network and batches of single-column *mutations* of it (DESIGN.md 7).
-  Its chains (:meth:`~BatchedHWEvaluator.evaluate_chain`) run on the host,
-  as the reference's do on every backend but a TPU.
+  Its chains (:meth:`~BatchedHWEvaluator.evaluate_chain` for the IV-B
+  tuner, :meth:`~BatchedHWEvaluator.evaluate_tm_chain` for the IV-C one)
+  run on the host, as the reference's do on every backend but a TPU.
 * :class:`QSweepEvaluator`: the sweep engine, batches of *whole networks*
   sharing one (structure, activations), e.g. the same float weights
   quantized at several candidate q levels, scored in one stacked integer
@@ -61,7 +62,8 @@ import torch
 
 from repro_torch.core.intmlp import ACT_MAX, FRAC, IntMLP, act_requant
 
-__all__ = ["Candidate", "BatchedHWEvaluator", "QSweepEvaluator", "ha_pct",
+__all__ = ["Candidate", "TMStep", "BatchedHWEvaluator", "QSweepEvaluator",
+           "ha_pct",
            "int32_safe_bound", "net_int32_safe", "csd_net_accum_bound",
            "csd_net_int32_safe"]
 
@@ -90,6 +92,22 @@ class Candidate:
     row: int = -1
     wnew: int = 0
     dbias: int = 0
+
+
+@dataclass(frozen=True)
+class TMStep:
+    """One weight's slot in the time-multiplexed tuner's decision tree
+    (paper IV-C steps 2b-2d; DESIGN.md 7.5): the candidate replacement values
+    ``pws`` for weight [row, col] of ``layer`` are *alternatives*, ranked by
+    ``(accuracy, value)`` descending, the best committed iff it clears the
+    running threshold; on failure the bias nudges ``dbs`` are tried in
+    order with the best candidate value, first hit committed."""
+
+    layer: int
+    col: int
+    row: int
+    pws: tuple      # 1-2 candidate replacement values (grid endpoints)
+    dbs: tuple = () # bias nudge deltas in serial try order
 
 
 def int32_safe_bound(mlp: IntMLP, slack_mult: int = 4,
@@ -442,6 +460,158 @@ class BatchedHWEvaluator:
             counts[t] = cnt_c
             flags[t] = ok
         return counts, flags
+
+    def evaluate_tm_chain(self, steps: Sequence[TMStep], bha: float,
+                          engine: str = "auto"
+                          ) -> list[tuple[bool, int, int, float]]:
+        """Follow the time-multiplexed tuner's per-weight decision tree
+        through ``steps`` in one chain pass (DESIGN.md 7.5): step t's
+        alternatives are scored against the chain state with every earlier
+        *accepted* step applied, its candidate values are ranked by
+        ``(accuracy, value)`` descending, the best is accepted iff its
+        accuracy clears the running best (``>=``, updating it), and on
+        failure the bias nudges are tried in serial order, first hit
+        accepted: exactly the serial tuner's steps 2b-2d.
+
+        Returns one ``(accepted, value, dbias, accuracy)`` tuple per step
+        (``accuracy`` is the decision's score: the committed accuracy when
+        accepted, the best rejected candidate's otherwise).  Committed state
+        is untouched; commit the accepted steps as ``Candidate``s with
+        :meth:`commit_many`.  Steps must share a layer and target distinct
+        weights.  ``bha`` must equal the committed network's accuracy (the
+        greedy invariant), which reduces every threshold to an exact integer
+        correct-count comparison.
+
+        ``engine``: ``"host"`` runs the sparsity-aware numpy chain against
+        the maintained caches; ``"auto"`` resolves to it, the reference's
+        static rule off a TPU.  ``"device"`` (the reference's one-dispatch
+        chain scan) is not ported yet: ROADMAP queue 1, item 7.
+        """
+        if engine not in ("auto", "host", "device"):
+            raise ValueError(engine)
+        if engine == "device":
+            raise NotImplementedError(
+                "the device TM chain is not ported (ROADMAP queue 1, item "
+                "7); use engine='host' or 'auto'")
+        if not steps:
+            return []
+        k = steps[0].layer
+        seen = set()
+        for s in steps:
+            if s.layer != k:
+                raise ValueError("steps must share a layer")
+            if not s.pws:
+                raise ValueError("step needs at least one candidate value")
+            if (s.row, s.col) in seen:
+                raise ValueError("steps must target distinct weights")
+            seen.add((s.row, s.col))
+        if ha_pct(self._count, self.n_val) != bha:
+            raise ValueError("bha must equal the committed network's "
+                             "accuracy (greedy invariant)")
+        decisions, n_evals = self._tm_chain_np(k, steps)
+        self.stats["eval_calls"] += 1
+        self.stats["candidates"] += n_evals
+        return decisions
+
+    def _tm_chain_np(self, k: int, steps: Sequence[TMStep]):
+        """int64/int32 numpy chain over the TM decision tree: the same
+        incremental state and changed-rows sparsity as :meth:`_chain_np`,
+        with up to ``len(pws) + len(dbs)`` alternatives scored per step
+        (nudges only when the candidate pair fails, like the serial tuner).
+        It works on copies of the caches, so the committed state (and its
+        device mirror) is untouched until :meth:`commit_many`."""
+        mlp = self._mlp
+        q = mlp.q
+        n_layers = len(mlp.weights)
+        last = k == n_layers - 1
+        act_k = mlp.activations[k]
+        w_k = mlp.weights[k]
+        dw_all = np.asarray([int(pw) - int(w_k[s.row, s.col])
+                             for s in steps for pw in s.pws] or [0], np.int64)
+        db_all = np.asarray([db << FRAC for s in steps for db in s.dbs]
+                            or [0], np.int64)
+        dt = np.int32 if self._spec_safe(k, dw_all, db_all) else np.int64
+        a_k = self._a[k].astype(dt)
+        acc_k = self._acc[k].astype(dt)
+        a_k1 = self._a[k + 1].astype(dt)
+        acc_n = None if last else self._acc[k + 1].astype(dt)
+        w_next = None if last else mlp.weights[k + 1].astype(dt)
+        w_deep = [mlp.weights[l].astype(dt) for l in range(k + 2, n_layers)]
+        bsh_deep = [(mlp.biases[l].astype(np.int64) << FRAC).astype(dt)
+                    for l in range(k + 2, n_layers)]
+        correct = self._slab == self._score.max(axis=1)           # (Mp,)
+        cnt = self._count
+        n_out = self._a[-1].shape[1]
+        pen = n_out - 1 - np.arange(n_out, dtype=dt)
+        lab_safe = np.maximum(self._labels, 0)
+        real = self._labels >= 0
+        ar = np.arange(self._mp)
+        n_evals = 0
+
+        def eval_alt(i, j, dw, dbsh):
+            """(count, state-artifacts) of one alternative vs the chain."""
+            nonlocal n_evals
+            n_evals += 1
+            buf = a_k[:, i] * dt(dw) + acc_k[:, j]
+            if dbsh:
+                buf += dt(dbsh)
+            h_new = _act_requant_np(buf, act_k, q)
+            dcol = h_new - a_k1[:, j]
+            idx = np.nonzero(dcol)[0]
+            if len(idx) == 0:
+                return cnt, (buf, h_new, idx, None, None)
+            if last:
+                rows = a_k1[idx]
+                rows[:, j] = h_new[idx]
+                acc_rows = None
+            else:
+                acc_rows = acc_n[idx] + dcol[idx, None] * w_next[j][None]
+                rows = _act_requant_np(acc_rows, mlp.activations[k + 1], q)
+                for li, l in enumerate(range(k + 2, n_layers)):
+                    rows = _act_requant_np(rows @ w_deep[li] + bsh_deep[li],
+                                           mlp.activations[l], q)
+            score = rows * n_out
+            score += pen
+            slab = score[ar[:len(idx)], lab_safe[idx]]
+            corr_rows = (slab == score.max(axis=1)) & real[idx]
+            cnt_c = cnt - int(correct[idx].sum()) + int(corr_rows.sum())
+            return cnt_c, (buf, h_new, idx, acc_rows, corr_rows)
+
+        def apply(j, art):
+            buf, h_new, idx, acc_rows, corr_rows = art
+            acc_k[:, j] = buf
+            a_k1[:, j] = h_new
+            if len(idx):
+                if not last:
+                    acc_n[idx] = acc_rows
+                correct[idx] = corr_rows
+
+        decisions = []
+        for s in steps:
+            i, j = s.row, s.col
+            w0 = int(w_k[i, j])
+            alts = []
+            for pw in s.pws:
+                cnt_c, art = eval_alt(i, j, int(pw) - w0, 0)
+                alts.append((cnt_c, int(pw), art))
+            alts.sort(key=lambda t: (t[0], t[1]), reverse=True)
+            cnt_best, pw_best, art_best = alts[0]
+            if cnt_best >= cnt:                       # step 2c
+                apply(j, art_best)
+                cnt = cnt_best
+                decisions.append((True, pw_best, 0,
+                                  ha_pct(cnt_best, self.n_val)))
+                continue
+            dec = (False, pw_best, 0, ha_pct(cnt_best, self.n_val))
+            for db in s.dbs:                          # step 2d
+                cnt_c, art = eval_alt(i, j, pw_best - w0, int(db) << FRAC)
+                if cnt_c >= cnt:
+                    apply(j, art)
+                    cnt = cnt_c
+                    dec = (True, pw_best, int(db), ha_pct(cnt_c, self.n_val))
+                    break
+            decisions.append(dec)
+        return decisions, n_evals
 
     def commit_many(self, cands: Sequence[Candidate]) -> None:
         """Commit a run of same-layer candidates (an accepted prefix from

@@ -1,18 +1,25 @@
-"""The paper pipeline's search and tuning path, end to end:
-``python -m repro_torch.launch.quickstart [--device cuda|cpu]``.
+"""The paper pipeline, end to end:
+``python -m repro_torch.launch.quickstart [--device cuda|cpu] [--out DIR]``.
 
-The counterpart of steps 1-3 of ``examples/quickstart.py``, on the paper's
-largest structure 16-16-10-10:
+The counterpart of ``examples/quickstart.py``, on the paper's largest
+structure 16-16-10-10:
 
 1. train the float ANN on the pendigits surrogate with the ZAAL trainer;
 2. find the minimum quantization value (paper IV-A) on the multi-q sweep
    evaluator, and score the test split through the same kind of evaluator;
 3. tune the integer weights for the parallel architecture (paper IV-B)
-   with the planner-priced polish (``cost="adders"``).
+   with the planner-priced polish (``cost="adders"``), and for the
+   time-multiplexed SMAC_NEURON one (paper IV-C, ``scope="neuron"``);
+4. price the three design architectures (Section III) and the
+   multiplierless styles (Section V) with the analytic cost model;
+5. emit hardware: SIMURG writes the parallel CMVM design's Verilog,
+   testbench, vectors, synthesis script and cost report (Section VI) to
+   ``--out`` (default ``out/simurg_pendigits``, git-ignored).
 
 On a CUDA device both evaluators default to the ``csd`` backend, so the
 sweep runs through the ``csd_qsweep`` kernel and the polish through
-``csd_matvec``; the script prints each kernel's launches.
+``csd_matvec``; the script prints each kernel's launches.  The IV-C
+tuner's decision chains, the pricing and SIMURG run on the host.
 """
 from __future__ import annotations
 
@@ -24,7 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.pendigits_mlp import hw_activations
-from repro_torch.core import find_min_q, quantize_inputs, tune_parallel
+from repro_torch.core import (find_min_q, quantize_inputs, simurg,
+                              tune_parallel, tune_time_multiplexed)
+from repro_torch.core.archs import DesignReport, design_cost
 from repro_torch.core.csd import tnzd
 from repro_torch.core.quantize import QuantResult
 from repro_torch.core.tuning import TuneResult
@@ -38,7 +47,14 @@ from repro_torch.train.zaal import TrainConfig, TrainResult, train
 STRUCTURE = (16, 16, 10, 10)
 EPOCHS = 40
 MAX_SWEEPS = 4
+TM_SWEEPS = 2
 CHUNK = 128
+OUT_DIR = "out/simurg_pendigits"
+#: the design rows the reference quickstart prints: (arch, tuned network,
+#: styles), "parallel" priced on the IV-B result, the SMAC ones on IV-C's
+DESIGN_ROWS = (("parallel", "tp", ("behavioral", "cavm", "cmvm")),
+               ("smac_neuron", "tm", ("behavioral", "mcm")),
+               ("smac_ann", "tm", ("behavioral",)))
 
 
 @dataclass
@@ -56,14 +72,29 @@ class PaperRun:
     sweep_ev: QSweepEvaluator   # the evaluator find_min_q swept on
     test_ev: QSweepEvaluator
     test_ha: tuple              # test accuracy after min-q, after tuning
-    seconds: dict               # wall time of "train", "min_q", "tune"
+    tm: TuneResult              # the IV-C tuner's (scope="neuron")
+    designs: list               # DesignReports of DESIGN_ROWS, in order
+    simurg: simurg.SimurgOutput  # the parallel CMVM design of tp.mlp
+    out_dir: str                # where SIMURG wrote its files
+    seconds: dict   # wall time of "train", "min_q", "tune", "tm", "price",
+                    # "simurg"
+
+
+def price_designs(tp: TuneResult, tm: TuneResult,
+                  engine: str = "array") -> list[DesignReport]:
+    """The quickstart's design rows (:data:`DESIGN_ROWS`) priced on
+    ``engine``."""
+    nets = {"tp": tp.mlp, "tm": tm.mlp}
+    return [design_cost(nets[net], arch, style, engine=engine)
+            for arch, net, styles in DESIGN_ROWS for style in styles]
 
 
 def run_pipeline(device="cuda", *, epochs=EPOCHS, max_sweeps=MAX_SWEEPS,
-                 val_rows=None, chunk=CHUNK) -> PaperRun:
-    """Train, min-q and tune on ``device`` with every backend on ``auto``.
-    ``val_rows`` keeps only the first rows of the validation split for the
-    search and the tuner (the full split when None)."""
+                 val_rows=None, chunk=CHUNK, out_dir=OUT_DIR) -> PaperRun:
+    """Train, min-q, tune, price and emit on ``device`` with every backend
+    on ``auto``; SIMURG writes to ``out_dir``.  ``val_rows`` keeps only the
+    first rows of the validation split for the search and the tuners (the
+    full split when None)."""
     dev = resolve_device(device)
 
     def clock():
@@ -91,18 +122,32 @@ def run_pipeline(device="cuda", *, epochs=EPOCHS, max_sweeps=MAX_SWEEPS,
                        cost="adders", chunk=chunk, device=dev)
     t4 = clock()
     test_ev = QSweepEvaluator(xte_int, ds.y_test, device=dev)
+    test_ha = tuple(test_ev.evaluate([qr.mlp, tp.mlp]))
+    t5 = clock()
+    tm = tune_time_multiplexed(qr.mlp, xval_int, yval, scope="neuron",
+                               max_sweeps=TM_SWEEPS, device=dev)
+    t6 = clock()
+    designs = price_designs(tp, tm)
+    t7 = clock()
+    out = simurg.generate(tp.mlp, arch="parallel", style="cmvm",
+                          top="pendigits_ann")
+    out.write(out_dir)
+    t8 = clock()
     return PaperRun(
         train=res, acts=acts, x_val=xval_int, y_val=yval, x_test=xte_int,
         y_test=ds.y_test, qr=qr, tp=tp, sweep_ev=sweep_ev, test_ev=test_ev,
-        test_ha=tuple(test_ev.evaluate([qr.mlp, tp.mlp])),
-        seconds={"train": t1 - t0, "min_q": t3 - t2, "tune": t4 - t3})
+        test_ha=test_ha, tm=tm, designs=designs, simurg=out, out_dir=out_dir,
+        seconds={"train": t1 - t0, "min_q": t3 - t2, "tune": t4 - t3,
+                 "tm": t6 - t5, "price": t7 - t6, "simurg": t8 - t7})
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", default=OUT_DIR,
+                    help="directory SIMURG writes the design to")
     args = ap.parse_args(argv)
-    r = run_pipeline(args.device)
+    r = run_pipeline(args.device, out_dir=args.out)
     res, qr, tp, s = r.train, r.qr, r.tp, r.tp.stats
 
     print("== 1. train (ZAAL, htanh/sigmoid) ==")
@@ -127,8 +172,23 @@ def main(argv=None):
     print(f"   [batched engine: {r.seconds['tune']:.2f} s, "
           f"{s['candidates']} candidates in {s['eval_calls']} evaluator "
           f"calls, backend={s['backend']}]")
+    tm = r.tm
+    print(f"   smac_neuron: bha={tm.bha:.2f}% repl={tm.replacements} "
+          f"[tm chain: {tm.stats['eval_calls']} evaluator calls, "
+          f"{r.seconds['tm']:.2f} s on the host, backend "
+          f"{tm.stats['backend']}]")
     print(f"   kernel launches: csd_qsweep {csd_qsweep_kernel.launches}, "
           f"csd_matvec {csd_matvec_kernel.launches}")
+
+    print("== 4. design-architecture costs (paper III + V) ==")
+    for rep in r.designs:
+        print("   " + rep.row())
+    print(f"   [{r.seconds['price']*1e3:.1f} ms]")
+
+    print("== 5. SIMURG: emit hardware (paper VI) ==")
+    top = r.simurg.top
+    print(f"   wrote {r.out_dir}/{{{top}.v, tb_{top}.v, vectors.txt, "
+          f"synth.tcl, report.json}} [{r.seconds['simurg']*1e3:.1f} ms]")
 
 
 if __name__ == "__main__":

@@ -44,7 +44,9 @@ def test_port_files_exist():
                 "launch/quickstart.py", "kernels/flash_attention.py",
                 "data/tokens.py", "core/hwmodel.py",
                 "launch/serve_quantized.py", "configs/recurrentgemma_9b.py",
-                "kernels/linear_scan.py"):
+                "kernels/linear_scan.py", "core/archs.py", "core/simurg.py",
+                "quant/mixed.py", "explore/__init__.py", "explore/pareto.py",
+                "explore/space.py", "launch/explore.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()
