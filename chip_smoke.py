@@ -31,6 +31,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    shapes beside ``scaled_dot_product_attention``.  The linear-scan kernel
    bit-exact at the reference test's three shapes and the hybrid's loss,
    first prefill batch and decode shapes, timed at the last three;
+2b. the int8 power-of-two matmul's path, the port's public op
+   ``repro_torch.kernels.qmatmul``, at qwen2-0.5b's full widths: one call
+   per distinct (K, N) of the int8-PoT tree of random weights from seed 0
+   (q and o 896 x 896, k and v 896 x 128, the gate 896 x 4864, down
+   4864 x 896, the embedding 151936 x 896, the head 896 x 151936; ``wu``
+   stays float under the reference's skip rule), at M = 8 and M = 512,
+   the counter zeroed just before and read just after, each result equal
+   to the plain version and to x @ dequant(w) in float64 rounded once;
+   the kernel bit for bit against its plain version, f32 and bf16, at the
+   reference tests' shapes, the kernel lane's, M = 1 and those widths, e
+   across [-20, 20]; its times at every width but the embedding's (no
+   step multiplies by the embedding table) beside the bound, the plain
+   version and ``torch._int_mm`` on w stored column-major, as cuBLASLt's
+   int8 GEMM wants it, then the scale multiply, that route checked equal
+   to the plain version;
 3. small-input references: a tiny f32 model served on the card through
    both serving kernels gives the CPU engine's greedy tokens; the tiny
    model's ``Model.loss`` on the card is the CPU's within 1e-5 relative and
@@ -134,6 +149,16 @@ HYB_LOSS_SEQ = 4096
 # a lost recurrent or conv state moves them by a large share of it.
 HYB_DECODE_PROMPT = 2100
 HYB_DECODE_REL = 2e-3          # x max |logit|
+# The int8 power-of-two matmul: held bit for bit at the reference tests'
+# shapes, the kernel lane's (benchmarks/run.py) and M = 1; then at
+# qwen2-0.5b's widths at M = 8 (a decode step of 8 slots) and M = 512 (a
+# 128 x 4 prefill chunk).  (M, K, N).
+QM_SHAPES = {"reference tests": [(256, 512, 256), (128, 1024, 128),
+                                 (8, 512, 256), (300, 700, 130),
+                                 (1024, 512, 512)],
+             "kernel lane": [(256, 512, 256), (512, 1024, 512)],
+             "M = 1": [(1, 896, 4864), (1, 700, 130)]}
+QM_M = (8, 512)
 # SIMURG output of the paper phase, one directory per backend (git-ignored)
 SIMURG_OUT = os.path.join(HERE, "out", "chip_smoke")
 CARD = "card not read yet"     # nvidia-smi name and power limit, set in main
@@ -1196,6 +1221,189 @@ def linear_scan_kernel_phase(torch):
     }
 
 
+def _qleaves(tree, path=""):
+    """(path, qleaf) of a quantized tree, in its dict order."""
+    if isinstance(tree, dict) and "q" in tree and "exp" in tree:
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _qleaves(v, f"{path}/{k}" if path else k)
+
+
+def qwen_weight_widths(torch):
+    """qwen2-0.5b's int8-PoT tree at full width (random weights, seed 0,
+    ``quantize_tree(bits=8)``): one layer's (K, N) int8 weights and (N,)
+    exponents for each distinct (K, N), as {(K, N): (paths, w, exp)}."""
+    from repro_torch.nn import Model, get_config
+    from repro_torch.quant.ptq import quantize_tree
+    params = Model(get_config("qwen2-0.5b"), device="cuda").init(0)
+    qtree = quantize_tree(params, bits=8)
+    del params
+    widths = {}
+    for path, leaf in _qleaves(qtree):
+        check(leaf["bits"] == 8 and not leaf.get("packed"),
+              f"{path}: not an int8 leaf")
+        w = leaf["q"][0] if leaf["q"].ndim == 3 else leaf["q"]   # layer 0
+        kn = tuple(w.shape)
+        if kn in widths:
+            widths[kn][0].append(path)
+        else:
+            widths[kn] = ([path], w.clone(), leaf["exp"].clone())
+    return widths
+
+
+def qmatmul_phase(torch):
+    """The int8 power-of-two matmul: (a) the main path, the port's public
+    op ``repro_torch.kernels.qmatmul`` at qwen2-0.5b's full widths, one
+    call per distinct (K, N) of its int8-PoT tree at M = 8 (a decode step
+    of 8 slots) and M = 512 (a 128 x 4 prefill chunk), its counter zeroed
+    just before and read just after, each result equal to its plain
+    version and to x @ dequant(w) in float64 rounded once; (b) the kernel
+    bit for bit against its plain version, f32 and bf16, at the reference
+    tests' shapes, the kernel lane's, M = 1 and every qwen width, e across
+    [-20, 20]; (c) its times at the projection and head widths (a step
+    gathers rows of the embedding, never multiplies by it, so its width
+    is checked, not timed) beside the bound, the plain version and
+    ``torch._int_mm`` + the scale multiply, with w stored column-major
+    once outside the timed calls (cuBLASLt's int8 GEMM wants B so), that
+    route held equal to the plain version."""
+    from repro_torch.kernels import qmatmul
+    from repro_torch.kernels.ops import exp2_int
+    from repro_torch.kernels.qmatmul import qmatmul_kernel, qmatmul_plain
+    from repro_torch.quant.ptq import dequant
+    t0 = time.perf_counter()
+    widths = qwen_weight_widths(torch)
+    torch.cuda.synchronize()
+    print(f"qmatmul: qwen2-0.5b int8-PoT tree in "
+          f"{time.perf_counter()-t0:.2f} s; widths (K, N): "
+          + "; ".join(f"{kn} {paths}" for kn, (paths, _, _)
+                      in widths.items()))
+    rng = np.random.default_rng(0)
+
+    def i8(shape):
+        return torch.from_numpy(
+            rng.integers(-128, 128, shape).astype(np.int8)).cuda()
+
+    xs = {(M, K): i8((M, K)) for M in QM_M for K, _ in widths}
+
+    # (a) the main path
+    qmatmul_kernel.launches = 0
+    outs = {(M, kn): qmatmul(xs[M, kn[0]], w, e)
+            for M in QM_M for kn, (_, w, e) in widths.items()}
+    torch.cuda.synchronize()
+    launches = qmatmul_kernel.launches
+    check(launches == len(outs), f"qmatmul: {launches} launches for "
+          f"{len(outs)} calls of the op")
+    for (M, kn), y in outs.items():
+        _, w, e = widths[kn]
+        x = xs[M, kn[0]]
+        check(y.shape == (M, kn[1]) and y.dtype == torch.float32
+              and bool(torch.isfinite(y).all()),
+              f"qmatmul op at M={M}, (K, N)={kn}: misshapen or not finite")
+        check(torch.equal(y, qmatmul_plain(x, w, e)),
+              f"qmatmul op != plain version at M={M}, (K, N)={kn}")
+        deq = dequant({"q": w, "exp": e, "bits": 8}, dtype=torch.float64)
+        check(torch.equal(y, (x.double() @ deq).float()),
+              f"qmatmul op != x @ dequant(w) at M={M}, (K, N)={kn}")
+    print(f"qmatmul op at qwen2-0.5b's widths, M = {QM_M}: {launches} "
+          f"launches, each equal to the plain version and to x @ "
+          f"dequant(w) in float64 rounded once")
+    del outs
+
+    # (b) the kernel, bit for bit
+    cases = [(label, s) for label, group in QM_SHAPES.items() for s in group]
+    cases += [("qwen width", (M, K, N)) for M in QM_M for K, N in widths]
+    for label, (M, K, N) in cases:
+        if label == "qwen width":
+            x, (_, w, e) = xs[M, K], widths[K, N]
+        else:
+            x, w = i8((M, K)), i8((K, N))
+            e = torch.from_numpy(
+                rng.integers(-20, 21, N).astype(np.int32)).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            got = qmatmul_kernel(x, w, e, out_dtype=dt)
+            want = qmatmul_plain(x, w, e, dt)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"qmatmul kernel != plain "
+                  f"version at {(M, K, N)} {dt} ({label})")
+        print(f"qmatmul {(M, K, N)} ({label}): bit-exact against the plain "
+              f"version, f32 and bf16")
+
+    def int_mm_route(x, w, s):
+        return torch._int_mm(x, w) * s
+
+    # (c) times at the projection and head widths, on distinct inputs over
+    # twice the L2
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for M in QM_M:
+        for (K, N), (paths, _, e0) in widths.items():
+            if paths == ["embed"]:
+                continue
+            nbytes = M * K + K * N + 4 * N + 4 * M * N
+            sets = [(torch.randint(-128, 128, (M, K), generator=gen,
+                                   device="cuda", dtype=torch.int8),
+                     torch.randint(-128, 128, (K, N), generator=gen,
+                                   device="cuda", dtype=torch.int8),
+                     e0) for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+            ms, eager_ms = time_calls(torch, qmatmul_kernel, sets, 5)
+            plain_ms, _ = time_calls(torch, qmatmul_plain, sets, 1)
+            lib_ms, refused = None, "M <= 16, or K or N not a multiple of 8"
+            if M > 16 and K % 8 == 0 and N % 8 == 0:
+                # static weights, stored once the way the library wants
+                lib_sets = [(x, w.t().contiguous().t(), exp2_int(-e))
+                            for x, w, e in sets]
+                try:                       # the eager warm-up raises first
+                    lib_ms, _ = time_calls(torch, int_mm_route, lib_sets, 5)
+                except RuntimeError as err:
+                    refused = str(err).splitlines()[0][:120]
+                if lib_ms is not None:
+                    x, w, e = sets[0]
+                    check(torch.equal(int_mm_route(*lib_sets[0]),
+                                      qmatmul_plain(x, w, e)),
+                          f"_int_mm + scale != plain version at "
+                          f"{(M, K, N)}")
+                del lib_sets
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = 2 * M * K * N / INT8_OPS
+            rows.append({
+                "M": M, "K": K, "N": N, "leaves": paths, "ms": ms,
+                "eager_ms": eager_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "refused": refused,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "sets": len(sets)})
+            del sets
+    for r in rows:
+        lib = (f"{r['library_ms']*1e3:.2f} us" if r["library_ms"] is not None
+               else f"n/a ({r['refused']})")
+        print(f"qmatmul ({r['M']}, {r['K']}, {r['N']}) {r['leaves']}: "
+              f"{r['ms']*1e3:.2f} us on the card ({r['eager_ms']*1e3:.2f} us "
+              f"per eager call), plain {r['plain_ms']*1e3:.2f} us, bound "
+              f"{r['bound_ms']*1e3:.2f} us ({r['bound_by']}), _int_mm + "
+              f"scale {lib}; {r['sets']} input sets")
+    head = next(r for r in rows                 # (512, 896, 4864)
+                if r["M"] == 512 and "layers/mlp/wg" in r["leaves"])
+    row = {
+        "name": "qmatmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
+        "replaces": "src/repro/kernels/qmatmul.py:48",
+        "max_abs_err": 0.0,
+        **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "library": "torch._int_mm on w stored column-major, then the "
+                   "scale multiply (two calls); null where _int_mm "
+                   "refuses the shape",
+        "shape": f"x ({head['M']}, {head['K']}) int8, w ({head['K']}, "
+                 f"{head['N']}) int8, f32 out: a prefill chunk through "
+                 f"layer 0's gate projection; timed over {head['sets']} "
+                 f"input sets",
+        "widths": [{k: r[k] for k in ("M", "K", "N", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
+                   for r in rows]}
+    return row, launches
+
+
 def _numel(tree):
     if isinstance(tree, dict):
         return sum(_numel(v) for v in tree.values())
@@ -1349,7 +1557,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
     sources = ("paged_gather", "paged_attention", "csd_matvec",
-               "flash_attention", "linear_scan")
+               "flash_attention", "linear_scan", "qmatmul")
     t0 = time.perf_counter()
     build.build(sources)
     print(f"build: {time.perf_counter()-t0:.2f} s "
@@ -1363,6 +1571,10 @@ def main() -> int:
     kernels.append(flash_kernel_phase(torch))
     kernels.append(linear_scan_kernel_phase(torch))
     print(f"kernel phase: {time.perf_counter()-t0:.2f} s")
+    t0 = time.perf_counter()
+    qm_row, qm_launches = qmatmul_phase(torch)
+    kernels.append(qm_row)
+    print(f"qmatmul phase: {time.perf_counter()-t0:.2f} s")
     t0 = time.perf_counter()
     tiny_reference_phase(torch)
     tiny_lm_phase(torch)
@@ -1395,12 +1607,15 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name, n in explore_launches.items():
         launches[name] += n
+    launches["qmatmul"] = qm_launches
     csd_by_path = {"paper": paper_launches, "explore": explore_launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "flash_attention":
             k["launches_by_path"] = {p: v["flash_attention"]
                                      for p, v in by_path.items()}
+        elif k["name"] == "qmatmul":
+            k["launches_by_path"] = {"op": qm_launches}
         elif k["name"] in explore_launches:
             k["launches_by_path"] = {p: v[k["name"]]
                                      for p, v in csd_by_path.items()}

@@ -18,10 +18,11 @@ from .flash_attention import flash_attention_kernel, flash_attention_plain
 from .linear_scan import linear_scan_kernel, linear_scan_plain
 from .paged_attention import paged_attention_kernel, paged_attention_plain
 from .paged_gather import paged_gather_kernel, paged_gather_plain
+from .qmatmul import qmatmul_kernel, qmatmul_plain
 
-__all__ = ["quantize_pot", "exp2_int", "paged_gather", "paged_attention",
-           "csd_expand", "csd_expand_stack", "csd_matvec", "csd_qsweep",
-           "flash_attention", "linear_scan"]
+__all__ = ["qmatmul", "quantize_pot", "exp2_int", "paged_gather",
+           "paged_attention", "csd_expand", "csd_expand_stack", "csd_matvec",
+           "csd_qsweep", "flash_attention", "linear_scan"]
 
 
 def csd_expand(w_int, depth: int | None = None) -> np.ndarray:
@@ -67,6 +68,21 @@ def quantize_pot(w: torch.Tensor, *, bits: int = 8, axis=0):
 def _plain_or_raise(t: torch.Tensor, what: str) -> None:
     if t.device.type != "cpu":
         raise RuntimeError(f"{what}: no kernel for device {t.device}")
+
+
+def qmatmul(x_i8: torch.Tensor, w_i8: torch.Tensor,
+            exp_i32: torch.Tensor) -> torch.Tensor:
+    """int8 power-of-two matmul: y = (x @ w) * 2^-exp, (M, N) f32, with an
+    int32 accumulator and the exact scale ``exp2_int(-exp)``.  x (M, K)
+    and w (K, N) int8 (``quantize_pot(w, axis=0)``), exp (N,) int32.  The
+    kernel takes any M, K and N, so nothing is padded."""
+    x = x_i8.contiguous()
+    w = w_i8.contiguous()
+    e = exp_i32.to(torch.int32).contiguous()
+    if x.is_cuda:
+        return qmatmul_kernel(x, w, e)
+    _plain_or_raise(x, "qmatmul")
+    return qmatmul_plain(x, w, e)
 
 
 def csd_matvec(x_int: torch.Tensor, w_int=None, planes=None) -> torch.Tensor:

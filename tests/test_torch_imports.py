@@ -46,12 +46,14 @@ def test_port_files_exist():
                 "launch/serve_quantized.py", "configs/recurrentgemma_9b.py",
                 "kernels/linear_scan.py", "core/archs.py", "core/simurg.py",
                 "quant/mixed.py", "explore/__init__.py", "explore/pareto.py",
-                "explore/space.py", "launch/explore.py"):
+                "explore/space.py", "launch/explore.py",
+                "kernels/qmatmul.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/flash_attention.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/linear_scan.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/qmatmul.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES,
