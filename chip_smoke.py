@@ -18,8 +18,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    polish call's tail (287,744 x 10 rows by 10 x 10 planes, D = 1, 8, 16),
    the sweep's three layers of 16-16-10-10 (4 networks x 2248 rows) and
    odd shapes;
-   The flash-attention kernel against its plain version in f32 (within
-   2e-5) and bf16 (both at the kernel's key tile, under
+   The flash-attention kernel against its plain version in f32 (its
+   CUDA-core route, within 2e-5) and bf16 (its tensor-core route, the
+   plain version at the kernel's own key tile ``KEY_TILE``, under
    ``bf16_disagreement``: each element within two bf16 ulps of its own
    magnitude plus 2^-8 of its row's largest, at most 1 % of elements
    different; the kernel in f32 on the same inputs, i.e. p left unrounded,
@@ -27,8 +28,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    offset, rows that see no key, non-causal, MHA, the loss shape (8 x
    1024, 14 / 2 heads of 64), the first reference prefill batch's shape,
    and the hybrid's loss (1 x 4096) and first prefill batch shapes (16 / 1
-   heads of 256, window 2048); timed at the loss shapes and the prefill
-   shapes beside ``scaled_dot_product_attention``.  The linear-scan kernel
+   heads of 256, window 2048); ptxas's registers and spills of the bf16
+   instantiations at D = 64 and 256 (a spill fails the run); bf16 timed at
+   the loss shapes and the prefill shapes beside
+   ``scaled_dot_product_attention``, the f32 route once at the loss
+   shape.  The linear-scan kernel
    bit-exact at the reference test's three shapes and the hybrid's loss,
    first prefill batch and decode shapes, timed at the last three;
 2b. the int8 power-of-two matmul's path, the port's public op
@@ -113,6 +117,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -250,7 +255,6 @@ def ptxas_lines(log):
     """(kernel, line) for each register and spill line of a ptxas -v log;
     the kernel is its mangled name cut to the template arguments
     (``flash_attention_kernelIfLi256EE``: float, D = 256)."""
-    import re
     fn = "?"
     for line in log.splitlines():
         m = re.search(r"entry function '([^']+)'", line)
@@ -619,6 +623,7 @@ def flash_kernel_phase(torch):
     plain version and scaled_dot_product_attention; the same at the hybrid
     path's shapes (D = 256, MQA 16:1, window 2048)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         BF16_SHARE, KEY_TILE, bf16_disagreement, flash_attention_kernel,
         flash_attention_plain)
@@ -673,8 +678,9 @@ def flash_kernel_phase(torch):
             else:
                 ratio, share = bf16_disagreement(got, want)
                 ok = ratio <= 1 and share <= BF16_SHARE
-                tol = (f"largest err / limit {ratio:.3f} (<= 1), share of "
-                       f"elements that differ {share:.3e} (<= {BF16_SHARE})")
+                tol = (f"key tile {KEY_TILE}: largest err / limit {ratio:.3f} "
+                       f"(<= 1), share of elements that differ {share:.3e} "
+                       f"(<= {BF16_SHARE})")
             check(ok and bool(torch.isfinite(got).all()),
                   f"flash_attention kernel vs plain, {name} {dt}: max abs "
                   f"err {err}, {tol}")
@@ -695,14 +701,16 @@ def flash_kernel_phase(torch):
                       f"unrounded: largest err / limit {c_ratio:.3f}, share "
                       f"{c_share:.3e} (must exceed {BF16_SHARE})")
 
-    def timing(shape, kw, reps):
+    def timing(shape, kw, reps, dt=torch.bfloat16):
         B, Sq, Skv, Hq, Hkv, D = shape
-        one = 2 * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)  # q,o,k,v
-        sets = [qkv(shape, torch.bfloat16)
+        one = dt.itemsize * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
+        sets = [qkv(shape, dt)                              # q, o, k, v
                 for _ in range(max(2, -(-2 * L2_BYTES // one)))]
         ms, eager_ms = time_calls(
             torch, lambda q, k, v: flash_attention_kernel(q, k, v, **kw),
             sets, reps)
+        if dt == torch.float32:        # the f32 route's own time only
+            return {"ms": ms, "eager_ms": eager_ms, "sets": len(sets)}
         plain_ms, _ = time_calls(
             torch, lambda q, k, v: flash_attention_plain(q, k, v, **kw),
             sets, 1)
@@ -735,9 +743,29 @@ def flash_kernel_phase(torch):
                     dict(causal=True, **local), 2)
     h_pre = timing((HYB_BATCH, H_pre, H_pre, 16, 1, 256),
                    dict(causal=True, **local), 2)
+    f32 = timing((8, 1024, 1024, 14, 2, 64), dict(causal=True, **chunked), 1,
+                 torch.float32)
+    # ptxas's report of the tensor-core instantiations on the main paths
+    ptxas = {}
+    for fn, line in ptxas_lines(build.build_log("flash_attention")):
+        for D in (64, 256):
+            if fn == f"flash_attention_wgmma_kernelILi{D}EE":
+                ptxas.setdefault(f"D{D}", []).append(line)
+    for D in (64, 256):
+        lines = ptxas.get(f"D{D}", [])
+        spills = [int(n) for line in lines for n in re.findall(
+            r"(\d+) bytes spill", line)]
+        check(len(spills) == 2 and not any(spills),
+              f"flash_attention bf16 D = {D}: ptxas spills: {lines}")
+        print(f"flash_attention bf16 D = {D}, key tile {KEY_TILE}: ptxas "
+              f"{' / '.join(lines)}")
     keep = ("ms", "plain_ms", "bound_ms", "library_ms", "visible_pairs")
     row.update({
         "name": "flash_attention", "route": "cuda",
+        "routes": {"bfloat16": "tensor cores: wgmma, TMA ring of 2 stages",
+                   "float32": "CUDA cores"},
+        "key_tile": {"bfloat16": KEY_TILE, "float32": 32},
+        "ptxas": ptxas,
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
         "max_abs_err": loss_err, "bf16_check": bf16_check,
@@ -748,6 +776,7 @@ def flash_kernel_phase(torch):
         "prefill": {k: pre[k] for k in keep},
         "hybrid_loss": {k: h_loss[k] for k in keep},
         "hybrid_prefill": {k: h_pre[k] for k in keep},
+        "f32_loss_shape": {"ms": f32["ms"], "eager_ms": f32["eager_ms"]},
     })
     for name, r in (("loss shape", row), (f"prefill S={S_pre}", pre),
                     (f"hybrid loss (1, {HYB_LOSS_SEQ}, 16/1 heads of 256, "
@@ -760,6 +789,9 @@ def flash_kernel_phase(torch):
               f"({r['bound_by']}, {r['visible_pairs']} visible pairs per "
               f"head), scaled_dot_product_attention "
               f"{r['library_ms']*1e3:.2f} us")
+    print(f"flash_attention (loss shape, f32 route on the CUDA cores): "
+          f"{f32['ms']*1e3:.2f} us on the card ({f32['eager_ms']*1e3:.2f} us "
+          f"per eager call) over {f32['sets']} input sets")
     return row
 
 

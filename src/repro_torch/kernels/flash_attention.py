@@ -11,27 +11,42 @@ Source note.  :func:`flash_attention_kernel` launches
 ``csrc/flash_attention.cu`` and replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_kernel`` (with its
 padded wrapper).  At the main path's shapes it is bound by operations:
-4 * D flops per visible (query, key) pair.  This first version computes on
-the CUDA cores in f32: one thread block per (64 query rows, query head,
-batch row), K/V tiles of 32 keys staged in shared memory, the online
-softmax per tile, and only the tiles some row of the block needs (the
-causal frontier and the window bound the walk).
+4 * D flops per visible (query, key) pair.  The C entry point picks one of
+two routes by dtype:
 
-Both versions keep the TPU kernel's arithmetic: f32 scores times
-``1/sqrt(D)``, masked scores exactly ``NEG_INF = -1e30``, the running max
-starting at ``NEG_INF``, ``p`` rounded to v's dtype before the PV product,
-and ``acc / max(l, 1e-20)``.  A masked key met before a row's first visible
-key adds ``exp(0) = 1`` to ``l``; the first visible key rescales it by
-exactly 0.  A row that sees no key keeps the mean of v over the keys it
-walked: every key of the kv length padded to ``bk`` (the padding reads as
-zeros), the rule of ``repro.nn.layers.chunked_attention``.  Rows with a
-visible key do not depend on ``bk``.
+* bfloat16 -- the tensor cores.  One block per (128 query rows, query
+  head, batch row), two warpgroups of 64 rows sharing K/V.  Q is loaded
+  once by TMA; K and V tiles of ``KEY_TILE`` = 64 keys come by TMA
+  through a two-stage ring on mbarriers, so the next tile's copy overlaps
+  the current one's products.  S = Q K^T and O += P V are ``wgmma``
+  products (Q and K from shared memory; P from registers, rounded to bf16
+  straight into the A fragments), the online softmax runs in registers
+  with ``ex2.approx`` on scores pre-multiplied by log2(e), the mask only
+  on tiles that straddle a boundary, and the output leaves by a TMA
+  store.  At D = 256 the 64 x 256 f32 accumulator takes 128 registers a
+  thread; Q stays in shared memory and nothing spills.
+* float32 -- the CUDA cores, the first version kept for the checks that
+  hold f32 results tightly (TF32 would break them): one block per (64
+  query rows, query head, batch row), K/V tiles of 32 keys staged in
+  shared memory as f32, the online softmax per tile.
+
+Both routes walk only the tiles some row of the block needs (the causal
+frontier and the window bound the walk) and keep the TPU kernel's
+arithmetic: f32 scores times ``1/sqrt(D)``, masked scores exactly
+``NEG_INF = -1e30``, the running max starting at ``NEG_INF``, ``p``
+rounded to v's dtype before the PV product, and ``acc / max(l, 1e-20)``.
+A masked key met before a row's first visible key adds ``exp(0) = 1`` to
+``l``; the first visible key rescales it by exactly 0.  A row that sees no
+key keeps the mean of v over the keys it walked: every key of the kv
+length padded to ``bk`` (the padding reads as zeros), the rule of
+``repro.nn.layers.chunked_attention``.  Rows with a visible key do not
+depend on ``bk``.
 
 :func:`flash_attention_plain` is the same function in plain PyTorch, the
 blocked online softmax of ``chunked_attention``; the CPU path and the
 kernel's on-card check use it.  In bf16 the two round p against the
 running max of their own key tiles, so :func:`bf16_disagreement` holds
-them to each other with the plain version at the kernel's ``KEY_TILE``.
+them to each other with the plain version at ``bk=KEY_TILE``.
 """
 from __future__ import annotations
 
@@ -48,7 +63,8 @@ __all__ = ["NEG_INF", "KEY_TILE", "flash_attention_plain",
            "flash_attention_kernel", "bf16_disagreement"]
 
 NEG_INF = -1e30
-KEY_TILE = 32          # keys per online-softmax step of the kernel (kBK)
+KEY_TILE = 64      # keys per online-softmax step of the bf16 kernel (kKT),
+                   # at every head dim; the f32 kernel steps over 32
 
 
 def _resolve(Sq: int, Skv: int, kv_len, offset):
@@ -115,15 +131,23 @@ def _entry():
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    tile = lib.flash_attention_key_tile
+    tile.argtypes = []
+    tile.restype = ctypes.c_int
+    built = tile()
+    if built != KEY_TILE:
+        raise RuntimeError(f"flash_attention.cu steps over {built} keys in "
+                           f"bf16, KEY_TILE says {KEY_TILE}")
     return lib, fn
 
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
                            kv_len=None, offset=None, bk: int = 256):
     """The CUDA kernel: the contract of :func:`flash_attention_plain` on
-    contiguous CUDA tensors of one dtype, float32 or bfloat16, with head
-    dim D in ``HEAD_DIMS``.  ``bk`` only pads the kv length a row that sees
-    no key walks; the kernel steps over ``KEY_TILE`` keys at a time."""
+    contiguous CUDA tensors of one dtype, float32 (CUDA cores) or bfloat16
+    (tensor cores), with head dim D in ``HEAD_DIMS``.  ``bk`` only pads the
+    kv length a row that sees no key walks; in bf16 the kernel steps over
+    ``KEY_TILE`` keys at a time (32 in f32)."""
     tensors = (q, k, v)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("flash_attention_kernel takes CUDA tensors on one "

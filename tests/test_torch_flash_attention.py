@@ -20,8 +20,8 @@ try:    # the JAX package is the oracle; without JAX only -m gpu runs here
 except ImportError:
     jnp = None
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (BF16_SHARE, KEY_TILE,
-                                                 bf16_disagreement,
+from repro_torch.kernels.flash_attention import (BF16_SHARE, HEAD_DIMS,
+                                                 KEY_TILE, bf16_disagreement,
                                                  flash_attention_kernel,
                                                  flash_attention_plain)
 from repro_torch.nn.layers import chunked_attention
@@ -126,20 +126,26 @@ def test_window_and_offset_rows_that_see_no_key():
            jflash_kernel(*_j(x), interpret=True, bq=32, **kw))
 
 
-def test_bf16_plain_rounds_p_like_the_reference():
+# (key tile, head dim): the CUDA-core kernel's 32 keys, and the bf16
+# kernel's tile at qwen2-0.5b's D = 64 and recurrentgemma-9b's D = 256
+TILE_RULE = [(32, 32), (KEY_TILE, 64), (KEY_TILE, 256)]
+
+
+@pytest.mark.parametrize("bk,D", TILE_RULE)
+def test_bf16_plain_rounds_p_like_the_reference(bk, D):
     """bf16 inputs: p is rounded to bf16 before the PV product in both
     packages.  At one key tile both round p against the same running max,
     so they are held to the kernel's bf16 check (``bf16_disagreement``);
     with p left unrounded the plain version fails it."""
-    x = _qkv(5, 1, 64, 64, 4, 2, 32)
+    x = _qkv(5, 1, 2 * bk, 2 * bk, 4, 2, D)
     xb = [t.to(torch.bfloat16) for t in _t(x)]
-    got = flash_attention_plain(*xb, bk=32)
-    want = jflash(*[a.astype(jnp.bfloat16) for a in _j(x)], bq=32, bk=32)
+    got = flash_attention_plain(*xb, bk=bk)
+    want = jflash(*[a.astype(jnp.bfloat16) for a in _j(x)], bq=32, bk=bk)
     want = torch.from_numpy(np.array(want.astype(jnp.float32)))
     assert got.dtype == torch.bfloat16
     ratio, share = bf16_disagreement(got, want)
     assert ratio <= 1 and share <= BF16_SHARE, (ratio, share)
-    unrounded = flash_attention_plain(*[t.float() for t in xb], bk=32)
+    unrounded = flash_attention_plain(*[t.float() for t in xb], bk=bk)
     assert bf16_disagreement(unrounded.bfloat16(), want)[1] > BF16_SHARE
 
 
@@ -165,16 +171,20 @@ GPU_CASES = CASES + [
     (2, 129, 129, 14, 2, 64, True, 0, None),   # GQA 7:1, ragged tile
     (2, 300, 300, 16, 1, 256, True, 100, None),
     (1, 333, 333, 14, 14, 64, True, 0, None),  # MHA
-]
+    (2, 1, 300, 14, 2, 64, True, 0, None),     # one query row
+    (1, 77, 205, 4, 2, 64, True, 0, None),     # Sq, Skv off every tile
+    (1, 150, 333, 16, 1, 256, True, 100, 120),  # MQA 16:1, window, offset
+] + [(2, 190, 190, 4, 2, D, True, 0, None) for D in HEAD_DIMS]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", GPU_CASES, ids=str)
 def test_gpu_flash_kernel_vs_plain(dtype, case):
-    """The CUDA kernel against its plain version on the card: f32 within
-    2e-5 at a key tile of 48, bf16 at the kernel's own key tile under
-    ``bf16_disagreement``'s limits.  One launch is counted."""
+    """The CUDA kernel against its plain version on the card: f32 (the
+    CUDA cores) within 2e-5 at a key tile of 48, bf16 (the tensor cores)
+    at the kernel's own key tile under ``bf16_disagreement``'s limits.
+    One launch is counted."""
     _needs_card()
     B, Sq, Skv, Hq, Hkv, D, causal, window = case[:8]
     offset = case[8] if len(case) > 8 else None
@@ -209,3 +219,74 @@ def test_gpu_chunked_attention_routes_through_the_kernel():
     torch.testing.assert_close(got.cpu(), chunked_attention(*x, **kw),
                                atol=TOL, rtol=TOL)
     assert math.isfinite(got.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_gpu_each_route_counts_one_launch():
+    """An f32 call (CUDA cores) and a bf16 call (tensor cores) each add
+    one launch to the counter."""
+    _needs_card()
+    x = _t(_qkv(8, 1, 100, 100, 4, 2, 64))
+    for dt in (torch.float32, torch.bfloat16):
+        n0 = flash_attention_kernel.launches
+        out = flash_attention_kernel(*[t.to("cuda", dt) for t in x])
+        torch.cuda.synchronize()
+        assert flash_attention_kernel.launches == n0 + 1
+        assert out.dtype == dt and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 256])
+def test_gpu_bf16_rows_that_see_no_key_walk_padded_tiles(D):
+    """bf16, window 9 and offset 40 over 70 keys: rows 38..63 see no key
+    and walk all kv_pad = 512 keys, tiles wholly past the array among
+    them (read as zeros): the mean of v over 512 keys, as the plain
+    version at bk = 512 gives it.  The rows that see a key match the plain
+    version at the kernel's own tile, which kv_pad does not move."""
+    _needs_card()
+    q, k, v = (t.to("cuda", torch.bfloat16)
+               for t in _t(_qkv(9, 2, 64, 70, 4, 2, D)))
+    kw = dict(causal=True, window=9, offset=40)
+    got = flash_attention_kernel(q, k, v, bk=512, **kw)
+    for rows, bk in ((slice(38, None), 512), (slice(None, 38), KEY_TILE)):
+        want = flash_attention_plain(q, k, v, bk=bk, **kw)
+        ratio, share = bf16_disagreement(got[:, rows], want[:, rows])
+        assert ratio <= 1 and share <= BF16_SHARE, (rows, ratio, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 20)])
+def test_gpu_kv_len_short_of_the_array(dtype, causal, window):
+    """kv_len = 70 of Skv = 96 keys and an explicit offset, causal or a
+    window alone: both routes against the plain version (f32 within 2e-5,
+    bf16 at ``KEY_TILE`` under ``bf16_disagreement``)."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to("cuda", dt) for t in _t(_qkv(10, 2, 75, 96, 8, 2, 64)))
+    kw = dict(causal=causal, window=window, kv_len=70, offset=10,
+              bk=64 if dtype == "float32" else KEY_TILE)
+    got = flash_attention_kernel(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    else:
+        ratio, share = bf16_disagreement(got, want)
+        assert ratio <= 1 and share <= BF16_SHARE, (ratio, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_no_keys_gives_zeros(dtype):
+    """Skv = 0: no key to walk, l = acc = 0, so both routes give zeros, as
+    the plain version does; one launch is counted."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    q = torch.ones((1, 5, 4, 64), device="cuda", dtype=dt)
+    k = torch.ones((1, 0, 2, 64), device="cuda", dtype=dt)
+    n0 = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, k.clone(), causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == n0 + 1
+    assert torch.equal(got, flash_attention_plain(q, k, k, causal=False))
+    assert not got.any()
