@@ -41,15 +41,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (q and o 896 x 896, k and v 896 x 128, the gate 896 x 4864, down
    4864 x 896, the embedding 151936 x 896, the head 896 x 151936; ``wu``
    stays float under the reference's skip rule), at M = 8 and M = 512,
-   the counter zeroed just before and read just after, each result equal
-   to the plain version and to x @ dequant(w) in float64 rounded once;
-   the kernel bit for bit against its plain version, f32 and bf16, at the
-   reference tests' shapes, the kernel lane's, M = 1 and those widths, e
-   across [-20, 20]; its times at every width but the embedding's (no
-   step multiplies by the embedding table) beside the bound, the plain
-   version and ``torch._int_mm`` on w stored column-major, as cuBLASLt's
-   int8 GEMM wants it, then the scale multiply, that route checked equal
-   to the plain version;
+   the counters zeroed just before and read just after (every call on
+   the TMA route), each result equal to the plain version and to x @
+   dequant(w) in float64 rounded once; ptxas's registers and spills of
+   the TMA route's instantiations (a spill fails the run); the kernel bit
+   for bit against its plain version, f32 and bf16, on both routes where
+   the TMA route applies, at the reference tests' shapes, the kernel
+   lane's, M = 1 and those widths, e across [-20, 20]; its times at every
+   width but the embedding's (no step multiplies by the embedding table)
+   beside the bound, the plain version, the mma route at two widths
+   and ``torch._int_mm`` on w stored column-major, as cuBLASLt's int8
+   GEMM wants it, then the scale multiply (at M = 8 on x zero-padded to 32
+   rows), that route checked equal to the plain version;
 3. small-input references: a tiny f32 model served on the card through
    both serving kernels gives the CPU engine's greedy tokens; the tiny
    model's ``Model.loss`` on the card is the CPU's within 1e-5 relative and
@@ -164,6 +167,9 @@ QM_SHAPES = {"reference tests": [(256, 512, 256), (128, 1024, 128),
              "kernel lane": [(256, 512, 256), (512, 1024, 512)],
              "M = 1": [(1, 896, 4864), (1, 700, 130)]}
 QM_M = (8, 512)
+# the widths where the mma route (the first version) is timed beside the
+# TMA route
+QM_MMA_TIMED = ((512, 896, 4864), (8, 4864, 896))
 # SIMURG output of the paper phase, one directory per backend (git-ignored)
 SIMURG_OUT = os.path.join(HERE, "out", "chip_smoke")
 CARD = "card not read yet"     # nvidia-smi name and power limit, set in main
@@ -1288,21 +1294,29 @@ def qmatmul_phase(torch):
     """The int8 power-of-two matmul: (a) the main path, the port's public
     op ``repro_torch.kernels.qmatmul`` at qwen2-0.5b's full widths, one
     call per distinct (K, N) of its int8-PoT tree at M = 8 (a decode step
-    of 8 slots) and M = 512 (a 128 x 4 prefill chunk), its counter zeroed
-    just before and read just after, each result equal to its plain
-    version and to x @ dequant(w) in float64 rounded once; (b) the kernel
-    bit for bit against its plain version, f32 and bf16, at the reference
-    tests' shapes, the kernel lane's, M = 1 and every qwen width, e across
-    [-20, 20]; (c) its times at the projection and head widths (a step
-    gathers rows of the embedding, never multiplies by it, so its width
-    is checked, not timed) beside the bound, the plain version and
-    ``torch._int_mm`` + the scale multiply, with w stored column-major
-    once outside the timed calls (cuBLASLt's int8 GEMM wants B so), that
-    route held equal to the plain version."""
-    from repro_torch.kernels import qmatmul
+    of 8 slots) and M = 512 (a 128 x 4 prefill chunk), its counters
+    zeroed just before and read just after (every call on the TMA
+    route), each result equal to its plain version and to x @ dequant(w)
+    in float64 rounded once; (b) ptxas's registers and spills of the TMA
+    route's instantiations (a spill fails the run) and their shared
+    memory; (c) the kernel bit for bit against its plain version, f32 and
+    bf16, on both routes where the shape allows the TMA route (the rule's
+    route printed), at the reference tests' shapes, the kernel lane's,
+    M = 1 and every qwen width, e across [-20, 20]; (d) its times at the
+    projection and head widths (a step gathers rows of the embedding,
+    never multiplies by it, so its width is checked, not timed) beside the
+    bound, the plain version, the mma route at (512, 896, 4864) and
+    (8, 4864, 896), and a library yardstick held equal to the plain
+    version: ``torch._int_mm`` + the scale multiply, with w stored
+    column-major once outside the timed calls (cuBLASLt's int8 GEMM wants
+    B so); at M = 8, which ``_int_mm`` refuses (M <= 16), on x zero-padded
+    to 32 rows outside the timed calls, its first 8 rows checked."""
+    from repro_torch.kernels import build, qmatmul
     from repro_torch.kernels.ops import exp2_int
-    from repro_torch.kernels.qmatmul import qmatmul_kernel, qmatmul_plain
+    from repro_torch.kernels.qmatmul import (qmatmul_kernel, qmatmul_plain,
+                                             route, tiling, tma_smem_bytes)
     from repro_torch.quant.ptq import dequant
+    qm = sys.modules["repro_torch.kernels.qmatmul"]
     t0 = time.perf_counter()
     widths = qwen_weight_widths(torch)
     torch.cuda.synchronize()
@@ -1320,12 +1334,16 @@ def qmatmul_phase(torch):
 
     # (a) the main path
     qmatmul_kernel.launches = 0
+    qmatmul_kernel.route_launches = dict.fromkeys(qm.ROUTES, 0)
     outs = {(M, kn): qmatmul(xs[M, kn[0]], w, e)
             for M in QM_M for kn, (_, w, e) in widths.items()}
     torch.cuda.synchronize()
     launches = qmatmul_kernel.launches
+    by_route = dict(qmatmul_kernel.route_launches)
     check(launches == len(outs), f"qmatmul: {launches} launches for "
           f"{len(outs)} calls of the op")
+    check(by_route["tma"] == len(outs), f"qmatmul: routes {by_route} for "
+          f"{len(outs)} calls, every qwen width on the TMA route")
     for (M, kn), y in outs.items():
         _, w, e = widths[kn]
         x = xs[M, kn[0]]
@@ -1338,13 +1356,33 @@ def qmatmul_phase(torch):
         check(torch.equal(y, (x.double() @ deq).float()),
               f"qmatmul op != x @ dequant(w) at M={M}, (K, N)={kn}")
     print(f"qmatmul op at qwen2-0.5b's widths, M = {QM_M}: {launches} "
-          f"launches, each equal to the plain version and to x @ "
-          f"dequant(w) in float64 rounded once")
+          f"launches ({by_route}), each equal to the plain version and to "
+          f"x @ dequant(w) in float64 rounded once; tilings (bm, split, "
+          f"kt_per): " + "; ".join(
+              f"{(M, *kn)} {tuple(tiling(M, *kn))}"
+              for M in QM_M for kn in widths))
     del outs
 
-    # (b) the kernel, bit for bit
+    # (b) ptxas's report of the TMA route
+    ptxas = {}
+    for fn, line in ptxas_lines(build.build_log("qmatmul")):
+        if fn.startswith("qmatmul_tma_kernel"):
+            ptxas.setdefault(fn, []).append(line)
+    check(len(ptxas) == 14, f"qmatmul: ptxas reports {sorted(ptxas)}")
+    for fn, lines in sorted(ptxas.items()):
+        spills = [int(n) for line in lines for n in re.findall(
+            r"(\d+) bytes spill", line)]
+        check(len(spills) == 2 and not any(spills),
+              f"qmatmul {fn}: ptxas spills: {lines}")
+        print(f"qmatmul {fn}: ptxas {'; '.join(lines)}")
+    smem = {bm: tma_smem_bytes(bm) for bm in (8, 16, 32, 64)}
+    print(f"qmatmul TMA route, dynamic shared memory a block by M tile: "
+          f"{smem}")
+
+    # (c) the kernel, bit for bit, on both routes
     cases = [(label, s) for label, group in QM_SHAPES.items() for s in group]
     cases += [("qwen width", (M, K, N)) for M in QM_M for K, N in widths]
+    routes_seen = {}
     for label, (M, K, N) in cases:
         if label == "qwen width":
             x, (_, w, e) = xs[M, K], widths[K, N]
@@ -1352,19 +1390,31 @@ def qmatmul_phase(torch):
             x, w = i8((M, K)), i8((K, N))
             e = torch.from_numpy(
                 rng.integers(-20, 21, N).astype(np.int32)).cuda()
+        rule = route(K, N, x.data_ptr(), w.data_ptr())
+        check(label != "qwen width" or rule == "tma",
+              f"qmatmul {(M, K, N)}: a qwen width on the {rule} route")
+        routes_seen[rule] = routes_seen.get(rule, 0) + 1
         for dt in (torch.float32, torch.bfloat16):
             got = qmatmul_kernel(x, w, e, out_dtype=dt)
             want = qmatmul_plain(x, w, e, dt)
+            other = qm.launch(x, w, e, dt, "mma") if rule == "tma" else got
             torch.cuda.synchronize()
-            check(torch.equal(got, want), f"qmatmul kernel != plain "
-                  f"version at {(M, K, N)} {dt} ({label})")
-        print(f"qmatmul {(M, K, N)} ({label}): bit-exact against the plain "
-              f"version, f32 and bf16")
+            check(torch.equal(got, want), f"qmatmul kernel ({rule}) != "
+                  f"plain version at {(M, K, N)} {dt} ({label})")
+            check(torch.equal(other, want), f"qmatmul kernel (mma) != "
+                  f"plain version at {(M, K, N)} {dt} ({label})")
+        print(f"qmatmul {(M, K, N)} ({label}): route {rule}"
+              f"{' ' + str(tuple(tiling(M, K, N))) if rule == 'tma' else ''}"
+              f", bit-exact against the plain version, f32 and bf16"
+              f"{', and so is the mma route' if rule == 'tma' else ''}")
 
     def int_mm_route(x, w, s):
         return torch._int_mm(x, w) * s
 
-    # (c) times at the projection and head widths, on distinct inputs over
+    def mma_route(x, w, e):
+        return qm.launch(x, w, e, torch.float32, "mma")
+
+    # (d) times at the projection and head widths, on distinct inputs over
     # twice the L2
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -1380,40 +1430,45 @@ def qmatmul_phase(torch):
                      e0) for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
             ms, eager_ms = time_calls(torch, qmatmul_kernel, sets, 5)
             plain_ms, _ = time_calls(torch, qmatmul_plain, sets, 1)
-            lib_ms, refused = None, "M <= 16, or K or N not a multiple of 8"
-            if M > 16 and K % 8 == 0 and N % 8 == 0:
-                # static weights, stored once the way the library wants
-                lib_sets = [(x, w.t().contiguous().t(), exp2_int(-e))
-                            for x, w, e in sets]
-                try:                       # the eager warm-up raises first
-                    lib_ms, _ = time_calls(torch, int_mm_route, lib_sets, 5)
-                except RuntimeError as err:
-                    refused = str(err).splitlines()[0][:120]
-                if lib_ms is not None:
-                    x, w, e = sets[0]
-                    check(torch.equal(int_mm_route(*lib_sets[0]),
-                                      qmatmul_plain(x, w, e)),
-                          f"_int_mm + scale != plain version at "
-                          f"{(M, K, N)}")
-                del lib_sets
+            mma_ms = None
+            if (M, K, N) in QM_MMA_TIMED:
+                mma_ms, _ = time_calls(torch, mma_route, sets, 5)
+            # static weights, stored once the way the library wants; x
+            # zero-padded to the 17 rows _int_mm takes at least, to 32
+            pad = 32 - M if M <= 16 else 0
+            lib_sets = [(torch.nn.functional.pad(x, (0, 0, 0, pad)),
+                         w.t().contiguous().t(), exp2_int(-e))
+                        for x, w, e in sets]
+            lib_ms, _ = time_calls(torch, int_mm_route, lib_sets, 5)
+            x, w, e = sets[0]
+            check(torch.equal(int_mm_route(*lib_sets[0])[:M],
+                              qmatmul_plain(x, w, e)),
+                  f"_int_mm + scale != plain version at {(M, K, N)}")
+            del lib_sets
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = 2 * M * K * N / INT8_OPS
             rows.append({
                 "M": M, "K": K, "N": N, "leaves": paths, "ms": ms,
                 "eager_ms": eager_ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "refused": refused,
+                "mma_ms": mma_ms, "library_ms": lib_ms,
+                "library": (f"torch._int_mm on x zero-padded to 32 rows + "
+                            f"scale" if pad else "torch._int_mm + scale"),
+                "tiling": tuple(tiling(M, K, N)),
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "sets": len(sets)})
             del sets
     for r in rows:
-        lib = (f"{r['library_ms']*1e3:.2f} us" if r["library_ms"] is not None
-               else f"n/a ({r['refused']})")
-        print(f"qmatmul ({r['M']}, {r['K']}, {r['N']}) {r['leaves']}: "
-              f"{r['ms']*1e3:.2f} us on the card ({r['eager_ms']*1e3:.2f} us "
-              f"per eager call), plain {r['plain_ms']*1e3:.2f} us, bound "
-              f"{r['bound_ms']*1e3:.2f} us ({r['bound_by']}), _int_mm + "
-              f"scale {lib}; {r['sets']} input sets")
+        mma = (f", the mma route {r['mma_ms']*1e3:.2f} us"
+               if r["mma_ms"] is not None else "")
+        print(f"qmatmul ({r['M']}, {r['K']}, {r['N']}) {r['leaves']} "
+              f"(bm, split, kt_per) {r['tiling']}: {r['ms']*1e3:.2f} us on "
+              f"the card ({r['eager_ms']*1e3:.2f} us per eager call), "
+              f"{100*r['bound_ms']/r['ms']:.1f} % of the bound "
+              f"{r['bound_ms']*1e3:.2f} us ({r['bound_by']}){mma}, plain "
+              f"{r['plain_ms']*1e3:.2f} us, {r['library']} "
+              f"{r['library_ms']*1e3:.2f} us; {r['sets']} input sets "
+              f"[{CARD}]")
     head = next(r for r in rows                 # (512, 896, 4864)
                 if r["M"] == 512 and "layers/mlp/wg" in r["leaves"])
     row = {
@@ -1422,16 +1477,19 @@ def qmatmul_phase(torch):
         "replaces": "src/repro/kernels/qmatmul.py:48",
         "max_abs_err": 0.0,
         **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")},
+                                "bound_by", "library_ms", "mma_ms")},
         "library": "torch._int_mm on w stored column-major, then the "
-                   "scale multiply (two calls); null where _int_mm "
-                   "refuses the shape",
+                   "scale multiply (two calls); at M = 8 on x zero-padded "
+                   "to 32 rows",
         "shape": f"x ({head['M']}, {head['K']}) int8, w ({head['K']}, "
                  f"{head['N']}) int8, f32 out: a prefill chunk through "
                  f"layer 0's gate projection; timed over {head['sets']} "
                  f"input sets",
-        "widths": [{k: r[k] for k in ("M", "K", "N", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")}
+        "routes": by_route, "routes_in_checks": routes_seen,
+        "ptxas": ptxas, "tma_smem_bytes": smem,
+        "widths": [{k: r[k] for k in ("M", "K", "N", "tiling", "ms",
+                                      "plain_ms", "mma_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
                    for r in rows]}
     return row, launches
 
