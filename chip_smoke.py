@@ -13,11 +13,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    its path's shapes, and their device times beside the bound and the
    plain and library times.  The serving kernels at bf16, Hq=14, Hkv=2,
    D=64, block 32, 8 slots of mixed lengths up to 1024, sentinel table
-   entries -- the gather bit-exact, the attention within atol 2e-3 + rtol
-   1e-2.  The CSD digit-plane kernels bit-exact (``torch.equal``) at one
-   polish call's tail (287,744 x 10 rows by 10 x 10 planes, D = 1, 8, 16),
-   the sweep's three layers of 16-16-10-10 (4 networks x 2248 rows) and
-   odd shapes;
+   entries -- the gather bit-exact, the split-KV attention (its split
+   count and workspace printed) within atol 2e-3 + rtol 1e-2 at windows 0
+   and 200, timed at window 0, and also at window 200 and at one split.
+   The CSD digit-plane kernels bit-exact (``torch.equal``) at one polish
+   call's tail (287,744 x 10 rows by 10 x 10 planes, D = 1, 8, 16), the
+   sweep's three layers of 16-16-10-10 (4 networks x 2248 rows) and odd
+   shapes, ``csd_qsweep`` on both of its routes; ``csd_qsweep`` timed on
+   both routes between two timings of the float64 matmul;
    The flash-attention kernel against its plain version in f32 (its
    CUDA-core route, within 2e-5) and bf16 (its tensor-core route, the
    plain version at the kernel's own key tile ``KEY_TILE``, under
@@ -63,14 +66,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    counters are zeroed just before and read just after.  The same
    requests then go through ``kv_gather="take"``, ``decode_kernel="dense"``
    and the first decode step's logits are compared;
-5. a ``torch.profiler`` window over a few engine steps: device busy share
-   and the top kernels;
+5. a ``torch.profiler`` window over a few engine steps: device busy share,
+   the top kernels and ``paged_attention``'s share of the busy time;
 6. the paper's pipeline, full size, through the quickstart's
    ``run_pipeline``: 16-16-10-10 trained on the card on the pendigits
    surrogate (5246 train / 2248 validation / 3498 test rows, 40 epochs),
    ``find_min_q`` and ``tune_parallel(cost="adders", max_sweeps=4)`` with
    their default ``auto`` backend (``csd`` on the card, so both CSD
-   kernels run; counters zeroed just before and read just after), the
+   kernels run; counters zeroed just before and read just after, the
+   (Q, M, K, N, D) of each ``csd_qsweep`` launch printed, every one on
+   its resident route), the
    test split scored, ``tune_time_multiplexed(scope="neuron",
    max_sweeps=2)`` (chains on the host), ``design_cost`` of the six
    design rows and SIMURG's parallel CMVM design written to
@@ -85,7 +90,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    3), ``q_span=2``, tuners ``none``, ``parallel``, ``parallel-adders``
    and ``tm-neuron`` (``max_sweeps=3``), once with the sweep evaluator on
    ``auto`` (which must be ``csd``; ``csd_qsweep`` counted from zero and
-   launched), again under ``torch.profiler`` for the device busy share,
+   launched, its shapes printed as on the paper path), again under
+   ``torch.profiler`` for the device busy share,
    and once on ``numpy``: every ``DesignPoint``, the three fronts and the
    non-timing stats identical;
 7. the LM-scale quantization path, full width, through
@@ -117,6 +123,8 @@ result.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import gc
 import json
 import os
@@ -216,6 +224,7 @@ def report_profile(prof, wall_us, label, top, digits=2):
           f"{100*(1-busy/wall_us):.{digits}f} %")
     for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:top]:
         print(f"  {t/1e3:9.3f} ms {n:6d} x  {name[:90]}")
+    return busy, by_name
 
 
 def time_calls(torch, fn, arg_sets, reps):
@@ -284,7 +293,8 @@ def kernel_phase(torch):
     and their times."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attention import (paged_attention_kernel,
-                                                     paged_attention_plain)
+                                                     paged_attention_plain,
+                                                     splits, workspace_bytes)
     from repro_torch.kernels.paged_gather import (paged_gather_kernel,
                                                   paged_gather_plain)
     rng = np.random.default_rng(0)
@@ -334,13 +344,21 @@ def kernel_phase(torch):
         "shape": f"pool ({NB},{bs},{Hkv},{D}) bf16, table ({P},{nb}) "
                  f"int32: one prefill dispatch's gather"})
 
-    # --- fused paged attention, at the decode step's shape
-    eff = torch.gather(tbl_c, 1, torch.minimum(
-        torch.arange(nb, device="cuda")[None, :],
-        torch.clamp((clen[:, None].long() - 1) // bs, min=0))).contiguous()
+    # --- split-KV paged attention, at the decode step's shape
+    S, c = splits(B, Hkv, nb)
+    ws_bytes = workspace_bytes(B, Hq, D, S)
+    print(f"paged_attention split rule: S = {S} splits of {c} blocks, grid "
+          f"{B * Hkv} x {S} = {B * Hkv * S} blocks, workspace {ws_bytes} "
+          f"bytes")
     for window in (0, 200):
+        n0 = paged_attention_kernel.launches
+        c0 = paged_attention_kernel.combine_launches
         got = ops.paged_attention(q, kpool[0], vpool[0], table, clen,
                                   window=window)
+        check(paged_attention_kernel.launches == n0 + 1
+              and paged_attention_kernel.combine_launches == c0 + (S > 1),
+              "ops.paged_attention did not launch the kernel (and its "
+              "combine) once")
         want = paged_attention_plain(q, kpool[0], vpool[0], table, clen,
                                      window=window)
         torch.cuda.synchronize()
@@ -354,19 +372,31 @@ def kernel_phase(torch):
               f"(atol {ATTN_ATOL}, rtol {ATTN_RTOL})")
         if window == 0:
             attn_err = err
-    sets = [(q, kpool[i], vpool[i], eff, clen) for i in range(L)]
+    sets = [(q, kpool[i], vpool[i], tbl_c, clen) for i in range(L)]
     ms, eager_ms = time_calls(torch, paged_attention_kernel, sets, 10)
+    w200_ms, _ = time_calls(torch, lambda *a: paged_attention_kernel(
+        *a, window=200), sets, 10)
+    s1_ms, _ = time_calls(torch, lambda *a: paged_attention_kernel(
+        *a, n_splits=1), sets, 10)
     plain_ms, _ = time_calls(torch, paged_attention_plain, sets, 1)
     tokens = int(lens.sum())
     a_bytes = (tokens * Hkv * D * 2 * 2 + 2 * q.numel() * 2
                + table.numel() * 4 + clen.numel() * 4)
     a_flops = 4 * Hq * D * tokens
     bound = max(a_bytes / HBM_BYTES_PER_S, a_flops / BF16_FLOPS) * 1e3
+    print(f"paged_attention times: window 200 {w200_ms*1e3:.2f} us, one "
+          f"split (S = 1) {s1_ms*1e3:.2f} us, the rule's S = {S} "
+          f"{ms*1e3:.2f} us [{CARD}]")
     results.append({
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:122",
         "max_abs_err": attn_err, "ms": ms, "eager_ms": eager_ms,
+        "window200_ms": w200_ms, "one_split_ms": s1_ms,
+        "splits": [S, c], "workspace_bytes": ws_bytes,
+        "compute": "bf16 mma.sync m16n8k16, two computing warps a split; "
+                   "a second kernel (programmatic dependent launch) "
+                   "combines the splits",
         "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "bytes" if a_bytes / HBM_BYTES_PER_S
         >= a_flops / BF16_FLOPS else "operations",
@@ -374,7 +404,8 @@ def kernel_phase(torch):
         "library": "none: no single PyTorch call computes attention "
                    "through a block table",
         "shape": f"q ({B},1,{Hq},{D}) bf16, pools ({NB},{bs},{Hkv},{D}), "
-                 f"lengths {lens.tolist()}: one decode step's layer"})
+                 f"lengths {lens.tolist()}, window 0: one decode step's "
+                 f"layer"})
     for r in results:
         print(f"{r['name']}: {r['ms']*1e3:.2f} us on the card "
               f"({r['eager_ms']*1e3:.2f} us per eager call), plain "
@@ -456,10 +487,12 @@ def serving_phase(torch):
     torch.cuda.reset_peak_memory_stats()
     paged_gather_kernel.launches = 0
     paged_attention_kernel.launches = 0
+    paged_attention_kernel.combine_launches = 0
     eng, reqs, summ, wall, lg_fused = serve(torch, cfg, params, spec, True,
                                             **main)
     launches = {"paged_gather": paged_gather_kernel.launches,
                 "paged_attention": paged_attention_kernel.launches}
+    combines = paged_attention_kernel.combine_launches
     peak = torch.cuda.max_memory_allocated()
     check(all(r.status == "done" and len(r.out_tokens) == 32 for r in reqs),
           "a request did not finish with 32 tokens")
@@ -482,7 +515,10 @@ def serving_phase(torch):
           f"{summ['p99_total_s']*1e3:.1f} ms; peak memory "
           f"{peak/2**30:.3f} GiB; resident weights "
           f"{eng.quant_bytes/2**30:.3f} GiB")
-    print(f"launches on the main path: {launches}")
+    print(f"launches on the main path: {launches}; paged_attention's "
+          f"combine kernel {combines}")
+    check(combines == launches["paged_attention"],
+          "a decode step's attention ran without its split")
     _, ref_reqs, ref_summ, ref_wall, lg_dense = serve(
         torch, cfg, params, spec, True,
         **dict(kw, kv_gather="take", decode_kernel="dense"))
@@ -496,7 +532,7 @@ def serving_phase(torch):
           f"(max |logit| {scale:.4e}, tolerance {LOGIT_REL_TOL} x max)")
     check(diff <= LOGIT_REL_TOL * scale,
           "fused and dense first-decode logits disagree")
-    return launches, eng, spec, cfg
+    return launches, combines, eng, spec, cfg
 
 
 def profile_phase(torch, eng, spec):
@@ -516,7 +552,11 @@ def profile_phase(torch, eng, spec):
             eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile(prof, wall_us, "6 engine steps", 10)
+    busy, by_name = report_profile(prof, wall_us, "6 engine steps", 10)
+    t, n = (sum(v[i] for k, v in by_name.items() if "paged_attention" in k)
+            for i in (0, 1))
+    print(f"paged_attention in the window: {t/1e3:.3f} ms of {busy/1e3:.3f} "
+          f"ms busy ({100*t/busy:.2f} %), {n} launches [{CARD}]")
     while eng.queue or eng.slots:
         eng.step()
 
@@ -538,12 +578,13 @@ def _csd_inputs(torch, rng, x_shape, w_shape, depth):
 
 def csd_kernel_phase(torch):
     """Both CSD digit-plane kernels against their plain versions on the
-    card, bit for bit, at the paper path's shapes and odd ones; their
-    times beside the bound and the plain and library times."""
-    from repro_torch.kernels.csd_matvec import (csd_matvec_kernel,
+    card, bit for bit, at the paper path's shapes and odd ones
+    (``csd_qsweep`` on both of its routes); their times beside the bound
+    and the plain and library times, ``csd_qsweep``'s on both routes."""
+    from repro_torch.kernels.csd_matvec import (ROUTES, csd_matvec_kernel,
                                                 csd_matvec_plain,
                                                 csd_qsweep_kernel,
-                                                csd_qsweep_plain)
+                                                csd_qsweep_plain, route)
     rng = np.random.default_rng(0)
     rows = 128 * 2248                  # one polish call: 128 candidates
     cases = [("csd_matvec", (rows, 10), (10, 10), d) for d in (1, 8, 16)]
@@ -560,13 +601,19 @@ def csd_kernel_phase(torch):
     for name, xs, ws, depth in cases:
         kernel, plain = fns[name]
         x, planes = _csd_inputs(torch, rng, xs, ws, depth)
-        got, want = kernel(x, planes), plain(x, planes)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"{name} kernel != plain version at x {xs}, planes "
-              f"{tuple(planes.shape)}")
+        want = plain(x, planes)
+        hows = ROUTES if name == "csd_qsweep" else (None,)
+        for how in hows:
+            got = kernel(x, planes) if how is None else kernel(x, planes,
+                                                               how=how)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"{name} kernel ({how or 'its kernel'}) != plain version "
+                  f"at x {xs}, planes {tuple(planes.shape)}")
         print(f"{name}: bit-exact against the plain version at x {xs}, "
-              f"planes {tuple(planes.shape)}")
+              f"planes {tuple(planes.shape)}"
+              + (f" on both routes (the rule's: {route(*ws)})"
+                 if name == "csd_qsweep" else ""))
         if timed[name] != (xs, ws, depth):
             continue
         # distinct inputs per call, together at least twice the 50 MB L2,
@@ -577,13 +624,25 @@ def csd_kernel_phase(torch):
         nbytes = Q * (M * K * 4 + D * K * N + M * N * 4)
         sets = [_csd_inputs(torch, rng, xs, ws, depth)
                 for _ in range(max(6, -(-2 * L2_BYTES // nbytes)))]
-        ms, eager_ms = time_calls(torch, kernel, sets, 20)
-        plain_ms, _ = time_calls(torch, plain, sets, 3)
         pw = (torch.arange(planes.shape[-3], device="cuda", dtype=torch.float64)
               .exp2().reshape(-1, 1, 1))
         lib_sets = [(a.double(), (p.double() * pw).sum(dim=-3))
                     for a, p in sets]
-        lib_ms, _ = time_calls(torch, torch.matmul, lib_sets, 20)
+        # the kernel and the library call in turns: library, kernel,
+        # kernel, library
+        lib_a, _ = time_calls(torch, torch.matmul, lib_sets, 20)
+        ms, eager_ms = time_calls(torch, kernel, sets, 20)
+        extra = {}
+        if name == "csd_qsweep":
+            how = route(K, N)
+            other = [r for r in ROUTES if r != how][0]
+            o_ms, _ = time_calls(torch, lambda a, p: kernel(a, p, how=other),
+                                 sets, 20)
+            ms2, _ = time_calls(torch, kernel, sets, 20)
+            extra = {"rule": how, "ms_repeat": ms2, "other": other,
+                     "other_ms": o_ms}
+        lib_b, _ = time_calls(torch, torch.matmul, lib_sets, 20)
+        plain_ms, _ = time_calls(torch, plain, sets, 3)
         ops_ = 2 * Q * M * N * K * D
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / INT8_OPS
         results[name] = {
@@ -596,18 +655,25 @@ def csd_kernel_phase(torch):
             "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
+            "library_ms": lib_a, "library_ms_repeat": lib_b,
             "library": "torch.matmul in float64 on the reconstructed "
                        "W = sum_d p_d 2^d",
             "shape": f"x {xs} int32, planes {tuple(planes.shape)} int8, "
                      f"timed over {len(sets)} input sets of "
                      f"{nbytes/1e6:.2f} MB"}
+        if extra:
+            results[name]["routes"] = extra
     for r in results.values():
         print(f"{r['name']}: {r['ms']*1e3:.2f} us on the card "
               f"({r['eager_ms']*1e3:.2f} us per eager call), plain "
               f"{r['plain_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.2f} us "
-              f"({r['bound_by']}), library {r['library_ms']*1e3:.2f} us; "
-              f"{r['shape']}")
+              f"({r['bound_by']}), library {r['library_ms']*1e3:.2f} / "
+              f"{r['library_ms_repeat']*1e3:.2f} us; {r['shape']} [{CARD}]")
+    rt = results["csd_qsweep"]["routes"]
+    print(f"csd_qsweep: the rule's route ({rt['rule']}) "
+          f"{results['csd_qsweep']['ms']*1e3:.2f} / {rt['ms_repeat']*1e3:.2f}"
+          f" us, the {rt['other']} route {rt['other_ms']*1e3:.2f} us "
+          f"[{CARD}]")
     return [results["csd_matvec"], results["csd_qsweep"]]
 
 
@@ -900,6 +966,32 @@ def _dir_bytes(d):
             for f in sorted(os.listdir(d))}
 
 
+@contextlib.contextmanager
+def qsweep_shapes():
+    """Counts of the (Q, M, K, N, D, route) each ``csd_qsweep`` launch
+    made through ``repro_torch.kernels.ops`` saw while the block runs (the
+    kernel's own counters go on counting)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.csd_matvec import route
+    seen = collections.Counter()
+    kernel = ops.csd_qsweep_kernel
+
+    def recording(x, planes, **kw):
+        (Q, M, K), (D, N) = x.shape, planes.shape[1::2]
+        seen[(Q, M, K, N, D, kw.get("how") or route(K, N))] += 1
+        return kernel(x, planes, **kw)
+    ops.csd_qsweep_kernel = recording
+    try:
+        yield seen
+    finally:
+        ops.csd_qsweep_kernel = kernel
+
+
+def _print_shapes(label, seen):
+    print(f"csd_qsweep launches on the {label} path by (Q, M, K, N, D, "
+          f"route): " + ", ".join(f"{k}: {n}" for k, n in sorted(seen.items())))
+
+
 def paper_phase(torch):
     """The paper's search and tuning path at full size on the card, through
     the quickstart's pipeline, held against the numpy backend from the same
@@ -915,10 +1007,13 @@ def paper_phase(torch):
     sweeps = quickstart.MAX_SWEEPS
     csd_qsweep_kernel.launches = 0
     csd_matvec_kernel.launches = 0
-    run = quickstart.run_pipeline("cuda",
-                                  out_dir=os.path.join(SIMURG_OUT, "csd"))
+    csd_qsweep_kernel.route_launches.update(resident=0, chunked=0)
+    with qsweep_shapes() as seen:
+        run = quickstart.run_pipeline("cuda",
+                                      out_dir=os.path.join(SIMURG_OUT, "csd"))
     launches = {"csd_qsweep": csd_qsweep_kernel.launches,
                 "csd_matvec": csd_matvec_kernel.launches}
+    routes = dict(csd_qsweep_kernel.route_launches)
     res, qr, tp, sweep_ev = run.train, run.qr, run.tp, run.sweep_ev
     xval_int, yval = run.x_val, run.y_val
     test_ha, tune_test_ha = run.test_ha
@@ -961,7 +1056,11 @@ def paper_phase(torch):
         print("  " + rep.row())
     print(f"paper SIMURG (parallel, cmvm) generate + write: "
           f"{run.seconds['simurg']*1e3:.3f} ms [{CARD}] -> {run.out_dir}")
-    print(f"launches on the paper path: {launches}")
+    print(f"launches on the paper path: {launches}; csd_qsweep by route "
+          f"{routes}")
+    _print_shapes("paper", seen)
+    check(sum(seen.values()) == launches["csd_qsweep"] == routes["resident"],
+          f"csd_qsweep launches {launches}, routes {routes}, shapes {seen}")
 
     # the same tune call under the profiler: device busy share
     torch.cuda.synchronize()
@@ -1054,13 +1153,20 @@ def explore_phase(torch):
     check(ev.backend == "csd", f"auto resolved to {ev.backend}, not csd")
     csd_qsweep_kernel.launches = 0
     csd_matvec_kernel.launches = 0
-    r = lx.run_explore(res, x_val, y_val, "cuda", tuners=tuners,
-                       planner=SynthesisPlanner(), evaluator=ev)
-    torch.cuda.synchronize()
+    csd_qsweep_kernel.route_launches.update(resident=0, chunked=0)
+    with qsweep_shapes() as seen:
+        r = lx.run_explore(res, x_val, y_val, "cuda", tuners=tuners,
+                           planner=SynthesisPlanner(), evaluator=ev)
+        torch.cuda.synchronize()
     launches = {"csd_qsweep": csd_qsweep_kernel.launches,
                 "csd_matvec": csd_matvec_kernel.launches}
+    routes = dict(csd_qsweep_kernel.route_launches)
     check(launches["csd_qsweep"] > 0,
           f"csd_qsweep was not launched on the explore path: {launches}")
+    check(sum(seen.values()) == launches["csd_qsweep"] == routes["resident"],
+          f"csd_qsweep launches {launches}, routes {routes}, shapes {seen}")
+    print(f"explore csd_qsweep launches by route: {routes}")
+    _print_shapes("explore", seen)
     # the same csd run under the profiler: device busy share
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1670,7 +1776,7 @@ def main() -> int:
     tiny_lm_phase(torch)
     print(f"tiny reference phase: {time.perf_counter()-t0:.2f} s")
     t0 = time.perf_counter()
-    launches, eng, spec, cfg = serving_phase(torch)
+    launches, combines, eng, spec, cfg = serving_phase(torch)
     print(f"serving phase: {time.perf_counter()-t0:.2f} s")
     profile_phase(torch, eng, spec)
     t0 = time.perf_counter()
@@ -1701,6 +1807,8 @@ def main() -> int:
     csd_by_path = {"paper": paper_launches, "explore": explore_launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "paged_attention":
+            k["combine_launches"] = combines
         if k["name"] == "flash_attention":
             k["launches_by_path"] = {p: v["flash_attention"]
                                      for p, v in by_path.items()}

@@ -12,17 +12,27 @@ int32).  Two kernels:
   (Q, M, K) x (Q, D, K, N), every q level of a sweep in one launch.
 
 Source note.  :func:`csd_matvec_kernel` and :func:`csd_qsweep_kernel`
-launch the two entry points of ``csrc/csd_matvec.cu`` and replace the
-Pallas TPU kernels ``repro/kernels/csd_matvec.py::csd_matvec_kernel`` and
+launch ``csrc/csd_matvec.cu`` and replace the Pallas TPU kernels
+``repro/kernels/csd_matvec.py::csd_matvec_kernel`` and
 ``::csd_qsweep_kernel``.  They are bound by bytes (x read once, y written
-once; the planes are tiny).  Each block first combines the planes of its
-(K-chunk, N-tile) into weights, ``sum_d p_d << d`` in uint32, in shared
-memory: the loop over d runs once per weight, while staging.  Each thread
-then owns one output column of up to 4 rows and takes K multiply-adds per
-output, reading x from global memory (the source's note says more).  :func:`csd_matvec_plain` and
-:func:`csd_qsweep_plain` are the same functions in plain PyTorch, per-plane
-float64 products (exact below 2^53) reduced modulo 2^32; the CPU path and
-the kernels' on-card checks use them.
+once; the planes are tiny).  Both combine planes into weights, ``sum_d
+p_d << d`` in uint32, in shared memory, so the loop over d runs once per
+weight.  ``csd_matvec`` (and ``csd_qsweep``'s ``"chunked"`` route) stages
+a (K-chunk, N-tile) of weights a block; each thread owns one output column
+of up to 4 rows and reads x from global memory.  ``csd_qsweep``'s
+``"resident"`` route, which :func:`route` picks wherever a q's whole
+weight matrix and a 64-row tile fit a block's shared memory (every layer
+of the paper's sweeps), is a kernel of its own for the sweep's small
+shapes: a block takes 64 rows of one q, copies their x and the q's
+planes (each one contiguous run) into shared memory together by
+``cp.async``, combines the q's weights there, takes one row and 4 columns
+a thread, and stores y as one contiguous run (the source's note says
+more).  ``csd_qsweep_kernel.launches`` counts every launch,
+``csd_qsweep_kernel.route_launches`` those of each route.
+:func:`csd_matvec_plain` and :func:`csd_qsweep_plain` are the same
+functions in plain PyTorch, per-plane float64 products (exact below 2^53)
+reduced modulo 2^32; the CPU path and the kernels' on-card checks use
+them.
 """
 from __future__ import annotations
 
@@ -34,10 +44,13 @@ import torch
 from . import build
 
 __all__ = ["csd_matvec_plain", "csd_qsweep_plain", "csd_matvec_kernel",
-           "csd_qsweep_kernel"]
+           "csd_qsweep_kernel", "route", "ROUTES"]
 
 _MASK32 = 0xFFFFFFFF
 _MAX_DEPTH = 64      # int64 weights have at most 62 CSD digits
+ROUTES = ("resident", "chunked")
+RESIDENT_ROWS = 64              # csrc/csd_matvec.cu's kResRows
+RESIDENT_SMEM = 48 * 1024       # bytes the resident route may use a block
 
 
 def csd_qsweep_plain(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
@@ -60,12 +73,21 @@ def csd_matvec_plain(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     return csd_qsweep_plain(x[None], planes[None])[0]
 
 
+def route(K: int, N: int) -> str:
+    """``csd_qsweep``'s route: ``"resident"`` where a q's (K, N) weights
+    (uint32, rows padded to 4 columns), a 64-row tile of x and y and 32
+    (K, N) planes of int8 fit in 48 KB of shared memory, ``"chunked"``
+    (``csd_matvec``'s kernel) elsewhere."""
+    smem = 4 * (K * 4 * -(-N // 4) + RESIDENT_ROWS * (K + N)) + 32 * K * N
+    return "resident" if smem <= RESIDENT_SMEM else "chunked"
+
+
 @functools.cache
 def _entry(name: str):
     lib = build.load("csd_matvec")
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] \
-        + [ctypes.c_int] * (5 if name == "csd_qsweep" else 4) \
+        + [ctypes.c_int] * (4 if name == "csd_matvec" else 5) \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -103,20 +125,28 @@ def csd_matvec_kernel(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def csd_qsweep_kernel(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+def csd_qsweep_kernel(x: torch.Tensor, planes: torch.Tensor, *,
+                      how: str | None = None) -> torch.Tensor:
     """The CUDA kernel: the contract of :func:`csd_qsweep_plain`, bit
     identical to it.  x (Q, M, K) int32 and planes (Q, D, K, N) int8,
-    contiguous on one CUDA device."""
+    contiguous on one CUDA device.  The route is :func:`route`'s, or
+    ``how`` (the tests reach both routes with it)."""
     _check(x, planes, "csd_qsweep_kernel")
     (Q, M, K), (Q2, D, K2, N) = x.shape, planes.shape
     if Q2 != Q or K2 != K or not 1 <= D <= _MAX_DEPTH:
         raise ValueError(f"bad shapes: x {tuple(x.shape)}, planes "
                          f"{tuple(planes.shape)}")
+    how = how or route(K, N)
+    if how not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, not {how!r}")
     out = torch.empty((Q, M, N), dtype=torch.int32, device=x.device)
-    _launch("csd_qsweep", x, planes, out, (Q, M, K, N, D))
+    _launch("csd_qsweep_resident" if how == "resident" else "csd_qsweep", x,
+            planes, out, (Q, M, K, N, D))
     csd_qsweep_kernel.launches += 1
+    csd_qsweep_kernel.route_launches[how] += 1
     return out
 
 
 csd_matvec_kernel.launches = 0
 csd_qsweep_kernel.launches = 0
+csd_qsweep_kernel.route_launches = dict.fromkeys(ROUTES, 0)

@@ -20,19 +20,32 @@
 // on 8-bit values, a few hundred, against 4*K bytes of x read and 4 bytes
 // of y written; the planes are tiny.
 //
-// Design, a simple one that is right first.  The TPU kernel runs one MXU
-// pass per plane and shifts each pass's sum.  On CUDA cores a pass per
-// plane costs D loads and multiply-adds per (k, output), so here the
-// shift-add runs once per block instead: the block combines the planes of
-// its (BK, BN) tile into the tile's weights, sum_d p_d << d in uint32, in
-// shared memory, and each thread then takes K multiply-adds per output.
-// A block covers BN = min(N, 32) columns and R passes of BM = 256 / BN
-// rows (at the paper's N = 10: 25 rows, one contiguous run of y, per
-// pass); a thread owns one column of R rows.  K is walked in chunks of BK.
-// M, N, K and D are runtime values with no tile constraint; the ragged
-// edges are masked.  int8 tensor-core MMA would carry the products once
-// the kernel is not bound by its bytes.
-
+// Two kernels.  The TPU kernel runs one MXU pass per plane and shifts each
+// pass's sum.  On CUDA cores a pass per plane costs D loads and
+// multiply-adds per (k, output), so both kernels run the shift-add once
+// per weight instead, combining planes into weights sum_d p_d << d in
+// uint32 in shared memory; each output then takes K multiply-adds.
+//
+// csd_planes_kernel (csd_matvec, and csd_qsweep's "chunked" route for
+// weights too large for one block's shared memory): a block covers BN =
+// min(N, 32) columns and R passes of BM = 256 / BN rows (at the paper's N =
+// 10: 25 rows, one contiguous run of y, per pass); a thread owns one column
+// of R rows and reads x from global memory.  K is walked in chunks of BK
+// whose (BK, BN) weights the block combines.  M, N, K and D are runtime
+// values with no tile constraint; the ragged edges are masked.
+//
+// csd_resident_kernel (csd_qsweep's "resident" route, every layer of the
+// paper's sweeps: K, N in {10, 16}): the sweep's shapes are small (at
+// (4, 2248, 16) x (16, 16), 1.15 MB of x and y), so its time is a launch
+// and one round trip to memory.  A block takes kResRows rows of one q;
+// their x and y are each one contiguous run of memory, and so are the q's
+// planes.  The block copies x's run and the planes d < 32 into shared
+// memory together by cp.async (16 bytes a thread where aligned), so their
+// latencies overlap; combines the q's whole (K, N) weight matrix there;
+// then each thread takes one row and 4 columns: 4 sums in registers, one
+// 16-byte shared load of weights a k.  y is stored 16 bytes a thread: from
+// registers where N is a multiple of 4, else staged in shared memory and
+// stored as one contiguous run.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,6 +118,142 @@ __global__ void csd_planes_kernel(const int32_t* __restrict__ x,
   }
 }
 
+constexpr int kResRows = 64;                  // rows per resident block
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// Start the copy of n bytes from global `src` to shared `dst` (16-byte
+// aligned): 16-byte pieces where src is 16-byte aligned, else 4-byte
+// pieces where it is 4-byte aligned; the rest by plain loads.
+__device__ __forceinline__ void copy_async(unsigned char* dst,
+                                           const unsigned char* src, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const int piece = (a & 15) == 0 ? 16 : ((a & 3) == 0 ? 4 : 1);
+  int done = 0;
+  if (piece == 16) {
+    done = n & ~15;
+    for (int i = 16 * threadIdx.x; i < done; i += 16 * kThreads)
+      cp_async16(dst + i, src + i);
+  } else if (piece == 4) {
+    done = n & ~3;
+    for (int i = 4 * threadIdx.x; i < done; i += 4 * kThreads)
+      cp_async4(dst + i, src + i);
+  }
+  for (int i = done + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+csd_resident_kernel(const int32_t* __restrict__ x,
+                    const int8_t* __restrict__ planes,
+                    int32_t* __restrict__ out, int M, int K, int N, int D) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int NG = (N + 3) / 4;                 // 4-column groups
+  const int NP = 4 * NG;                      // padded weight row
+  const int KN = K * N;
+  const int dmax = D < 32 ? D : 32;           // planes d >= 32 add 0
+  uint32_t* w_s = sm;                         // [K][NP] combined weights
+  uint32_t* x_s = w_s + K * NP;               // [kResRows][K] this block's x
+  uint32_t* y_s = x_s + kResRows * K;         // [kResRows][N] its y
+  int8_t* p_s = reinterpret_cast<int8_t*>(y_s + kResRows * N);  // [dmax][K][N]
+  const long long q = blockIdx.y;
+  const long long r0 = (long long)blockIdx.x * kResRows;
+  const int rows = (M - r0) < kResRows ? (int)(M - r0) : kResRows;
+  const int tid = threadIdx.x;
+
+  // x's run of rows * K int32 and the q's planes d < 32, on their way
+  const int32_t* xg = x + (q * M + r0) * K;
+  copy_async(reinterpret_cast<unsigned char*>(x_s),
+             reinterpret_cast<const unsigned char*>(xg), 4 * rows * K);
+  copy_async(reinterpret_cast<unsigned char*>(p_s),
+             reinterpret_cast<const unsigned char*>(planes + q * (long long)D * KN),
+             dmax * KN);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the q's weights, sum_d p_d << d, zero in the padded columns
+  for (int i = tid; i < K * NP; i += kThreads) {
+    const int k = i / NP;
+    const int n = i - k * NP;
+    uint32_t w = 0u;
+    if (n < N) {
+#pragma unroll 8
+      for (int d = 0; d < dmax; ++d) {
+        w += static_cast<uint32_t>(static_cast<int32_t>(p_s[d * KN + k * N + n]))
+             << d;
+      }
+    }
+    w_s[i] = w;
+  }
+  __syncthreads();
+
+  // One row and 4 columns a thread.  Where N is a multiple of 4 a thread's
+  // 4 sums are 16 consecutive bytes of y and the block's threads cover its
+  // run in order, so they are stored at once; else y is staged in shared
+  // memory and stored as one run.
+  int32_t* yg = out + (q * M + r0) * N;
+  const bool direct = N % 4 == 0 && (reinterpret_cast<uintptr_t>(yg) & 15) == 0;
+  for (int it = tid; it < rows * NG; it += kThreads) {
+    const int r = it / NG;
+    const int c = (it - r * NG) * 4;
+    const uint32_t* xr = x_s + r * K;
+    uint32_t a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const uint32_t xv = xr[k];
+      const uint4 wv = *reinterpret_cast<const uint4*>(w_s + k * NP + c);
+      a0 += xv * wv.x;
+      a1 += xv * wv.y;
+      a2 += xv * wv.z;
+      a3 += xv * wv.w;
+    }
+    if (direct) {
+      *reinterpret_cast<uint4*>(yg + r * N + c) = make_uint4(a0, a1, a2, a3);
+      continue;
+    }
+    uint32_t* yr = y_s + r * N + c;
+    yr[0] = a0;
+    if (c + 1 < N) yr[1] = a1;
+    if (c + 2 < N) yr[2] = a2;
+    if (c + 3 < N) yr[3] = a3;
+  }
+  if (direct) return;
+  __syncthreads();
+
+  // y's run of rows * N int32
+  const int ny = rows * N;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(yg) & 15) == 0) {
+    done = ny & ~3;
+    for (int i = 4 * tid; i < done; i += 4 * kThreads)
+      *reinterpret_cast<uint4*>(yg + i) = *reinterpret_cast<const uint4*>(y_s + i);
+  }
+  for (int i = done + tid; i < ny; i += kThreads) {
+    yg[i] = static_cast<int32_t>(y_s[i]);
+  }
+}
+
+// Shared memory of the resident route: weights, x and y tiles, and room
+// for 32 planes (a deeper stack adds 0 past plane 31).
+size_t resident_smem(int K, int N) {
+  return sizeof(uint32_t) * ((size_t)K * 4 * ((N + 3) / 4) +
+                             (size_t)kResRows * (K + N)) +
+         32 * (size_t)K * N;
+}
+
 int launch(const void* x, const void* planes, void* out, int Q, int M, int K,
            int N, int D, void* stream) {
   if (Q <= 0 || M <= 0 || N <= 0) return 0;
@@ -140,10 +289,37 @@ extern "C" int csd_matvec(const void* x, const void* planes, void* out,
 }
 
 // x: (Q, M, K) int32; planes: (Q, D, K, N) int8, every network's planes
-// zero-padded to the shared depth D; out: (Q, M, N) int32.
+// zero-padded to the shared depth D; out: (Q, M, N) int32.  The "chunked"
+// route: csd_planes_kernel.
 extern "C" int csd_qsweep(const void* x, const void* planes, void* out,
                           int Q, int M, int K, int N, int D, void* stream) {
   return launch(x, planes, out, Q, M, K, N, D, stream);
+}
+
+// The same contract on the "resident" route: csd_resident_kernel, for
+// shapes whose weights and tiles fit one block's shared memory (the
+// wrapper's route rule; refused past 227 KB).
+extern "C" int csd_qsweep_resident(const void* x, const void* planes,
+                                   void* out, int Q, int M, int K, int N,
+                                   int D, void* stream) {
+  if (Q <= 0 || M <= 0 || N <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K <= 0 || D <= 0) {                     // an empty sum: y = 0
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, sizeof(int32_t) * (size_t)Q * M * N, s));
+  }
+  const size_t smem = resident_smem(K, N);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        csd_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid((unsigned)((M + kResRows - 1) / kResRows), Q);
+  csd_resident_kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const int32_t*>(x), static_cast<const int8_t*>(planes),
+      static_cast<int32_t*>(out), M, K, N, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* csd_matvec_error_string(int err) {
@@ -151,5 +327,9 @@ extern "C" const char* csd_matvec_error_string(int err) {
 }
 
 extern "C" const char* csd_qsweep_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" const char* csd_qsweep_resident_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -136,24 +136,25 @@ def paged_attention(q, k_pool, v_pool, table, cache_len, *, window: int = 0):
 
     Sentinel entries >= NB clamp to NB - 1; the clamped garbage is exactly
     masked because sentinel entries only exist at logical blocks past
-    ``cache_len``.  ``cache_len`` is clamped to ``nb * bs``, and the
-    effective table repeats each slot's last needed block past its length
-    (the TPU kernel's revisit skip; here the kernel's loop stops at that
-    block and the plain version reads masked blocks as exact no-ops)."""
+    ``cache_len``.  ``cache_len`` is clamped to ``nb * bs``.  The kernel
+    bounds its own walk at ``ceil(cache_len / bs)`` blocks; for the plain
+    version the effective table repeats each slot's last needed block past
+    its length (the TPU kernel's revisit skip; the plain version reads
+    masked blocks as exact no-ops)."""
     B = q.shape[0]
     NB, bs = k_pool.shape[0], k_pool.shape[1]
     nb = table.shape[1]
     clen = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
     clen = torch.clamp(clen.reshape(-1).expand(B), max=nb * bs).contiguous()
-    tbl = torch.clamp(table.to(torch.int32), max=NB - 1)
+    tbl = torch.clamp(table.to(torch.int32), max=NB - 1).contiguous()
+    if q.is_cuda:
+        return paged_attention_kernel(q, k_pool, v_pool, tbl, clen,
+                                      window=window)
+    _plain_or_raise(q, "paged_attention")
     last = torch.clamp(torch.div(clen - 1, bs, rounding_mode="floor"), min=0)
     jidx = torch.minimum(torch.arange(nb, device=q.device)[None, :],
                          last[:, None].to(torch.int64))
     eff = torch.gather(tbl, 1, jidx).contiguous()
-    if q.is_cuda:
-        return paged_attention_kernel(q, k_pool, v_pool, eff, clen,
-                                      window=window)
-    _plain_or_raise(q, "paged_attention")
     return paged_attention_plain(q, k_pool, v_pool, eff, clen, window=window)
 
 

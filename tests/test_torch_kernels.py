@@ -1,6 +1,7 @@
 """repro_torch kernels against the JAX package: the plain versions of the
-paged gather and the fused paged decode attention on the CPU, and the CUDA
-kernels against their plain versions on the card (``gpu`` marker)."""
+paged gather and the fused paged decode attention on the CPU (the
+attention's split-and-combine rule and its split rule among them), and the
+CUDA kernels against their plain versions on the card (``gpu`` marker)."""
 import numpy as np
 import pytest
 import torch
@@ -12,9 +13,11 @@ try:    # the JAX package is the oracle; without JAX only -m gpu runs here
 except ImportError:
     jnp = None
 from repro_torch.kernels import ops
-from repro_torch.kernels.paged_attention import (paged_attention_kernel,
+from repro_torch.kernels.paged_attention import (SMS, BLOCKS_PER_SM,
+                                                 paged_attention_kernel,
                                                  paged_attention_plain,
-                                                 pow2_int)
+                                                 paged_attention_split_plain,
+                                                 pow2_int, split_shape, splits)
 from repro_torch.kernels.paged_gather import paged_gather_kernel
 from repro_torch.nn.layers import gather_block_rows, paged_decode_attention_ref
 
@@ -134,6 +137,95 @@ def test_attention_scalar_cache_len_and_effective_table():
     np.testing.assert_array_equal(vec.numpy(), raw.numpy())
 
 
+# lengths 1, bs, bs + 1 and the full row; with window 40 the slot of 48
+# positions enters no block before position 8, so its first split is empty
+SPLIT_LENS = [1, 8, 9, 48, 20, 33]
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 6])
+def test_split_plain_vs_plain_and_jax(n_splits, window):
+    """The kernel's split-and-combine rule (plain version) at 1, 2, 3 and nb
+    = 6 splits: within the kernel's f32 tolerance 2e-5 of the sequential
+    plain loop and of the JAX Pallas kernel (interpret mode); at one split
+    bit-identical to the sequential loop."""
+    rng = np.random.default_rng(11 + n_splits + window)
+    q, kp, vp, tbl, clen = _case(rng, 6, 14, 2, 16, 8, 6, lens=SPLIT_LENS)
+    args = _t(q, kp, vp, tbl, clen)
+    got = paged_attention_split_plain(*args, window=window,
+                                      n_splits=n_splits)
+    seq = paged_attention_plain(*args, window=window)
+    want = np.asarray(jops.paged_attention(
+        *[jnp.asarray(x) for x in (q, kp, vp, tbl, clen)], window=window))
+    np.testing.assert_allclose(got.numpy(), seq.numpy(), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    if n_splits == 1:
+        np.testing.assert_array_equal(got.numpy(), seq.numpy())
+
+
+@pytest.mark.parametrize("n_splits", [2, 6])
+def test_split_plain_bf16_vs_plain(n_splits):
+    """bf16 pools: the split rule within the kernel's bf16 tolerance (atol
+    2e-3, rtol 1e-2) of the sequential loop, a window that empties the
+    first splits included."""
+    rng = np.random.default_rng(5)
+    q, kp, vp, tbl, clen = _case(rng, 6, 14, 2, 16, 8, 6, lens=SPLIT_LENS)
+    args = [x.to(torch.bfloat16) for x in _t(q, kp, vp)] + _t(tbl, clen)
+    for window in (0, 40):
+        got = paged_attention_split_plain(*args, window=window,
+                                          n_splits=n_splits)
+        want = paged_attention_plain(*args, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                                   rtol=1e-2)
+
+
+def test_split_plain_enters_only_the_blocks_it_needs():
+    """A split steps only over blocks inside the slot's length and window,
+    and one that enters none keeps (NEG_INF, 0, 0): NaN in every block no
+    slot enters (before the windows, the sentinel's NB - 1, the unused)
+    leaves the output bitwise unchanged at 1, 3 and 6 splits."""
+    rng = np.random.default_rng(12)
+    q, kp, vp, tbl, clen = _case(rng, 2, 4, 2, 8, 8, 6, lens=[48, 41])
+    window = 10
+    entered = np.concatenate([tbl[b, (n - window) // 8:-(-n // 8)]
+                              for b, n in enumerate(clen)])
+    idle = np.setdiff1d(np.arange(kp.shape[0]), entered)
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[idle], vp2[idle] = np.nan, np.nan
+    for n in (1, 3, 6):
+        clean = paged_attention_split_plain(*_t(q, kp, vp, tbl, clen),
+                                            window=window, n_splits=n)
+        dirty = paged_attention_split_plain(*_t(q, kp2, vp2, tbl, clen),
+                                            window=window, n_splits=n)
+        assert bool(torch.isfinite(dirty).all())
+        np.testing.assert_array_equal(clean.numpy(), dirty.numpy())
+
+
+@pytest.mark.parametrize("nb,n,want", [(32, 16, (16, 2)), (32, 17, (16, 2)),
+                                       (32, 1, (1, 32)), (32, 99, (32, 1)),
+                                       (4, 3, (2, 2)), (7, 4, (4, 2)),
+                                       (128, 64, (32, 4))])
+def test_split_shape(nb, n, want):
+    """At most n (and 32, a lane each in the combine) splits of ceil(nb /
+    n) blocks; none starts past nb."""
+    S, c = split_shape(nb, n)
+    assert (S, c) == want
+    assert S <= max(1, min(n, nb, 32)) and (S - 1) * c < nb <= S * c
+
+
+def test_split_rule_at_the_path_shapes():
+    """Shapes only: the serving shape (8 slots, 2 KV heads, 32 blocks of
+    32) splits into 16 runs of 2 blocks, 256 thread blocks, about two an
+    SM; the tiny f32 model of the serving check (3 slots, 2 KV heads, 4
+    blocks of 8) into one block a split; a grid that fills the card alone
+    keeps one split."""
+    assert splits(8, 2, 32) == (16, 2)
+    assert 8 * 2 * 16 >= BLOCKS_PER_SM * SMS - 8 * 2
+    assert splits(3, 2, 4) == (4, 1)
+    assert splits(132, 2, 32) == (1, 32)
+    assert splits(1, 1, 1) == (1, 1)
+
+
 def test_pow2_int_exact():
     """pow2_int is the exact power of two on [-126, 0], 0 below, and agrees
     with the JAX helper bit for bit."""
@@ -195,10 +287,80 @@ def test_gpu_attention_kernel_vs_plain(dtype, atol, window):
     args = [torch.from_numpy(x).to("cuda", dt) for x in (q, kp, vp)]
     t, c = torch.from_numpy(tbl).cuda(), torch.from_numpy(clen).cuda()
     n0 = paged_attention_kernel.launches
+    c0 = paged_attention_kernel.combine_launches
     got = ops.paged_attention(*args, t, c, window=window)
     torch.cuda.synchronize()
     assert paged_attention_kernel.launches == n0 + 1
+    assert paged_attention_kernel.combine_launches == c0 + 1   # S = 16
     want = paged_attention_plain(*args, torch.clamp(t, max=kp.shape[0] - 1),
                                  c, window=window)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=0 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [("float32", 2e-5, 0),
+                                             ("bfloat16", 2e-3, 1e-2)])
+@pytest.mark.parametrize("window", [0, 40, 200])
+@pytest.mark.parametrize("n_splits", [1, 2, 4, 32])
+def test_gpu_attention_forced_splits(n_splits, window, dtype, atol, rtol):
+    """The CUDA kernel at a forced split count (S = 1, 2, 4 and one a
+    block) against the sequential plain version: lengths 1, 32 (= bs), 33
+    and 1024 (the whole row), sentinel tables, windows that empty the first
+    splits; one launch a call, and one of the combine kernel for S > 1."""
+    _needs_card()
+    rng = np.random.default_rng(n_splits + window)
+    q, kp, vp, tbl, clen = _case(rng, 4, 14, 2, 64, 32, 32,
+                                 lens=[1, 32, 33, 1024])
+    dt = getattr(torch, dtype)
+    args = [torch.from_numpy(x).to("cuda", dt) for x in (q, kp, vp)]
+    t = torch.clamp(torch.from_numpy(tbl).cuda(), max=kp.shape[0] - 1)
+    c = torch.from_numpy(clen).cuda()
+    n0 = paged_attention_kernel.launches
+    c0 = paged_attention_kernel.combine_launches
+    got = paged_attention_kernel(*args, t, c, window=window,
+                                 n_splits=n_splits)
+    torch.cuda.synchronize()
+    assert paged_attention_kernel.launches == n0 + 1
+    assert paged_attention_kernel.combine_launches == c0 + (n_splits > 1)
+    want = paged_attention_plain(*args, t, c, window=window)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv,D,bs,dtype", [
+    (14, 2, 128, 32, "bfloat16"),   # tensor cores, D = 128
+    (14, 2, 64, 16, "bfloat16"),    # tensor cores, blocks of 16
+    (14, 2, 64, 64, "bfloat16"),    # tensor cores, blocks of 64
+    (32, 2, 64, 32, "bfloat16"),    # tensor cores, G = 16
+    (4, 4, 64, 32, "bfloat16"),     # tensor cores, MHA
+    (14, 2, 32, 32, "bfloat16"),    # CUDA cores: D = 32
+    (34, 2, 64, 32, "bfloat16"),    # CUDA cores: G = 17
+    (14, 2, 64, 8, "bfloat16"),     # CUDA cores: blocks of 8
+    (4, 1, 16, 8, "float32"),       # CUDA cores, f32
+])
+@pytest.mark.parametrize("window", [0, 40])
+def test_gpu_attention_kernel_shapes(Hq, Hkv, D, bs, dtype, window):
+    """Both compute routes of the kernel (tensor cores for bf16 with G <=
+    16, D in {64, 128} and bs in {16, 32, 64}; CUDA cores elsewhere)
+    against the sequential plain version at the kernel's tolerances, split
+    by the rule and into one split."""
+    _needs_card()
+    rng = np.random.default_rng(Hq + D + bs + window)
+    nb = 256 // bs
+    q, kp, vp, tbl, clen = _case(rng, 4, Hq, Hkv, D, bs, nb,
+                                 lens=[1, bs, bs + 1, nb * bs])
+    dt = getattr(torch, dtype)
+    args = [torch.from_numpy(x).to("cuda", dt) for x in (q, kp, vp)]
+    t = torch.clamp(torch.from_numpy(tbl).cuda(), max=kp.shape[0] - 1)
+    c = torch.from_numpy(clen).cuda()
+    want = paged_attention_plain(*args, t, c, window=window).float()
+    atol, rtol = (2e-5, 0) if dtype == "float32" else (2e-3, 1e-2)
+    for n_splits in (None, 1):
+        got = paged_attention_kernel(*args, t, c, window=window,
+                                     n_splits=n_splits)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)

@@ -1,8 +1,9 @@
 """The CSD digit-plane kernels of repro_torch against the JAX package: the
 plain versions of ``csd_matvec`` and ``csd_qsweep`` on the CPU against the
-Pallas kernels (interpret mode) and ``csd_matvec_ref``, bit for bit, and
-the CUDA kernels against their plain versions on the card (``gpu``
-marker)."""
+Pallas kernels (interpret mode) and ``csd_matvec_ref``, bit for bit, the
+``csd_qsweep`` route rule at the paper's layer shapes, and the CUDA
+kernels against their plain versions on the card (``gpu`` marker), both
+``csd_qsweep`` routes among them."""
 import numpy as np
 import pytest
 import torch
@@ -13,11 +14,12 @@ try:    # the JAX package is the oracle; without JAX only -m gpu runs here
     from repro.kernels.ref import csd_matvec_ref
 except ImportError:
     jnp = None
+from repro_torch.configs.pendigits_mlp import STRUCTURES
 from repro_torch.kernels import ops
-from repro_torch.kernels.csd_matvec import (csd_matvec_kernel,
+from repro_torch.kernels.csd_matvec import (ROUTES, csd_matvec_kernel,
                                             csd_matvec_plain,
                                             csd_qsweep_kernel,
-                                            csd_qsweep_plain)
+                                            csd_qsweep_plain, route)
 
 
 def _weights(rng, shape, depth):
@@ -95,6 +97,27 @@ def test_plain_wraps_like_int32():
     np.testing.assert_array_equal(got.numpy(), exact)
 
 
+@pytest.mark.parametrize("structure", STRUCTURES)
+def test_qsweep_route_rule_at_the_paper_layers(structure):
+    """Every layer of the paper's five structures (the paper path's
+    16-16-10-10 and the explorer's 16-16-10 among them: K, N in {10, 16})
+    takes the resident route."""
+    for K, N in zip(structure[:-1], structure[1:]):
+        assert route(K, N) == "resident", (K, N)
+
+
+@pytest.mark.parametrize("K,N,want", [
+    (19, 5, "resident"), (1, 1, "resident"), (24, 24, "resident"),
+    (32, 32, "chunked"), (200, 70, "chunked"), (37, 200, "chunked"),
+    (4096, 1, "chunked")])
+def test_qsweep_route_rule_by_shared_memory(K, N, want):
+    """Resident where the padded weights, a 64-row tile of x and y and 32
+    planes fit 48 KB, chunked elsewhere; a pure function of (K, N)."""
+    assert route(K, N) == want
+    smem = 4 * (K * 4 * -(-N // 4) + 64 * (K + N)) + 32 * K * N
+    assert (smem <= 48 * 1024) == (want == "resident")
+
+
 def test_no_fallback_off_cpu():
     """A tensor that is neither on the CPU nor on the card reaches no plain
     version, and the kernels refuse CPU tensors."""
@@ -146,3 +169,57 @@ def test_gpu_csd_qsweep_bit_exact(Q, M, K, N):
     torch.cuda.synchronize()
     assert csd_qsweep_kernel.launches == n0 + 1
     assert torch.equal(got, csd_qsweep_plain(x, planes))
+
+
+def _stack_at_depth(rng, Q, K, N, depth, digits):
+    """Q networks' planes at the shared depth ``depth``, their weights
+    needing up to ``digits[q]`` CSD digits."""
+    return np.stack([ops.csd_expand(_weights(rng, (K, N), d), depth=depth)
+                     for d in digits[:Q]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ROUTES)
+@pytest.mark.parametrize("Q,M,K,N,D", [
+    (4, 2248, 16, 16, 8), (4, 2248, 16, 10, 8), (4, 2248, 10, 16, 8),
+    (4, 2248, 10, 10, 8),           # the sweeps' layers
+    (3, 77, 19, 5, 11),             # odd shapes, rows past one tile
+    (2, 130, 16, 10, 40),           # planes d >= 32 add 0 mod 2^32
+    (1, 1, 3, 1, 1)])
+def test_gpu_csd_qsweep_routes_bit_exact(Q, M, K, N, D, how):
+    """Both csd_qsweep routes equal the plain version bit for bit; each
+    call counts one launch on its route."""
+    _needs_card()
+    rng = np.random.default_rng(Q * M + K * N + D)
+    x = torch.from_numpy(_acts(rng, (Q, M, K))).cuda()
+    planes = torch.from_numpy(_stack_at_depth(
+        rng, Q, K, N, D, (min(D, 8), D, 3, D))).cuda()
+    assert planes.shape == (Q, D, K, N)
+    n0, r0 = csd_qsweep_kernel.launches, dict(csd_qsweep_kernel.route_launches)
+    got = csd_qsweep_kernel(x, planes, how=how)
+    torch.cuda.synchronize()
+    assert csd_qsweep_kernel.launches == n0 + 1
+    assert csd_qsweep_kernel.route_launches == {
+        r: r0[r] + (r == how) for r in ROUTES}
+    assert torch.equal(got, csd_qsweep_plain(x, planes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ROUTES)
+def test_gpu_csd_qsweep_wraps_like_int32(how):
+    """Activations near +-2^31: products and sums wrap modulo 2^32 on both
+    routes exactly as the plain version's int32 does."""
+    _needs_card()
+    rng = np.random.default_rng(3)
+    x = rng.integers(-2 ** 31, 2 ** 31, size=(2, 300, 16)).astype(np.int32)
+    planes = _stack_at_depth(rng, 2, 16, 10, 12, (12, 9))
+    xt, pt = torch.from_numpy(x).cuda(), torch.from_numpy(planes).cuda()
+    got = csd_qsweep_kernel(xt, pt, how=how)
+    want = csd_qsweep_plain(xt, pt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ws = [csd_matvec_plain(torch.eye(16, dtype=torch.int32),
+                           torch.from_numpy(p)).numpy() for p in planes]
+    exact = np.stack([(x[q].astype(np.int64) @ ws[q] + 2 ** 31) % 2 ** 32
+                      - 2 ** 31 for q in range(2)])
+    np.testing.assert_array_equal(got.cpu().numpy(), exact)
