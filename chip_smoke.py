@@ -35,9 +35,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    instantiations at D = 64 and 256 (a spill fails the run); bf16 timed at
    the loss shapes and the prefill shapes beside
    ``scaled_dot_product_attention``, the f32 route once at the loss
-   shape.  The linear-scan kernel
-   bit-exact at the reference test's three shapes and the hybrid's loss,
-   first prefill batch and decode shapes, timed at the last three;
+   shape.  The linear-scan kernel bit for bit (int32 views) at the
+   reference test's three shapes on the route its rule picks and at the
+   hybrid's loss, first prefill batch and decode shapes on every route
+   (ring, step and tiled, the first version), every route timed at
+   those three;
 2b. the int8 power-of-two matmul's path, the port's public op
    ``repro_torch.kernels.qmatmul``, at qwen2-0.5b's full widths: one call
    per distinct (K, N) of the int8-PoT tree of random weights from seed 0
@@ -115,7 +117,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    256-1536 tokens, 32 new tokens each, then one more batch under the
    profiler.  The counters are zeroed before the loss and read after the
    serving: 26 linear-scan and 12 flash launches per prefill or loss
-   forward, 26 linear-scan and no flash launches per decode step.
+   forward, 26 linear-scan and no flash launches per decode step; the
+   loss's scans all on the ring route, the serving's on the ring
+   (prefill) and step (decode) routes.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -1299,11 +1303,13 @@ def hybrid_prefill_len():
 
 def linear_scan_kernel_phase(torch):
     """The linear-scan kernel against its plain version on the card, bit
-    for bit, at the reference test's shapes and the hybrid path's (the
-    loss, the first prefill batch, a decode step); its times beside the
-    bytes bound and the plain version's."""
-    from repro_torch.kernels.linear_scan import (linear_scan_kernel,
-                                                 linear_scan_plain)
+    for bit (int32 views: -0.0 is not +0.0), at the reference test's
+    shapes on the route the rule picks and at the hybrid path's (the loss,
+    the first prefill batch, a decode step) on every route; every route's
+    time at those three shapes beside the bytes bound and the plain
+    version's, the rule's route timed first and last."""
+    from repro_torch.kernels.linear_scan import (ROUTES, linear_scan_kernel,
+                                                 linear_scan_plain, route)
     W = 4096
     H_pre = hybrid_prefill_len()
     shapes = {"reference test": [(2, 64, 128), (1, 100, 70), (2, 256, 256)],
@@ -1317,35 +1323,57 @@ def linear_scan_kernel_phase(torch):
         x = torch.randn(shape, generator=gen, device="cuda") * 0.1
         return a, x
 
+    def bits_equal(got, want):
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
     rows = {}
     for label, group in shapes.items():
         for shape in group:
             a, x = inputs(shape)
-            got, want = linear_scan_kernel(a, x), linear_scan_plain(a, x)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            check(torch.equal(got, want), f"linear_scan kernel != plain "
-                  f"version at {shape}: max abs err {err}")
+            want = linear_scan_plain(a, x)
+            rule = route(shape[1], shape[2], a.data_ptr(), x.data_ptr(),
+                         a.data_ptr())
+            hows = [rule] if label == "reference test" else \
+                [rule] + [r for r in ROUTES if r != rule]
+            for how in hows:
+                got = linear_scan_kernel(a, x, how=how)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                check(bits_equal(got, want), f"linear_scan kernel ({how}) != "
+                      f"plain version at {shape}: max abs err {err}")
             print(f"linear_scan {shape} ({label}): bit-exact against the "
-                  f"plain version")
+                  f"plain version on {', '.join(hows)} (the rule's: {rule})")
             if label == "reference test":
                 continue
             # distinct inputs per call, together at least twice the L2
             nbytes = 3 * 4 * int(np.prod(shape))
             sets = [inputs(shape)
                     for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
-            ms, eager_ms = time_calls(torch, linear_scan_kernel, sets, 5)
+            times = {h: [] for h in hows}
+            for how in hows + [rule]:
+                ms, eager_ms = time_calls(
+                    torch, lambda a, x, how=how: linear_scan_kernel(
+                        a, x, how=how), sets, 5)
+                times[how].append(ms)
+                if how == rule:
+                    rule_eager = eager_ms
             plain_ms, _ = time_calls(torch, linear_scan_plain, sets, 1)
-            rows[label] = {"ms": ms, "eager_ms": eager_ms,
-                           "plain_ms": plain_ms,
+            rows[label] = {"ms": times[rule][0], "eager_ms": rule_eager,
+                           "plain_ms": plain_ms, "route": rule,
+                           "routes_ms": times,
                            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                            "shape": shape, "sets": len(sets)}
             del sets
     for label, r in rows.items():
-        print(f"linear_scan ({label}, {r['shape']}): {r['ms']*1e3:.2f} us on "
-              f"the card ({r['eager_ms']*1e3:.2f} us per eager call), plain "
-              f"{r['plain_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.2f} us "
-              f"(bytes); {r['sets']} input sets")
+        print(f"linear_scan ({label}, {r['shape']}) [{CARD}]: {r['route']} "
+              f"{' / '.join(f'{v*1e3:.2f}' for v in r['routes_ms'][r['route']])}"
+              f" us on the card ({r['eager_ms']*1e3:.2f} us per eager call); "
+              + ", ".join(f"{h} {v[0]*1e3:.2f} us" for h, v in
+                          r["routes_ms"].items() if h != r["route"]) +
+              f"; plain {r['plain_ms']*1e3:.2f} us, bound "
+              f"{r['bound_ms']*1e3:.3f} us (bytes, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f} % of it); "
+              f"{r['sets']} input sets")
     row = rows["Model.loss"]
     return {
         "name": "linear_scan", "route": "cuda",
@@ -1357,11 +1385,13 @@ def linear_scan_kernel_phase(torch):
         "library": "none: no single PyTorch call computes a first-order "
                    "linear recurrence",
         "shape": f"a, x (1, {HYB_LOSS_SEQ}, {W}) f32: one Model.loss RG-LRU "
-                 f"layer; timed over {row['sets']} input sets",
+                 f"layer, route {row['route']}; timed over {row['sets']} "
+                 f"input sets",
+        "routes_ms": {label: r["routes_ms"] for label, r in rows.items()},
         "prefill": {k: rows["prefill, first batch"][k]
-                    for k in ("ms", "plain_ms", "bound_ms")},
+                    for k in ("ms", "plain_ms", "bound_ms", "route")},
         "decode": {k: rows["decode step"][k]
-                   for k in ("ms", "plain_ms", "bound_ms")},
+                   for k in ("ms", "plain_ms", "bound_ms", "route")},
     }
 
 
@@ -1639,6 +1669,12 @@ def hybrid_phase(torch):
 
     def zero():
         linear_scan_kernel.launches = flash_attention_kernel.launches = 0
+        linear_scan_kernel.route_launches = dict.fromkeys(
+            linear_scan_kernel.route_launches, 0)
+
+    def scan_routes():
+        return {k: v for k, v in linear_scan_kernel.route_launches.items()
+                if v}
 
     # (a) f32 decode vs prefill, past the window
     m32 = Model(dataclasses.replace(cfg, dtype="float32"), device="cuda")
@@ -1659,7 +1695,8 @@ def hybrid_phase(torch):
     print(f"hybrid f32: decode of token {S + 1} after prefill({S}) against "
           f"prefill({S + 1}): max abs diff {diff:.4e}, max |logit| "
           f"{scale:.4e} (tolerance {HYB_DECODE_REL} x max = "
-          f"{HYB_DECODE_REL * scale:.4e}); {sec:.3f} s; launches {launched}")
+          f"{HYB_DECODE_REL * scale:.4e}); {sec:.3f} s; launches {launched}, "
+          f"linear_scan routes {scan_routes()}")
     check(bool(torch.isfinite(got).all()) and diff <= HYB_DECODE_REL * scale,
           "hybrid f32 decode disagrees with prefill")
     check(launched == {"linear_scan": 3 * n_scan,
@@ -1684,11 +1721,15 @@ def hybrid_phase(torch):
     expect = float(np.log(cfg.vocab)) + s2 / 2
     print(f"hybrid bf16 Model.loss (1 x {HYB_LOSS_SEQ}): {loss!r} (expected "
           f"ln V + s2/2 = {expect:.4f}, ln V = {np.log(cfg.vocab):.4f}); "
-          f"{loss_s:.3f} s; launches {loss_launches}")
+          f"{loss_s:.3f} s; launches {loss_launches}, linear_scan routes "
+          f"{scan_routes()}")
     check(np.isfinite(loss) and abs(loss - expect) <= 0.2,
           f"hybrid loss {loss} far from {expect}")
     check(loss_launches == {"linear_scan": n_scan, "flash_attention": n_flash},
           f"hybrid loss launches {loss_launches}")
+    loss_routes = scan_routes()
+    check(loss_routes == {"ring": n_scan},
+          f"hybrid loss linear_scan routes {loss_routes}")
 
     # (c) ReferenceEngine, bf16
     prompts = hybrid_prompts(cfg.vocab)
@@ -1712,6 +1753,11 @@ def hybrid_phase(torch):
     check(served == {"linear_scan": n_batches * HYB_NEW * n_scan,
                      "flash_attention": n_batches * n_flash},
           f"hybrid serving launches {served}")
+    served_routes = {k: v - loss_routes.get(k, 0)
+                     for k, v in scan_routes().items()}
+    check(set(served_routes) == {"ring", "step"},
+          f"hybrid serving linear_scan routes {served_routes}: prefill "
+          f"takes the ring, decode the step route")
     s = eng.stats
     print(f"hybrid ReferenceEngine (bf16, {HYB_BATCH} rows x {HYB_CONTEXT}): "
           f"{len(reqs)} requests in {wall:.3f} s, {n_batches} batches; "
@@ -1719,7 +1765,8 @@ def hybrid_phase(torch):
           f"({s['prefill_tokens']/s['prefill_s']:.1f} tok/s); decode "
           f"{s['decode_tokens']} tok in {s['decode_s']:.3f} s "
           f"({s['decode_tokens']/s['decode_s']:.1f} tok/s); peak memory "
-          f"{peak/2**30:.3f} GiB; launches {served}")
+          f"{peak/2**30:.3f} GiB; launches {served}, linear_scan routes "
+          f"{served_routes}")
     print(f"  first tokens {out[:, 0].tolist()}")
 
     # one more batch under the profiler

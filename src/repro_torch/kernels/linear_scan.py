@@ -8,13 +8,30 @@ Source note.  :func:`linear_scan_kernel` launches ``csrc/linear_scan.cu``
 and replaces the Pallas TPU kernel
 ``repro/kernels/linear_scan.py::linear_scan_kernel`` (with its padded
 wrapper ``linear_scan``).  It is bound by bytes: 12 bytes moved and two
-flops per step.  One thread walks one (b, w) channel in order of t, with
-(64 steps x 32 channels) tiles of a and x staged in shared memory by
-``cp.async``, two stages deep, and h carried in a register across tiles.
-The step is an f32 multiply rounded, then an add rounded -- never an FMA
--- so the kernel is bit-identical to :func:`linear_scan_plain`, which the
-CPU path and the kernel's on-card check use.  A chunked parallel scan
-would change the order of operations and is not used.
+flops per step.  One thread walks one (b, w) channel in order of t from
+h = 0, on every route, and the step is an f32 multiply rounded, then an
+add rounded -- never an FMA -- so every route is bit-identical to
+:func:`linear_scan_plain`, which the CPU path and the kernel's on-card
+check use.  A chunked parallel scan would change the order of operations
+and is not used.
+
+:func:`route` picks one of :data:`ROUTES` from S, W and alignment alone:
+
+- ``"step"`` for ``S <= STEP_MAX_S`` (decode's S = 1) where the rule below
+  holds: each thread walks 4 channels' S steps straight from device
+  memory with 16-byte loads and stores;
+- ``"ring"`` for longer scans where the rule holds: a producer warp keeps
+  a 4-stage ring of (64 steps x 32 channels) TMA boxes of a and x in
+  flight on mbarriers, a consumer warp walks them with h in registers and
+  stores each h tile as one TMA box;
+- ``"tiled"`` (the first version: 4-byte ``cp.async`` tiles two stages
+  deep) for every other shape.
+
+The rule (:func:`bulk_aligned`): W % 4 == 0 and a, x and h start 16-byte
+aligned, as a TMA tensor map and a 16-byte vector need.  W = 70, W = 33
+and a view that starts off a 16-byte boundary (a storage offset that
+``.contiguous()`` keeps) break it.  A route is chosen by shape and
+address, never after a failure: a build or launch failure raises.
 """
 from __future__ import annotations
 
@@ -25,7 +42,11 @@ import torch
 
 from . import build
 
-__all__ = ["linear_scan_plain", "linear_scan_kernel"]
+__all__ = ["linear_scan_plain", "linear_scan_kernel", "route",
+           "bulk_aligned", "ROUTES", "STEP_MAX_S"]
+
+ROUTES = ("ring", "step", "tiled")   # the C entry's route ids
+STEP_MAX_S = 16          # the longest scan the step route walks
 
 
 def linear_scan_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -41,20 +62,40 @@ def linear_scan_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def bulk_aligned(W: int, *ptrs: int) -> bool:
+    """Whether (B, S, W) f32 tensors at these base addresses can move as
+    TMA boxes and 16-byte vectors: W % 4 == 0, every address 16-byte
+    aligned."""
+    return W % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+def route(S: int, W: int, *ptrs: int) -> str:
+    """The route for a scan of S steps over W channels, with a, x and h at
+    base addresses ``ptrs``: ``"tiled"`` where :func:`bulk_aligned`
+    fails, else ``"step"`` where ``S <= STEP_MAX_S`` and ``"ring"``
+    above."""
+    if not bulk_aligned(W, *ptrs):
+        return "tiled"
+    return "step" if S <= STEP_MAX_S else "ring"
+
+
 @functools.cache
 def _entry():
     lib = build.load("linear_scan")
     fn = lib.linear_scan
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def linear_scan_kernel(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def linear_scan_kernel(a: torch.Tensor, x: torch.Tensor, *,
+                       how: str | None = None) -> torch.Tensor:
     """The CUDA kernel: the contract of :func:`linear_scan_plain` on
     contiguous float32 CUDA tensors of one shape (B, S, W), bit-identical
-    to it."""
+    to it.  The route is :func:`route`'s, or ``how`` (the tests reach
+    every route with it; ``"ring"`` and ``"step"`` need
+    :func:`bulk_aligned`)."""
     if not (a.is_cuda and x.device == a.device):
         raise ValueError("linear_scan_kernel takes CUDA tensors on one "
                          "device")
@@ -68,12 +109,21 @@ def linear_scan_kernel(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("linear_scan_kernel needs contiguous inputs")
     B, S, W = a.shape
     out = torch.empty_like(a)
+    ptrs = (a.data_ptr(), x.data_ptr(), out.data_ptr())
+    how = how or route(S, W, *ptrs)
+    if how not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, not {how!r}")
+    if how != "tiled" and not bulk_aligned(W, *ptrs):
+        raise ValueError(f"route {how!r} needs W % 4 == 0 and 16-byte "
+                         f"aligned tensors")
     lib, fn = _entry()
-    err = fn(a.data_ptr(), x.data_ptr(), out.data_ptr(), B, S, W,
+    err = fn(*ptrs, B, S, W, ROUTES.index(how),
              torch.cuda.current_stream(a.device).cuda_stream)
     build.check(lib, "linear_scan", err)
     linear_scan_kernel.launches += 1
+    linear_scan_kernel.route_launches[how] += 1
     return out
 
 
 linear_scan_kernel.launches = 0
+linear_scan_kernel.route_launches = dict.fromkeys(ROUTES, 0)
