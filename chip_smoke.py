@@ -13,14 +13,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    its path's shapes, and their device times beside the bound and the
    plain and library times.  The serving kernels at bf16, Hq=14, Hkv=2,
    D=64, block 32, 8 slots of mixed lengths up to 1024, sentinel table
-   entries -- the gather bit-exact, the split-KV attention (its split
+   entries -- the gather bit-exact on both routes, K and V as one pair
+   launch and one leaf alone, through the int64 table a prefill dispatch
+   hoists (the kernel maps the sentinels), the model's K+V helper profiled
+   as exactly one device kernel, the pair timed on both routes and one
+   leaf alone beside the bound and ``index_select``; the split-KV
+   attention (its split
    count and workspace printed) within atol 2e-3 + rtol 1e-2 at windows 0
    and 200, timed at window 0, and also at window 200 and at one split.
    The CSD digit-plane kernels bit-exact (``torch.equal``) at one polish
-   call's tail (287,744 x 10 rows by 10 x 10 planes, D = 1, 8, 16), the
-   sweep's three layers of 16-16-10-10 (4 networks x 2248 rows) and odd
-   shapes, ``csd_qsweep`` on both of its routes; ``csd_qsweep`` timed on
-   both routes between two timings of the float64 matmul;
+   call's tail (287,744 x 10 rows by 10 x 10 planes, D = 1, 8, 16), ragged
+   and odd shapes, a depth of 40, the sweep's three layers of 16-16-10-10
+   (4 networks x 2248 rows), each kernel on both of its routes where both
+   apply (``csd_matvec``: streaming and planes); both timed on both
+   routes between two timings of the float64 matmul;
    The flash-attention kernel against its plain version in f32 (its
    CUDA-core route, within 2e-5) and bf16 (its tensor-core route, the
    plain version at the kernel's own key tile ``KEY_TILE``, under
@@ -65,9 +71,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 4. serving, full width: qwen2-0.5b (24 layers, d_model 896, vocab 151936)
    with random weights from a seed, int8-PoT quantized, block-paged KV,
    ``kv_gather="cuda"``, ``decode_kernel="fused"``, 16 requests; launch
-   counters are zeroed just before and read just after.  The same
+   counters are zeroed just before and read just after (one K+V pair
+   gather a layer and prefill dispatch, no one-leaf gather).  The same
    requests then go through ``kv_gather="take"``, ``decode_kernel="dense"``
-   and the first decode step's logits are compared;
+   and the first decode step's logits are compared; and through
+   ``kv_gather="cuda"``, ``decode_kernel="dense"``, whose tokens and first
+   logits must equal take/dense's exactly (the gather is a copy);
 5. a ``torch.profiler`` window over a few engine steps: device busy share,
    the top kernels and ``paged_attention``'s share of the busy time;
 6. the paper's pipeline, full size, through the quickstart's
@@ -77,7 +86,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    their default ``auto`` backend (``csd`` on the card, so both CSD
    kernels run; counters zeroed just before and read just after, the
    (Q, M, K, N, D) of each ``csd_qsweep`` launch printed, every one on
-   its resident route), the
+   its resident route, every ``csd_matvec`` on its streaming route), the
    test split scored, ``tune_time_multiplexed(scope="neuron",
    max_sweeps=2)`` (chains on the host), ``design_cost`` of the six
    design rows and SIMURG's parallel CMVM design written to
@@ -299,7 +308,9 @@ def kernel_phase(torch):
     from repro_torch.kernels.paged_attention import (paged_attention_kernel,
                                                      paged_attention_plain,
                                                      splits, workspace_bytes)
-    from repro_torch.kernels.paged_gather import (paged_gather_kernel,
+    from repro_torch.kernels.paged_gather import (ROUTES as GATHER_ROUTES,
+                                                  paged_gather_kernel,
+                                                  paged_gather_pair_kernel,
                                                   paged_gather_plain)
     rng = np.random.default_rng(0)
     L, B, Hq, Hkv, D, bs, C = 24, 8, 14, 2, 64, 32, 1024
@@ -321,32 +332,82 @@ def kernel_phase(torch):
     tbl_c = torch.clamp(table, max=NB - 1)
     results = []
 
-    # --- paged gather, at the prefill dispatch's shape: 4 slot rows
+    # --- paged gather, at the prefill dispatch's shape: 4 slot rows, the
+    # int64 table the model hoists once a dispatch, sentinels unclamped
+    # (the kernel maps them); the path gathers K and V as one pair launch
     P = 4
-    g_tbl = tbl_c[:P].contiguous()
-    got = paged_gather_kernel(kpool[0], g_tbl)
-    want = paged_gather_plain(kpool[0], g_tbl)
+    g_tbl = table[:P].long()
+    g_cl = tbl_c[:P].long()
+    for route in GATHER_ROUTES:
+        n0 = paged_gather_pair_kernel.launches
+        s0 = paged_gather_kernel.launches
+        gk, gv = paged_gather_pair_kernel(kpool[0], vpool[0], g_tbl,
+                                          route=route)
+        one = paged_gather_kernel(kpool[0], g_tbl, route=route)
+        torch.cuda.synchronize()
+        check(paged_gather_pair_kernel.launches == n0 + 1
+              and paged_gather_kernel.launches == s0 + 1,
+              "a gather call did not count one launch")
+        check(torch.equal(gk, paged_gather_plain(kpool[0], g_cl))
+              and torch.equal(gv, paged_gather_plain(vpool[0], g_cl))
+              and torch.equal(one, gk),
+              f"paged_gather kernel ({route}) != plain version")
+    # the model's helper launches the pair kernel and nothing else: no
+    # cast, no clamp
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.nn.layers import _gather_kv_rows
+    _gather_kv_rows(kpool[1], vpool[1], g_tbl, engine="cuda")
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "paged_gather kernel != plain version")
-    sets = [(pool[i], g_tbl) for pool in (kpool, vpool) for i in range(L)]
-    ms, eager_ms = time_calls(torch, paged_gather_kernel, sets, 5)
-    plain_ms, _ = time_calls(torch, paged_gather_plain, sets, 5)
-    flat = g_tbl.reshape(-1).long()
-    lib_ms, _ = time_calls(
-        torch, lambda leaf, t: leaf.index_select(0, flat), sets, 5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _gather_kv_rows(kpool[1], vpool[1], g_tbl, engine="cuda")
+        torch.cuda.synchronize()
+    names = [e.name for e in device_events(prof)]
+    check(len(names) == 1 and "gather_bulk_kernel" in names[0],
+          f"the K+V gather launched {names}, not one bulk pair kernel")
+    print(f"paged_gather: bit-exact on both routes (pair and one leaf); the "
+          f"model's K+V gather is one device kernel: {names[0]}")
     block_bytes = bs * Hkv * D * 2
-    uniq = int(torch.unique(g_tbl).numel())
-    g_bytes = uniq * block_bytes + P * nb * block_bytes + P * nb * 4
+    uniq = int(torch.unique(g_cl).numel())
+    one_bytes = uniq * block_bytes + P * nb * block_bytes + P * nb * 8
+    pair_bytes = 2 * (uniq * block_bytes + P * nb * block_bytes) + P * nb * 8
+    flat = g_cl.reshape(-1)
+    one_sets = [(pool[i], g_tbl) for pool in (kpool, vpool) for i in range(L)]
+    pair_sets = [(kpool[i], vpool[i], g_tbl) for i in range(L)]
+    ms, eager_ms = time_calls(torch, paged_gather_pair_kernel, pair_sets, 10)
+    vec_ms, _ = time_calls(torch, lambda k, v, t: paged_gather_pair_kernel(
+        k, v, t, route="vector"), pair_sets, 10)
+    plain_ms, _ = time_calls(torch, lambda k, v, t: (
+        paged_gather_plain(k, g_cl), paged_gather_plain(v, g_cl)),
+        pair_sets, 5)
+    lib_ms, _ = time_calls(torch, lambda k, v, t: (
+        k.index_select(0, flat), v.index_select(0, flat)), pair_sets, 10)
+    one_ms, one_eager = time_calls(torch, paged_gather_kernel, one_sets, 10)
+    one_plain, _ = time_calls(torch, lambda leaf, t: paged_gather_plain(
+        leaf, g_cl), one_sets, 5)
+    one_lib, _ = time_calls(torch, lambda leaf, t: leaf.index_select(0, flat),
+                            one_sets, 10)
+    ms2, _ = time_calls(torch, paged_gather_pair_kernel, pair_sets, 10)
+    one = {"ms": one_ms, "eager_ms": one_eager, "plain_ms": one_plain,
+           "bound_ms": one_bytes / HBM_BYTES_PER_S * 1e3,
+           "library_ms": one_lib}
+    print(f"paged_gather one leaf: {one_ms*1e3:.2f} us ({one_eager*1e3:.2f} "
+          f"us eager), plain {one_plain*1e3:.2f} us, bound "
+          f"{one['bound_ms']*1e3:.3f} us, index_select {one_lib*1e3:.2f} us; "
+          f"pair {ms*1e3:.2f} / {ms2*1e3:.2f} us, on the vector route "
+          f"{vec_ms*1e3:.2f} us [{CARD}]")
     results.append({
         "name": "paged_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_gather.cu",
         "replaces": "src/repro/kernels/paged_gather.py:34",
-        "max_abs_err": 0.0, "ms": ms, "eager_ms": eager_ms,
-        "plain_ms": plain_ms, "bound_ms": g_bytes / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": 0.0, "ms": ms, "ms_repeat": ms2, "eager_ms": eager_ms,
+        "vector_route_ms": vec_ms, "one_leaf": one,
+        "plain_ms": plain_ms, "bound_ms": pair_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": lib_ms,
-        "library": "torch.index_select",
-        "shape": f"pool ({NB},{bs},{Hkv},{D}) bf16, table ({P},{nb}) "
-                 f"int32: one prefill dispatch's gather"})
+        "library": "torch.index_select on each leaf (two calls: no one "
+                   "PyTorch call gathers two tensors)",
+        "shape": f"pools ({NB},{bs},{Hkv},{D}) bf16, K and V, table "
+                 f"({P},{nb}) int64 with sentinels: one prefill dispatch's "
+                 f"K+V gather (pair kernel, bulk route)"})
 
     # --- split-KV paged attention, at the decode step's shape
     S, c = splits(B, Hkv, nb)
@@ -467,7 +528,8 @@ def serve(torch, cfg, params, reqs_spec, record_first, **kw):
 
 def serving_phase(torch):
     from repro_torch.kernels.paged_attention import paged_attention_kernel
-    from repro_torch.kernels.paged_gather import paged_gather_kernel
+    from repro_torch.kernels.paged_gather import (paged_gather_kernel,
+                                                  paged_gather_pair_kernel)
     from repro_torch.nn import Model, get_config
     cfg = get_config("qwen2-0.5b")                         # full width
     t0 = time.perf_counter()
@@ -490,12 +552,17 @@ def serving_phase(torch):
     serve(torch, cfg, params, spec[:2], False, **main)      # warm-up
     torch.cuda.reset_peak_memory_stats()
     paged_gather_kernel.launches = 0
+    paged_gather_pair_kernel.launches = 0
     paged_attention_kernel.launches = 0
     paged_attention_kernel.combine_launches = 0
     eng, reqs, summ, wall, lg_fused = serve(torch, cfg, params, spec, True,
                                             **main)
-    launches = {"paged_gather": paged_gather_kernel.launches,
+    pairs = paged_gather_pair_kernel.launches
+    launches = {"paged_gather": paged_gather_kernel.launches + pairs,
                 "paged_attention": paged_attention_kernel.launches}
+    check(pairs > 0 and paged_gather_kernel.launches == 0,
+          f"the K+V gathers did not all go as pairs: {pairs} pair and "
+          f"{paged_gather_kernel.launches} one-leaf launches")
     combines = paged_attention_kernel.combine_launches
     peak = torch.cuda.max_memory_allocated()
     check(all(r.status == "done" and len(r.out_tokens) == 32 for r in reqs),
@@ -519,8 +586,12 @@ def serving_phase(torch):
           f"{summ['p99_total_s']*1e3:.1f} ms; peak memory "
           f"{peak/2**30:.3f} GiB; resident weights "
           f"{eng.quant_bytes/2**30:.3f} GiB")
-    print(f"launches on the main path: {launches}; paged_attention's "
-          f"combine kernel {combines}")
+    print(f"launches on the main path: {launches} (paged_gather: {pairs} "
+          f"K+V pairs, {s['prefill_dispatches']} prefill dispatches x "
+          f"{cfg.n_layers} layers); paged_attention's combine kernel "
+          f"{combines}")
+    check(pairs == s["prefill_dispatches"] * cfg.n_layers,
+          "not one K+V gather a layer and prefill dispatch")
     check(combines == launches["paged_attention"],
           "a decode step's attention ran without its split")
     _, ref_reqs, ref_summ, ref_wall, lg_dense = serve(
@@ -536,6 +607,17 @@ def serving_phase(torch):
           f"(max |logit| {scale:.4e}, tolerance {LOGIT_REL_TOL} x max)")
     check(diff <= LOGIT_REL_TOL * scale,
           "fused and dense first-decode logits disagree")
+    # the gather alone: the cuda K+V pair against index_select, both on the
+    # dense route (prefill and decode gather), must change nothing
+    _, cd_reqs, cd_summ, cd_wall, lg_cd = serve(
+        torch, cfg, params, spec, True,
+        **dict(kw, kv_gather="cuda", decode_kernel="dense"))
+    check(all(r.out_tokens == q.out_tokens for r, q in zip(cd_reqs, ref_reqs))
+          and torch.equal(lg_cd, lg_dense),
+          "the cuda gather changed the dense route's tokens or logits")
+    print(f"cuda/dense route: {cd_wall:.3f} s, decode "
+          f"{cd_summ['decode_tok_s']:.1f} tok/s; greedy tokens and first "
+          f"decode logits identical to take/dense")
     return launches, combines, eng, spec, cfg
 
 
@@ -561,6 +643,12 @@ def profile_phase(torch, eng, spec):
             for i in (0, 1))
     print(f"paged_attention in the window: {t/1e3:.3f} ms of {busy/1e3:.3f} "
           f"ms busy ({100*t/busy:.2f} %), {n} launches [{CARD}]")
+    t, n = (sum(v[i] for k, v in by_name.items() if "gather_bulk" in k)
+            for i in (0, 1))
+    c = sum(v[1] for k, v in by_name.items() if "clamp" in k)
+    print(f"paged_gather in the window: {t/1e3:.3f} ms, {n} K+V pair "
+          f"launches; clamp kernels {c} (paged_attention's wrapper and the "
+          f"model's; the gather launches none, kernel phase)")
     while eng.queue or eng.slots:
         eng.step()
 
@@ -585,14 +673,18 @@ def csd_kernel_phase(torch):
     card, bit for bit, at the paper path's shapes and odd ones
     (``csd_qsweep`` on both of its routes); their times beside the bound
     and the plain and library times, ``csd_qsweep``'s on both routes."""
-    from repro_torch.kernels.csd_matvec import (ROUTES, csd_matvec_kernel,
+    from repro_torch.kernels.csd_matvec import (MATVEC_ROUTES, ROUTES,
+                                                csd_matvec_kernel,
                                                 csd_matvec_plain,
                                                 csd_qsweep_kernel,
-                                                csd_qsweep_plain, route)
+                                                csd_qsweep_plain, route,
+                                                route_matvec)
     rng = np.random.default_rng(0)
     rows = 128 * 2248                  # one polish call: 128 candidates
     cases = [("csd_matvec", (rows, 10), (10, 10), d) for d in (1, 8, 16)]
+    cases += [("csd_matvec", (m, 10), (10, 10), 8) for m in (1, 127, 1001)]
     cases += [("csd_matvec", (1001, 37), (37, 45), 9),
+              ("csd_matvec", (130, 16), (16, 10), 40),
               ("csd_matvec", (3, 200), (200, 70), 30)]
     cases += [("csd_qsweep", (4, 2248, k), (k, n), 8)
               for k, n in ((16, 16), (16, 10), (10, 10))]
@@ -606,18 +698,20 @@ def csd_kernel_phase(torch):
         kernel, plain = fns[name]
         x, planes = _csd_inputs(torch, rng, xs, ws, depth)
         want = plain(x, planes)
-        hows = ROUTES if name == "csd_qsweep" else (None,)
+        rule = route(*ws) if name == "csd_qsweep" else route_matvec(*ws)
+        if name == "csd_qsweep":
+            hows = ROUTES
+        else:
+            hows = MATVEC_ROUTES if rule == "streaming" else (rule,)
         for how in hows:
-            got = kernel(x, planes) if how is None else kernel(x, planes,
-                                                               how=how)
+            got = kernel(x, planes, how=how)
             torch.cuda.synchronize()
             check(torch.equal(got, want),
-                  f"{name} kernel ({how or 'its kernel'}) != plain version "
+                  f"{name} kernel ({how}) != plain version "
                   f"at x {xs}, planes {tuple(planes.shape)}")
         print(f"{name}: bit-exact against the plain version at x {xs}, "
-              f"planes {tuple(planes.shape)}"
-              + (f" on both routes (the rule's: {route(*ws)})"
-                 if name == "csd_qsweep" else ""))
+              f"planes {tuple(planes.shape)} on the routes {hows} (the "
+              f"rule's: {rule})")
         if timed[name] != (xs, ws, depth):
             continue
         # distinct inputs per call, together at least twice the 50 MB L2,
@@ -636,15 +730,14 @@ def csd_kernel_phase(torch):
         # kernel, library
         lib_a, _ = time_calls(torch, torch.matmul, lib_sets, 20)
         ms, eager_ms = time_calls(torch, kernel, sets, 20)
-        extra = {}
-        if name == "csd_qsweep":
-            how = route(K, N)
-            other = [r for r in ROUTES if r != how][0]
-            o_ms, _ = time_calls(torch, lambda a, p: kernel(a, p, how=other),
-                                 sets, 20)
-            ms2, _ = time_calls(torch, kernel, sets, 20)
-            extra = {"rule": how, "ms_repeat": ms2, "other": other,
-                     "other_ms": o_ms}
+        how = route(K, N) if name == "csd_qsweep" else route_matvec(K, N)
+        other = [r for r in (ROUTES if name == "csd_qsweep"
+                             else MATVEC_ROUTES) if r != how][0]
+        o_ms, _ = time_calls(torch, lambda a, p: kernel(a, p, how=other),
+                             sets, 20)
+        ms2, _ = time_calls(torch, kernel, sets, 20)
+        extra = {"rule": how, "ms_repeat": ms2, "other": other,
+                 "other_ms": o_ms}
         lib_b, _ = time_calls(torch, torch.matmul, lib_sets, 20)
         plain_ms, _ = time_calls(torch, plain, sets, 3)
         ops_ = 2 * Q * M * N * K * D
@@ -665,19 +758,19 @@ def csd_kernel_phase(torch):
             "shape": f"x {xs} int32, planes {tuple(planes.shape)} int8, "
                      f"timed over {len(sets)} input sets of "
                      f"{nbytes/1e6:.2f} MB"}
-        if extra:
-            results[name]["routes"] = extra
+        results[name]["routes"] = extra
     for r in results.values():
         print(f"{r['name']}: {r['ms']*1e3:.2f} us on the card "
               f"({r['eager_ms']*1e3:.2f} us per eager call), plain "
               f"{r['plain_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.2f} us "
               f"({r['bound_by']}), library {r['library_ms']*1e3:.2f} / "
               f"{r['library_ms_repeat']*1e3:.2f} us; {r['shape']} [{CARD}]")
-    rt = results["csd_qsweep"]["routes"]
-    print(f"csd_qsweep: the rule's route ({rt['rule']}) "
-          f"{results['csd_qsweep']['ms']*1e3:.2f} / {rt['ms_repeat']*1e3:.2f}"
-          f" us, the {rt['other']} route {rt['other_ms']*1e3:.2f} us "
-          f"[{CARD}]")
+    for name in ("csd_matvec", "csd_qsweep"):
+        rt = results[name]["routes"]
+        print(f"{name}: the rule's route ({rt['rule']}) "
+              f"{results[name]['ms']*1e3:.2f} / {rt['ms_repeat']*1e3:.2f}"
+              f" us, the {rt['other']} route {rt['other_ms']*1e3:.2f} us "
+              f"[{CARD}]")
     return [results["csd_matvec"], results["csd_qsweep"]]
 
 
@@ -1012,12 +1105,14 @@ def paper_phase(torch):
     csd_qsweep_kernel.launches = 0
     csd_matvec_kernel.launches = 0
     csd_qsweep_kernel.route_launches.update(resident=0, chunked=0)
+    csd_matvec_kernel.route_launches.update(streaming=0, planes=0)
     with qsweep_shapes() as seen:
         run = quickstart.run_pipeline("cuda",
                                       out_dir=os.path.join(SIMURG_OUT, "csd"))
     launches = {"csd_qsweep": csd_qsweep_kernel.launches,
                 "csd_matvec": csd_matvec_kernel.launches}
     routes = dict(csd_qsweep_kernel.route_launches)
+    mv_routes = dict(csd_matvec_kernel.route_launches)
     res, qr, tp, sweep_ev = run.train, run.qr, run.tp, run.sweep_ev
     xval_int, yval = run.x_val, run.y_val
     test_ha, tune_test_ha = run.test_ha
@@ -1061,7 +1156,9 @@ def paper_phase(torch):
     print(f"paper SIMURG (parallel, cmvm) generate + write: "
           f"{run.seconds['simurg']*1e3:.3f} ms [{CARD}] -> {run.out_dir}")
     print(f"launches on the paper path: {launches}; csd_qsweep by route "
-          f"{routes}")
+          f"{routes}, csd_matvec by route {mv_routes}")
+    check(mv_routes["streaming"] == launches["csd_matvec"],
+          f"a dense tail left the streaming route: {mv_routes}")
     _print_shapes("paper", seen)
     check(sum(seen.values()) == launches["csd_qsweep"] == routes["resident"],
           f"csd_qsweep launches {launches}, routes {routes}, shapes {seen}")
@@ -1158,6 +1255,7 @@ def explore_phase(torch):
     csd_qsweep_kernel.launches = 0
     csd_matvec_kernel.launches = 0
     csd_qsweep_kernel.route_launches.update(resident=0, chunked=0)
+    csd_matvec_kernel.route_launches.update(streaming=0, planes=0)
     with qsweep_shapes() as seen:
         r = lx.run_explore(res, x_val, y_val, "cuda", tuners=tuners,
                            planner=SynthesisPlanner(), evaluator=ev)
@@ -1856,6 +1954,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         if k["name"] == "paged_attention":
             k["combine_launches"] = combines
+        if k["name"] == "paged_gather":
+            k["launch_unit"] = "one K+V pair (paged_gather_pair_kernel)"
         if k["name"] == "flash_attention":
             k["launches_by_path"] = {p: v["flash_attention"]
                                      for p, v in by_path.items()}

@@ -17,12 +17,14 @@ from .csd_matvec import (csd_matvec_kernel, csd_matvec_plain,
 from .flash_attention import flash_attention_kernel, flash_attention_plain
 from .linear_scan import linear_scan_kernel, linear_scan_plain
 from .paged_attention import paged_attention_kernel, paged_attention_plain
-from .paged_gather import paged_gather_kernel, paged_gather_plain
+from .paged_gather import (paged_gather_kernel, paged_gather_pair_kernel,
+                           paged_gather_plain)
 from .qmatmul import qmatmul_kernel, qmatmul_plain
 
 __all__ = ["qmatmul", "quantize_pot", "exp2_int", "paged_gather",
-           "paged_attention", "csd_expand", "csd_expand_stack", "csd_matvec",
-           "csd_qsweep", "flash_attention", "linear_scan"]
+           "paged_gather_pair", "paged_attention", "csd_expand",
+           "csd_expand_stack", "csd_matvec", "csd_qsweep", "flash_attention",
+           "linear_scan"]
 
 
 def csd_expand(w_int, depth: int | None = None) -> np.ndarray:
@@ -116,17 +118,37 @@ def csd_qsweep(x_int: torch.Tensor, planes) -> torch.Tensor:
     return csd_qsweep_plain(x, planes)
 
 
+def _block_table(table: torch.Tensor) -> torch.Tensor:
+    """The table as the gather kernel reads it: int32 or int64, contiguous
+    (no copy, hence no kernel, for the tables the engines pass)."""
+    if table.dtype not in (torch.int32, torch.int64):
+        table = table.to(torch.int64)
+    return table.contiguous()
+
+
 def paged_gather(leaf: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Block-paged KV gather: (NB, bs, H, D) pool + (B, nb) block table ->
-    (B, nb, bs, H, D) logical rows.  Sentinel entries >= NB clamp to
+    (B, nb, bs, H, D) logical rows.  Sentinel entries >= NB read block
     NB - 1, like ``index_select`` on the clamped table; the garbage they
-    read is masked downstream.  The CUDA kernel is bit-identical to the
-    plain version (it is a copy)."""
-    tbl = torch.clamp(table.to(torch.int32), max=leaf.shape[0] - 1)
+    read is masked downstream.  The CUDA kernel maps them itself and is
+    bit-identical to the plain version (it is a copy)."""
     if leaf.is_cuda:
-        return paged_gather_kernel(leaf, tbl)
+        return paged_gather_kernel(leaf, _block_table(table))
     _plain_or_raise(leaf, "paged_gather")
-    return paged_gather_plain(leaf, tbl)
+    return paged_gather_plain(
+        leaf, torch.clamp(table.to(torch.int64), max=leaf.shape[0] - 1))
+
+
+def paged_gather_pair(k_leaf: torch.Tensor, v_leaf: torch.Tensor,
+                      table: torch.Tensor):
+    """:func:`paged_gather` of a layer's K and V leaves through one table:
+    on the card one launch of the pair kernel, bit-identical to two
+    gathers."""
+    if k_leaf.is_cuda:
+        return paged_gather_pair_kernel(k_leaf, v_leaf, _block_table(table))
+    _plain_or_raise(k_leaf, "paged_gather_pair")
+    tbl = torch.clamp(table.to(torch.int64), max=k_leaf.shape[0] - 1)
+    return paged_gather_plain(k_leaf, tbl), paged_gather_plain(v_leaf, tbl)
 
 
 def paged_attention(q, k_pool, v_pool, table, cache_len, *, window: int = 0):

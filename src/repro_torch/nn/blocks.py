@@ -14,7 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import (chunked_attention, decode_attention, gather_block_rows,
+from .layers import (_gather_kv_rows, chunked_attention, decode_attention,
                      paged_decode_attention_ref, rms_norm, rope, swiglu)
 from .types import ArchConfig
 
@@ -140,8 +140,8 @@ def attention_step(p, x, cache, pos, cfg: ArchConfig, *, block_table=None,
         bs, nb = k_cache.shape[1], block_table.shape[1]
         cache_len = torch.clamp(posv + 1, max=nb * bs)
         if decode_kernel == "dense":
-            krow = gather_block_rows(k_cache, block_table, engine=kv_gather)
-            vrow = gather_block_rows(v_cache, block_table, engine=kv_gather)
+            krow, vrow = _gather_kv_rows(k_cache, v_cache, block_table,
+                                         engine=kv_gather)
             out = decode_attention(q, krow, vrow, cache_len)
         elif decode_kernel == "reference":
             out = paged_decode_attention_ref(q, k_cache, v_cache,

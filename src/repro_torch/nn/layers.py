@@ -109,6 +109,20 @@ def gather_block_rows(leaf, table, *, engine: str = "take"):
     return out.reshape(B, nb * bs, *leaf.shape[2:])
 
 
+def _gather_kv_rows(k_leaf, v_leaf, table, *, engine: str = "take"):
+    """``gather_block_rows`` of a layer's K and V leaves through one table.
+    ``engine="cuda"`` gathers both in one launch of the pair kernel (its
+    plain version on the CPU), bit-identical to two gathers."""
+    if engine != "cuda":
+        return (gather_block_rows(k_leaf, table, engine=engine),
+                gather_block_rows(v_leaf, table, engine=engine))
+    from repro_torch.kernels import paged_gather_pair
+    B, nb = table.shape
+    rows = (B, nb * k_leaf.shape[1], *k_leaf.shape[2:])
+    k, v = paged_gather_pair(k_leaf, v_leaf, table)
+    return k.reshape(rows), v.reshape(rows)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
     """Single-token attention against a cache.
 

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import blocks
-from .layers import chunk_cache_attention, gather_block_rows, rms_norm, rope
+from .layers import _gather_kv_rows, chunk_cache_attention, rms_norm, rope
 from .types import ArchConfig
 
 __all__ = ["Model", "params_from_jax", "layer_params", "XENT_CHUNK"]
@@ -389,8 +389,7 @@ class Model:
             if block_table is None:
                 krow, vrow = kc[slots], vc[slots]                 # (P, C, ...)
             else:
-                krow = gather_block_rows(kc, tbl, engine=kv_gather)
-                vrow = gather_block_rows(vc, tbl, engine=kv_gather)
+                krow, vrow = _gather_kv_rows(kc, vc, tbl, engine=kv_gather)
             a = chunk_cache_attention(q, krow, vrow, positions)
             x = x + a.reshape(P, c, -1) @ pl["attn"]["wo"].to(x.dtype)
             hn = rms_norm(x, pl["ln2"].to(x.dtype), cfg.norm_eps)

@@ -1,7 +1,8 @@
 """repro_torch kernels against the JAX package: the plain versions of the
-paged gather and the fused paged decode attention on the CPU (the
-attention's split-and-combine rule and its split rule among them), and the
-CUDA kernels against their plain versions on the card (``gpu`` marker)."""
+paged gather (one leaf, and K and V through one table) and the fused paged
+decode attention on the CPU (the attention's split-and-combine rule and its
+split rule among them), and the CUDA kernels against their plain versions
+on the card (``gpu`` marker)."""
 import numpy as np
 import pytest
 import torch
@@ -18,8 +19,12 @@ from repro_torch.kernels.paged_attention import (SMS, BLOCKS_PER_SM,
                                                  paged_attention_plain,
                                                  paged_attention_split_plain,
                                                  pow2_int, split_shape, splits)
-from repro_torch.kernels.paged_gather import paged_gather_kernel
-from repro_torch.nn.layers import gather_block_rows, paged_decode_attention_ref
+from repro_torch.kernels.paged_gather import (ROUTES as GATHER_ROUTES,
+                                              paged_gather_kernel,
+                                              paged_gather_pair_kernel,
+                                              paged_gather_plain)
+from repro_torch.nn.layers import (_gather_kv_rows, gather_block_rows,
+                                   paged_decode_attention_ref)
 
 
 def _case(rng, B, Hq, Hkv, D, bs, nb, *, extra_blocks=3, lens=None):
@@ -67,6 +72,70 @@ def test_gather_plain_bit_exact_vs_jax(NB, bs, H, D, B, nb):
     np.testing.assert_array_equal(
         rows, gather_block_rows(leaf_t, tbl_t, engine="take").numpy())
     assert rows.shape == (B, nb * bs, H, D)
+
+
+GATHER_SHAPES = [(10, 4, 2, 8, 3, 3), (7, 8, 1, 16, 2, 4), (12, 2, 3, 4, 4, 2)]
+
+
+def _gather_case(NB, bs, H, D, B, nb, tdtype):
+    """K and V pools and a table with sentinel entries NB, as numpy."""
+    rng = np.random.default_rng(NB * 10 + bs + B)
+    k = rng.normal(size=(NB, bs, H, D)).astype(np.float32)
+    v = rng.normal(size=(NB, bs, H, D)).astype(np.float32)
+    tbl = rng.integers(0, NB + 1, size=(B, nb)).astype(tdtype)
+    tbl[0, -1] = NB                                   # a sentinel for sure
+    tbl[-1, 0] = NB
+    return k, v, tbl
+
+
+@pytest.mark.parametrize("tdtype", ["int32", "int64"])
+@pytest.mark.parametrize("NB,bs,H,D,B,nb", GATHER_SHAPES)
+def test_gather_pair_plain_bit_exact_vs_jax(NB, bs, H, D, B, nb, tdtype):
+    """The K+V helper's ``cuda`` engine (on the CPU: the plain version of
+    each leaf) equals the JAX Pallas gather of each leaf bit for bit, with
+    int32 and int64 tables holding the sentinel NB; so does its ``take``
+    engine, and ``ops.paged_gather_pair``."""
+    k, v, tbl = _gather_case(NB, bs, H, D, B, nb, tdtype)
+    jt = jnp.asarray(tbl.astype(np.int32))
+    want = [np.asarray(jops.paged_gather(jnp.asarray(a), jt)) for a in (k, v)]
+    kt, vt, tt = _t(k, v, tbl)
+    for engine in ("cuda", "take"):
+        got = _gather_kv_rows(kt, vt, tt, engine=engine)
+        for g, w in zip(got, want):
+            assert g.shape == (B, nb * bs, H, D)
+            np.testing.assert_array_equal(g.numpy(), w.reshape(g.shape))
+    for g, w in zip(ops.paged_gather_pair(kt, vt, tt), want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("engine", ["take", "cuda"])
+@pytest.mark.parametrize("tdtype", ["int32", "int64"])
+@pytest.mark.parametrize("NB,bs,H,D,B,nb", GATHER_SHAPES)
+def test_gather_block_rows_unchanged(NB, bs, H, D, B, nb, tdtype, engine):
+    """``gather_block_rows`` keeps its contract on both engines: the JAX
+    gather's logical rows, (B, nb * bs, H, D), whatever the table's
+    integer type, and the table left as it was."""
+    k, _, tbl = _gather_case(NB, bs, H, D, B, nb, tdtype)
+    want = np.asarray(jops.paged_gather(jnp.asarray(k),
+                                        jnp.asarray(tbl.astype(np.int32))))
+    kt, tt = _t(k, tbl)
+    got = gather_block_rows(kt, tt, engine=engine)
+    assert got.shape == (B, nb * bs, H, D)
+    np.testing.assert_array_equal(got.numpy(), want.reshape(got.shape))
+    np.testing.assert_array_equal(tt.numpy(), tbl)
+
+
+def test_gather_pair_refuses_what_it_cannot_take():
+    """No fallback for the pair either, and its kernel takes one shape and
+    dtype for both leaves and an int32 or int64 table."""
+    leaf = torch.zeros((4, 2, 1, 8), device="meta")
+    tbl = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.paged_gather_pair(leaf, leaf, tbl)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_gather_pair_kernel(torch.zeros(4, 2, 1, 8),
+                                 torch.zeros(4, 2, 1, 8),
+                                 torch.zeros(1, 2, dtype=torch.int32))
 
 
 # ------------------------------------------------ fused paged attention
@@ -364,3 +433,95 @@ def test_gpu_attention_kernel_shapes(Hq, Hkv, D, bs, dtype, window):
         torch.cuda.synchronize()
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+def _pool_view(rng, shape, dtype, offset):
+    """A contiguous (NB, bs, H, D) pool ``offset`` elements into a larger
+    buffer: off a 16-byte boundary for offset * itemsize % 16 != 0."""
+    n = int(np.prod(shape))
+    base = torch.from_numpy(rng.normal(size=n + offset).astype(np.float32))
+    base = base.to("cuda", dtype)
+    return base[offset:].view(shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", GATHER_ROUTES)
+@pytest.mark.parametrize("tdtype", ["int32", "int64"])
+@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_gather_pair_bit_exact(dtype, bs, tdtype, route):
+    """The pair kernel equals paged_gather_plain of each leaf on the clamped
+    table bit for bit, sentinel entries read as NB - 1 by the kernel, with
+    one launch a call; so does the one-leaf kernel."""
+    _needs_card()
+    rng = np.random.default_rng(bs)
+    nb = 1024 // bs
+    _, kp, vp, tbl, _ = _case(rng, 8, 14, 2, 64, bs, nb)
+    dt = getattr(torch, dtype)
+    k, v = (torch.from_numpy(a).to("cuda", dt) for a in (kp, vp))
+    t = torch.from_numpy(tbl.astype(tdtype)).cuda()
+    assert bool((t == kp.shape[0]).any())
+    tc = torch.clamp(t, max=kp.shape[0] - 1)
+    n0, s0 = paged_gather_pair_kernel.launches, paged_gather_kernel.launches
+    gk, gv = paged_gather_pair_kernel(k, v, t, route=route)
+    one = paged_gather_kernel(v, t, route=route)
+    torch.cuda.synchronize()
+    assert paged_gather_pair_kernel.launches == n0 + 1
+    assert paged_gather_kernel.launches == s0 + 1
+    assert torch.equal(gk, paged_gather_plain(k, tc))
+    assert torch.equal(gv, paged_gather_plain(v, tc))
+    assert torch.equal(one, gv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdtype", ["int32", "int64"])
+def test_gpu_gather_pair_at_the_serving_shape(tdtype):
+    """One prefill dispatch's gather: pools (256, 32, 2, 64) bf16, a (4, 32)
+    table with sentinels, through the model's helper: one pair launch and
+    no other gather launch; each leaf bit for bit."""
+    _needs_card()
+    rng = np.random.default_rng(7)
+    NB, bs, H, D, P, nb = 256, 32, 2, 64, 4, 32
+    k = torch.from_numpy(rng.normal(size=(NB, bs, H, D)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    v = torch.from_numpy(rng.normal(size=(NB, bs, H, D)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    tbl = rng.permutation(NB)[:P * nb].reshape(P, nb).astype(tdtype)
+    tbl[1, 20:] = NB
+    tbl[3, 5:] = NB
+    t = torch.from_numpy(tbl).cuda()
+    n0, s0 = paged_gather_pair_kernel.launches, paged_gather_kernel.launches
+    krow, vrow = _gather_kv_rows(k, v, t, engine="cuda")
+    torch.cuda.synchronize()
+    assert paged_gather_pair_kernel.launches == n0 + 1
+    assert paged_gather_kernel.launches == s0
+    tc = torch.clamp(t.long(), max=NB - 1)
+    assert torch.equal(krow, paged_gather_plain(k, tc).reshape(krow.shape))
+    assert torch.equal(vrow, paged_gather_plain(v, tc).reshape(vrow.shape))
+    assert torch.equal(krow, gather_block_rows(k, t, engine="take"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", GATHER_ROUTES)
+@pytest.mark.parametrize("dtype,offset", [("bfloat16", 1), ("float32", 1),
+                                          ("float32", 2), ("bfloat16", 8)])
+def test_gpu_gather_pair_off_16_bytes(dtype, offset, route):
+    """Pools off a 16-byte boundary take the 4- or 1-byte vector kernel,
+    pools on one (bf16 at offset 8) the rule's route; each bit for bit."""
+    _needs_card()
+    rng = np.random.default_rng(offset)
+    NB, bs, H, D, B, nb = 40, 16, 2, 64, 3, 12
+    dt = getattr(torch, dtype)
+    k = _pool_view(rng, (NB, bs, H, D), dt, offset)
+    v = _pool_view(rng, (NB, bs, H, D), dt, offset)
+    tbl = rng.integers(0, NB + 1, size=(B, nb))
+    tbl[0, -1] = NB
+    t = torch.from_numpy(tbl).cuda()
+    n0 = paged_gather_pair_kernel.launches
+    gk, gv = ops.paged_gather_pair(k, v, t) if route == "bulk" else \
+        paged_gather_pair_kernel(k, v, t, route=route)
+    torch.cuda.synchronize()
+    assert paged_gather_pair_kernel.launches == n0 + 1
+    tc = torch.clamp(t, max=NB - 1)
+    assert torch.equal(gk, paged_gather_plain(k, tc))
+    assert torch.equal(gv, paged_gather_plain(v, tc))

@@ -1,9 +1,9 @@
 """The CSD digit-plane kernels of repro_torch against the JAX package: the
 plain versions of ``csd_matvec`` and ``csd_qsweep`` on the CPU against the
 Pallas kernels (interpret mode) and ``csd_matvec_ref``, bit for bit, the
-``csd_qsweep`` route rule at the paper's layer shapes, and the CUDA
-kernels against their plain versions on the card (``gpu`` marker), both
-``csd_qsweep`` routes among them."""
+``csd_qsweep`` and ``csd_matvec`` route rules at the paper's layer shapes,
+and the CUDA kernels against their plain versions on the card (``gpu``
+marker), both routes of each among them."""
 import numpy as np
 import pytest
 import torch
@@ -16,10 +16,12 @@ except ImportError:
     jnp = None
 from repro_torch.configs.pendigits_mlp import STRUCTURES
 from repro_torch.kernels import ops
-from repro_torch.kernels.csd_matvec import (ROUTES, csd_matvec_kernel,
+from repro_torch.kernels.csd_matvec import (MATVEC_ROUTES, ROUTES,
+                                            csd_matvec_kernel,
                                             csd_matvec_plain,
                                             csd_qsweep_kernel,
-                                            csd_qsweep_plain, route)
+                                            csd_qsweep_plain, route,
+                                            route_matvec)
 
 
 def _weights(rng, shape, depth):
@@ -116,6 +118,27 @@ def test_qsweep_route_rule_by_shared_memory(K, N, want):
     assert route(K, N) == want
     smem = 4 * (K * 4 * -(-N // 4) + 64 * (K + N)) + 32 * K * N
     assert (smem <= 48 * 1024) == (want == "resident")
+
+
+@pytest.mark.parametrize("structure", STRUCTURES)
+def test_matvec_route_rule_at_the_paper_layers(structure):
+    """Every layer of the paper's five structures, each dense-tail layer
+    among them (K, N in {10, 16}), takes csd_matvec's streaming route."""
+    for K, N in zip(structure[:-1], structure[1:]):
+        assert route_matvec(K, N) == "streaming", (K, N)
+
+
+@pytest.mark.parametrize("K,N,want", [
+    (10, 10, "streaming"), (16, 16, "streaming"), (1, 1, "streaming"),
+    (37, 45, "streaming"), (200, 70, "planes"), (64, 64, "planes"),
+    (4096, 1, "planes")])
+def test_matvec_route_rule_by_shared_memory(K, N, want):
+    """Streaming where the padded weights, 3 stages of a 128-row x tile
+    (widened by 8 words) and 2 of y fit 112 KB, planes elsewhere; a pure
+    function of (K, N)."""
+    assert route_matvec(K, N) == want
+    smem = 64 + 4 * (K * 4 * -(-N // 4) + 3 * (128 * K + 8) + 2 * 128 * N)
+    assert (smem <= 112 * 1024) == (want == "streaming")
 
 
 def test_no_fallback_off_cpu():
@@ -222,4 +245,79 @@ def test_gpu_csd_qsweep_wraps_like_int32(how):
                            torch.from_numpy(p)).numpy() for p in planes]
     exact = np.stack([(x[q].astype(np.int64) @ ws[q] + 2 ** 31) % 2 ** 32
                       - 2 ** 31 for q in range(2)])
+    np.testing.assert_array_equal(got.cpu().numpy(), exact)
+
+
+def _x_view(rng, shape, offset, lo=-128, hi=128):
+    """Contiguous int32 activations ``offset`` words into a larger buffer:
+    off a 16-byte boundary for offset % 4 != 0."""
+    n = int(np.prod(shape))
+    base = torch.from_numpy(rng.integers(lo, hi, size=n + offset).astype(
+        np.int32)).cuda()
+    return base[offset:].view(shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", MATVEC_ROUTES)
+@pytest.mark.parametrize("M,K,N,D", [
+    (287744, 10, 10, 8),            # one polish call's tail
+    (1, 10, 10, 8), (127, 10, 10, 8), (129, 10, 10, 8), (1001, 10, 10, 8),
+    (2248, 16, 16, 8), (2248, 16, 10, 8), (2248, 10, 16, 8),
+    (1001, 37, 45, 9),              # odd K, N: the generic column loop
+    (130, 16, 10, 40)])             # planes d >= 32 add 0 mod 2^32
+def test_gpu_csd_matvec_routes_bit_exact(M, K, N, D, how):
+    """Both csd_matvec routes equal the plain version bit for bit; each
+    call counts one launch on its route."""
+    _needs_card()
+    rng = np.random.default_rng(M + K * N + D)
+    x = torch.from_numpy(_acts(rng, (M, K))).cuda()
+    planes = torch.from_numpy(ops.csd_expand(_weights(rng, (K, N), D),
+                                             depth=D)).cuda()
+    assert planes.shape == (D, K, N)
+    n0 = csd_matvec_kernel.launches
+    r0 = dict(csd_matvec_kernel.route_launches)
+    got = csd_matvec_kernel(x, planes, how=how)
+    torch.cuda.synchronize()
+    assert csd_matvec_kernel.launches == n0 + 1
+    assert csd_matvec_kernel.route_launches == {
+        r: r0[r] + (r == how) for r in MATVEC_ROUTES}
+    assert torch.equal(got, csd_matvec_plain(x, planes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("M,K,N", [(1001, 10, 10), (300, 16, 16),
+                                   (257, 37, 45)])
+def test_gpu_csd_matvec_streaming_x_off_16_bytes(M, K, N, offset):
+    """x a view 1-4 words into its buffer: the streaming route widens each
+    tile's copy to 16-byte boundaries and reads past the words it adds."""
+    _needs_card()
+    rng = np.random.default_rng(M + offset)
+    x = _x_view(rng, (M, K), offset)
+    planes = torch.from_numpy(ops.csd_expand(_weights(rng, (K, N), 8),
+                                             depth=8)).cuda()
+    r0 = csd_matvec_kernel.route_launches["streaming"]
+    got = ops.csd_matvec(x, planes=planes)
+    torch.cuda.synchronize()
+    assert csd_matvec_kernel.route_launches["streaming"] == r0 + 1
+    assert torch.equal(got, csd_matvec_plain(x, planes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", MATVEC_ROUTES)
+def test_gpu_csd_matvec_wraps_like_int32(how):
+    """Activations across int32's range: products and sums wrap modulo
+    2^32 on both csd_matvec routes exactly as int32 does."""
+    _needs_card()
+    rng = np.random.default_rng(5)
+    x = rng.integers(-2 ** 31, 2 ** 31, size=(1001, 10)).astype(np.int32)
+    planes = ops.csd_expand(_weights(rng, (10, 10), 12), depth=12)
+    xt, pt = torch.from_numpy(x).cuda(), torch.from_numpy(planes).cuda()
+    got = csd_matvec_kernel(xt, pt, how=how)
+    want = csd_matvec_plain(xt, pt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    w = csd_matvec_plain(torch.eye(10, dtype=torch.int32),
+                         torch.from_numpy(planes)).numpy()
+    exact = (x.astype(np.int64) @ w + 2 ** 31) % 2 ** 32 - 2 ** 31
     np.testing.assert_array_equal(got.cpu().numpy(), exact)

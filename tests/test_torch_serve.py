@@ -19,7 +19,7 @@ try:    # the JAX package is the oracle; without JAX only -m gpu runs here
 except ImportError:
     jax = None
 from repro_torch.kernels.paged_attention import paged_attention_kernel
-from repro_torch.kernels.paged_gather import paged_gather_kernel
+from repro_torch.kernels.paged_gather import paged_gather_pair_kernel
 from repro_torch.nn import Model, get_config, params_from_jax
 from repro_torch.runtime import kvcache as tkv
 from repro_torch.runtime.serve import Request, ServeEngine, summarize
@@ -211,7 +211,8 @@ def test_engine_guards(lm32):
 @pytest.mark.gpu
 def test_gpu_engine_matches_cpu_and_launches_kernels():
     """On the card (f32, tiny model): the fused/cuda routes launch both
-    kernels and emit the CPU engine's greedy tokens."""
+    kernels (the gather as K+V pairs) and emit the CPU engine's greedy
+    tokens."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     tcfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(), n_layers=2,
@@ -220,7 +221,8 @@ def test_gpu_engine_matches_cpu_and_launches_kernels():
     prompts = _prompts(12, (3, 17, 9, 22))
     outs = []
     for dev in ("cpu", "cuda"):
-        g0, a0 = paged_gather_kernel.launches, paged_attention_kernel.launches
+        g0 = paged_gather_pair_kernel.launches
+        a0 = paged_attention_kernel.launches
         eng = ServeEngine(tcfg, tp, eos_id=-1, max_batch=3, max_context=32,
                           prefill_chunk=5, prefill_batch=2, kv_block_size=8,
                           kv_gather="cuda", decode_kernel="fused", device=dev)
@@ -228,7 +230,7 @@ def test_gpu_engine_matches_cpu_and_launches_kernels():
                 for i, p in enumerate(prompts)]
         eng.run(reqs)
         outs.append([r.out_tokens for r in reqs])
-        launched = (paged_gather_kernel.launches > g0,
+        launched = (paged_gather_pair_kernel.launches > g0,
                     paged_attention_kernel.launches > a0)
         assert launched == ((True, True) if dev == "cuda" else (False, False))
     assert outs[0] == outs[1]
