@@ -99,7 +99,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 6b. the design-space explorer at the reference walkthrough's size through
    ``launch/explore.py``: 16-16-10 trained on the card (25 epochs, seed
    3), ``q_span=2``, tuners ``none``, ``parallel``, ``parallel-adders``
-   and ``tm-neuron`` (``max_sweeps=3``), once with the sweep evaluator on
+   and ``tm-neuron`` (``max_sweeps=3``) and the per-layer mixed-q variant
+   ``mixedbw``, once with the sweep evaluator on
    ``auto`` (which must be ``csd``; ``csd_qsweep`` counted from zero and
    launched, its shapes printed as on the paper path), again under
    ``torch.profiler`` for the device busy share,
@@ -116,6 +117,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    launches per ``Model.loss`` call and per prefill batch;
 8. a ``torch.profiler`` window over one more ``ReferenceEngine`` batch:
    device busy share and the top kernels;
+8b. mixed bit widths, full width, through
+   ``repro_torch.launch.mixed_bitwidth.run_pipeline``: qwen2-0.5b from
+   seed 0 on the same validation batch, ``mixed_bitwidth_search(budget=
+   1e-3)`` batched and serial (identical bits, start rung and history;
+   the start above the ladder's floor, at least one round scored; 24
+   flash launches per ``Model.loss`` call; weight bytes no more than the
+   global rung's ledger), then the searched ``{path: bits}`` served by
+   ``ServeEngine`` at the serving phase's configuration on its 16
+   requests (K+V pair gathers and split attention launched, no one-leaf
+   gather; the engine's ledger carries the bits), again with the
+   dequantized tree as float parameters (greedy tokens and first decode
+   logits identical) and on ``ReferenceEngine`` (its share of equal
+   tokens printed); the pendigits ``mixed_minq_search`` (16-16-10, 25
+   epochs, seed 3) on ``csd`` (``csd_qsweep`` launched) and again on
+   ``numpy`` (identical); the kernels' counters zeroed just before and
+   read just after; then a ``torch.profiler`` window over a few steps
+   of the mixed engine;
 9. the hybrid family, full width: recurrentgemma-9b (38 layers, d_model
    4096, 16 / 1 heads of 256, window 2048, vocab 256000; 9,572,462,592
    parameters, 35.66 GiB of f32 masters, after the earlier phases free
@@ -1249,7 +1267,7 @@ def explore_phase(torch):
     t0 = time.perf_counter()
     res, x_val, y_val = lx.train_float("cuda")
     t_train = time.perf_counter() - t0
-    tuners = lx.DEFAULT_TUNERS + ("tm-neuron",)
+    tuners = lx.DEFAULT_TUNERS + ("tm-neuron", "mixedbw")
     ev = QSweepEvaluator(x_val, y_val, device="cuda")
     check(ev.backend == "csd", f"auto resolved to {ev.backend}, not csd")
     csd_qsweep_kernel.launches = 0
@@ -1383,6 +1401,117 @@ def reference_profile_phase(torch, run):
         wall_us = (time.perf_counter() - t0) * 1e6
     check(all(r.status == "done" for r in reqs), "a profiled request failed")
     report_profile(prof, wall_us, "one ReferenceEngine batch", 12)
+
+
+def mixed_phase(torch):
+    """Mixed bit widths at full width through ``launch/mixed_bitwidth.py``'s
+    ``run_pipeline``, with every counter of its kernels zeroed just before
+    and read just after; then the pendigits search again on ``numpy``."""
+    from repro_torch.kernels.csd_matvec import csd_qsweep_kernel
+    from repro_torch.launch import explore as lx
+    from repro_torch.launch import mixed_bitwidth as mb
+    from repro_torch.quant import mixed_minq_search
+    for k in mb.KERNELS.values():
+        k.launches = 0
+    csd_qsweep_kernel.route_launches.update(resident=0, chunked=0)
+    with qsweep_shapes() as seen:
+        run = mb.run_pipeline("cuda")
+    torch.cuda.synchronize()
+    n = {name: k.launches for name, k in mb.KERNELS.items()}
+    launches = {"flash_attention": n["flash_attention"],
+                "paged_gather": n["paged_gather_pair"] + n["paged_gather"],
+                "paged_attention": n["paged_attention"],
+                "csd_qsweep": n["csd_qsweep"]}
+    res, L = run.result, run.cfg.n_layers
+    sec, calls, fl = run.seconds, run.loss_calls, run.launches
+    for name, r in (("batched", res), ("serial", run.serial)):
+        step = "search" if name == "batched" else "serial"
+        demoted = sorted(p for p, b in r.bits.items() if b < r.start_bits)
+        print(f"mixed search ({name}): start {r.start_bits} bits, "
+              f"{len(r.history)} rounds, demoted {demoted}; base "
+              f"{r.base:.6f}, loss {r.loss:.6f}; {sec[step]:.3f} s, "
+              f"{calls[step]} Model.loss calls, "
+              f"{fl[step]['flash_attention']} flash launches [{CARD}]")
+    for rnd, cands, picked, ok in res.history:
+        print(f"  round {rnd}: picked {picked} ({ok}); " + ", ".join(
+            f"{p}@{b} {loss:.6f}" for p, b, loss in cands))
+    check(mb.same_search(res, run.serial),
+          "batched and serial mixed_bitwidth_search differ")
+    check(res.start_bits > mb.BIT_LADDER[-1] and res.history,
+          f"the search started at {res.start_bits} and scored no round")
+    check(all(np.isfinite(loss) for _, c, _, _ in res.history
+              for _, _, loss in c), "a candidate's loss is not finite")
+    for step in ("search", "serial"):
+        check(fl[step]["flash_attention"] == L * calls[step],
+              f"{step}: {fl[step]['flash_attention']} flash launches for "
+              f"{calls[step]} Model.loss calls")
+    wb = {"mixed": res.sheet.weight_bytes(),
+          f"global ({res.start_bits} bits)": run.global_ledger.weight_bytes(),
+          "uniform 8 bits": run.uniform8_ledger.weight_bytes()}
+    print(f"mixed weight bytes: {wb}")
+    check(wb["mixed"] <= run.global_ledger.weight_bytes(),
+          "the mixed ledger is costlier than the global rung's")
+    served = run.served
+    toks = {k: [r.out_tokens for r in s.requests] for k, s in served.items()}
+    for name, s in served.items():
+        check(all(r.status == "done" and len(r.out_tokens) == mb.MAX_NEW
+                  for r in s.requests), f"{name}: a request did not finish")
+    check(toks["mixed"] == toks["dequant"]
+          and torch.equal(served["mixed"].first_logits,
+                          served["dequant"].first_logits),
+          "the mixed tree's tokens or first logits differ from its "
+          "dequantized tree's")
+    check(fl["serve"]["paged_gather_pair"] > 0
+          and fl["serve"]["paged_attention"] > 0
+          and fl["serve"]["paged_gather"] == 0,
+          f"serving the mixed tree launched {fl['serve']}")
+    check(run.engine.serving_sheet.bits_by_layer() == res.bits,
+          "the engine's ledger does not carry the searched bits")
+    same = np.mean([a == b for x, y in zip(toks["reference"], toks["mixed"])
+                    for a, b in zip(x, y)])
+    for name, step in (("mixed", "serve"), ("dequant", "serve_dequant"),
+                       ("reference", "serve_reference")):
+        st, sm = served[name].stats, served[name].summary
+        ttft = (f"; first token p50 {sm['p50_first_token_s']*1e3:.1f} ms "
+                f"p99 {sm['p99_first_token_s']*1e3:.1f} ms"
+                if name != "reference" else "")
+        print(f"mixed serving ({name}): {sec[step]:.3f} s; prefill "
+              f"{st['prefill_tokens']} tok in {st['prefill_s']:.3f} s, "
+              f"decode {st['decode_tokens']} tok in {st['decode_s']:.3f} s "
+              f"({st['decode_tokens']/st['decode_s']:.1f} tok/s){ttft}; "
+              f"launches {fl[step]} [{CARD}]")
+    print(f"mixed serving: ServeEngine tokens and first logits identical on "
+          f"the mixed and the dequantized tree; ReferenceEngine's greedy "
+          f"tokens equal to ServeEngine's: {same*100:.2f} % (not "
+          f"required: it left-pads each batch to its longest prompt "
+          f"unmasked, as the reference does, and attends through bf16 "
+          f"flash, not paged attention)")
+    print(f"mixed engine ledger: {run.engine.serving_sheet.to_dict()['totals']}")
+    pd, (x_val, y_val) = run.pd, run.pd_val
+    check(fl["pd_search"]["csd_qsweep"] > 0,
+          f"the pendigits search launched no csd_qsweep: {fl['pd_search']}")
+    t0 = time.perf_counter()
+    pd_np = mixed_minq_search(run.pd_train.weights, run.pd_train.biases,
+                              lx.ACTIVATIONS, x_val, y_val, backend="numpy",
+                              device="cpu")
+    t_np = time.perf_counter() - t0
+    check((pd.qs, pd.ha, pd.base_ha, pd.q_star, pd.history) ==
+          (pd_np.qs, pd_np.ha, pd_np.base_ha, pd_np.q_star, pd_np.history)
+          and all(np.array_equal(a, b) for a, b in zip(
+              pd.mlp.weights + pd.mlp.biases,
+              pd_np.mlp.weights + pd_np.mlp.biases))
+          and pd.sheet.to_dict() == pd_np.sheet.to_dict(),
+          "mixed_minq_search differs between csd and numpy")
+    print(f"mixed pendigits: q*={pd.q_star} ha {pd.base_ha:.3f} % -> qs "
+          f"{pd.qs} ha {pd.ha:.3f} %, {len(pd.history)} rounds, weight "
+          f"bytes {pd.sheet.weight_bytes()}; csd {sec['pd_search']:.3f} s "
+          f"({fl['pd_search']['csd_qsweep']} csd_qsweep launches, routes "
+          f"{dict(csd_qsweep_kernel.route_launches)}), numpy {t_np:.3f} s, "
+          f"identical [{CARD}]")
+    _print_shapes("mixed", seen)
+    print(f"launches on the mixed path: {launches}")
+    profile_phase(torch, run.engine, mb.requests_spec(run.cfg.vocab))
+    return launches, run
 
 
 def hybrid_prompts(vocab):
@@ -1936,34 +2065,37 @@ def main() -> int:
     launches.update(ptq_launches)
     print(f"ptq phase: {time.perf_counter()-t0:.2f} s")
     reference_profile_phase(torch, run)
-    del eng, spec, run                  # the hybrid's 35.66 GiB need room
+    del run
+    t0 = time.perf_counter()
+    mixed_launches, mixed_run = mixed_phase(torch)
+    print(f"mixed phase: {time.perf_counter()-t0:.2f} s")
+    del eng, spec, mixed_run            # the hybrid's 35.66 GiB need room
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     hybrid_launches = hybrid_phase(torch)
     print(f"hybrid phase: {time.perf_counter()-t0:.2f} s")
-    by_path = {"ptq": {"flash_attention": launches["flash_attention"]},
-               "hybrid": hybrid_launches}
+    by_path = {"serving": {k: launches[k]
+                           for k in ("paged_gather", "paged_attention")},
+               "paper": paper_launches, "explore": explore_launches,
+               "ptq": {"flash_attention": launches["flash_attention"]},
+               "mixed": mixed_launches, "hybrid": hybrid_launches,
+               "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
     for name, n in explore_launches.items():
         launches[name] += n
+    for name, n in mixed_launches.items():
+        launches[name] += n
     launches["qmatmul"] = qm_launches
-    csd_by_path = {"paper": paper_launches, "explore": explore_launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "paged_attention":
             k["combine_launches"] = combines
         if k["name"] == "paged_gather":
             k["launch_unit"] = "one K+V pair (paged_gather_pair_kernel)"
-        if k["name"] == "flash_attention":
-            k["launches_by_path"] = {p: v["flash_attention"]
-                                     for p, v in by_path.items()}
-        elif k["name"] == "qmatmul":
-            k["launches_by_path"] = {"op": qm_launches}
-        elif k["name"] in explore_launches:
-            k["launches_by_path"] = {p: v[k["name"]]
-                                     for p, v in csd_by_path.items()}
+        k["launches_by_path"] = {p: v[k["name"]] for p, v in by_path.items()
+                                 if k["name"] in v}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -115,10 +115,11 @@ def explore(weights, biases, activations, x_val_int, y_val, *,
     once per q level (tuners run on the batched evaluation engine), then the
     whole ``(q, variant)`` grid is scored in stacked evaluator dispatches
     and priced across every ``(arch, style)`` combo on the cost IR.  The
-    reference's extra variant ``"mixedbw"`` is not ported yet and raises
-    (ROADMAP queue 1, item 5).  Every point carries the serving-cost axis
-    ``weight_bytes``, so ``result.front("weight_bytes")`` is the
-    quality-vs-serving-cost Pareto front.
+    extra variant name ``"mixedbw"`` adds the greedy per-layer mixed-q
+    network (:func:`repro_torch.quant.mixed_minq_search`, run once on the
+    shared evaluator) as one more grid point; every point carries the
+    serving-cost axis ``weight_bytes``, so ``result.front("weight_bytes")``
+    is the quality-vs-serving-cost Pareto front.
 
     Pass ``evaluator`` (a :class:`~repro_torch.eval.QSweepEvaluator` on the
     same validation split) to share it with other sweeps, and ``planner``
@@ -130,11 +131,7 @@ def explore(weights, biases, activations, x_val_int, y_val, *,
     shared_planner = planner is not None     # caller opted into cache sharing
     if planner is None:
         planner = default_planner
-    if "mixedbw" in tuners:
-        raise NotImplementedError(
-            "the 'mixedbw' variant needs mixed_minq_search, which is not "
-            "ported (ROADMAP queue 1, item 5)")
-    unknown = [t for t in tuners if t not in TUNERS]
+    unknown = [t for t in tuners if t not in TUNERS and t != "mixedbw"]
     if unknown:
         raise ValueError(f"unknown tuner variants {unknown}")
     if len(activations) != len(weights):
@@ -163,6 +160,19 @@ def explore(weights, biases, activations, x_val_int, y_val, *,
     grid: list[tuple[int, str, IntMLP]] = []
     tune_s = 0.0
     for name in tuners:
+        if name == "mixedbw":
+            # per-layer mixed bit widths: one greedy per-layer min-q search
+            # on the shared evaluator (it picks its own rungs, so the q
+            # ladder does not apply); its network embeds at the global q*
+            # and scores in the same stacked dispatch as the rest
+            from repro_torch.quant.mixed import mixed_minq_search
+            t1 = time.time()
+            mres = mixed_minq_search(weights, biases, activations,
+                                     x_val_int, y_val, evaluator=evaluator,
+                                     device=device)
+            tune_s += time.time() - t1
+            grid.append((mres.q_star, name, mres.mlp))
+            continue
         tuner = TUNERS[name]
         kw = dict(tune_kwargs)
         if name == "parallel-adders" and shared_planner:

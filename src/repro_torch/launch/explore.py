@@ -8,9 +8,10 @@ The counterpart of ``examples/explore_design_space.py``:
 2. ``explore()`` derives a q ladder from the Section IV-A min-q search
    (``q_span=2``), builds the ``(q, tuned/untuned)`` network grid with the
    tuners named by ``--tuners`` (default ``none``, ``parallel`` and
-   ``parallel-adders``, ``max_sweeps=3``), scores the whole grid's
-   hardware accuracy in stacked ``QSweepEvaluator`` dispatches and prices
-   every ``(arch, style)`` combo on the cost IR;
+   ``parallel-adders``, ``max_sweeps=3``; ``mixedbw`` adds the per-layer
+   mixed-q network), scores the whole grid's hardware accuracy in
+   stacked ``QSweepEvaluator`` dispatches and prices every
+   ``(arch, style)`` combo on the cost IR;
 3. print the Pareto fronts of accuracy against area, energy and latency,
    and the cheapest design within 0, 1 and 3 points of the best accuracy.
 
@@ -98,7 +99,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--tuners", nargs="+", default=list(DEFAULT_TUNERS),
-                    choices=sorted(TUNERS))
+                    choices=sorted(TUNERS) + ["mixedbw"])
     args = ap.parse_args(argv)
     print("== 1. train a float 16-16-10 ANN (pendigits surrogate)")
     res, x_val, y_val = train_float(args.device)

@@ -11,6 +11,8 @@ scale (counterpart of ``repro/quant/ptq.py``).
 3. ``sls_rescale`` -- the smallest-left-shift tuning (IV-C analogue), PoT
    form: raise each matmul's shared exponents while the budget holds.
 4. ``serving_ledger`` -- the serving cost sheet of a (params, bits) pair.
+5. ``quantizable_paths`` -- the matmul weights ``quantize_tree`` would
+   quantize: the mixed bit-width search's layer list.
 
 Leaves are visited in the reference's tree order (dict keys sorted, a
 qleaf whole), and named by the reference's path strings
@@ -28,7 +30,7 @@ from repro_torch.kernels.ops import exp2_int, quantize_pot
 
 __all__ = ["quantize_tree", "dequant", "min_bitwidth_search", "sls_rescale",
            "quant_bytes", "pack_int4", "unpack_int4", "serving_quant",
-           "serving_ledger"]
+           "quantizable_paths", "serving_ledger"]
 
 _SKIP_SUBSTR = ("ln", "norm", "router", "gate_i", "gate_r", "lam", "mu",
                 "u", "w0", "bias", "bq", "bk", "bv")
@@ -165,6 +167,16 @@ def _flatten(tree, path=()):
         return [item for i, v in enumerate(tree)
                 for item in _flatten(v, path + (f"[{i}]",))]
     return [(path, tree)]
+
+
+def quantizable_paths(params) -> list:
+    """Path strings of the matmul weights :func:`quantize_tree` would
+    quantize, in the reference's tree order (dict keys sorted) -- the
+    mixed bit-width search's layer list, whose greedy core breaks ties by
+    the first index."""
+    keys = (("/".join(path), leaf) for path, leaf in _flatten(params))
+    return [key for key, leaf in keys
+            if torch.is_tensor(leaf) and _should_quantize(key, leaf)]
 
 
 def _with_leaf(tree, path, leaf):

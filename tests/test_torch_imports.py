@@ -47,7 +47,7 @@ def test_port_files_exist():
                 "kernels/linear_scan.py", "core/archs.py", "core/simurg.py",
                 "quant/mixed.py", "explore/__init__.py", "explore/pareto.py",
                 "explore/space.py", "launch/explore.py",
-                "kernels/qmatmul.py"):
+                "kernels/qmatmul.py", "launch/mixed_bitwidth.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()

@@ -152,9 +152,9 @@ def test_explore_rejections():
     with pytest.raises(ValueError):
         explore(w, b, ("htanh", "hsig"), xv, yv, qs=(3,),
                 tuners=("none", "magic"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(ValueError, match="unknown tuner"):
         explore(w, b, ("htanh", "hsig"), xv, yv, qs=(3,),
-                tuners=("none", "mixedbw"), device="cpu")
+                tuners=("mixedbw", "mixed"), device="cpu")
     assert set(TUNERS) == set(ALL_TUNERS)
 
 
