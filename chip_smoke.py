@@ -6,9 +6,10 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions, and the build of every CUDA kernel of both paths from
+   versions, and the build of every CUDA kernel of every path from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
-   together);
+   together; ptxas's registers and spills printed, a spill in the chain
+   kernels fails the run);
 2. kernels: each kernel against its plain PyTorch version on the card at
    its path's shapes, and their device times beside the bound and the
    plain and library times.  The serving kernels at bf16, Hq=14, Hkv=2,
@@ -84,18 +85,46 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    surrogate (5246 train / 2248 validation / 3498 test rows, 40 epochs),
    ``find_min_q`` and ``tune_parallel(cost="adders", max_sweeps=4)`` with
    their default ``auto`` backend (``csd`` on the card, so both CSD
-   kernels run; counters zeroed just before and read just after, the
-   (Q, M, K, N, D) of each ``csd_qsweep`` launch printed, every one on
-   its resident route, every ``csd_matvec`` on its streaming route), the
-   test split scored, ``tune_time_multiplexed(scope="neuron",
-   max_sweeps=2)`` (chains on the host), ``design_cost`` of the six
+   kernels run, and the serial chain on the ``chain_scan`` kernel;
+   counters zeroed just before and read just after, the (Q, M, K, N, D)
+   of each ``csd_qsweep`` launch printed, every one on its resident
+   route, every ``csd_matvec`` on its streaming route), the test split
+   scored, ``tune_time_multiplexed(scope="neuron", max_sweeps=2)`` (its
+   chains on the ``tm_chain`` kernel), ``design_cost`` of the six
    design rows and SIMURG's parallel CMVM design written to
    ``out/chip_smoke/csd``; a ``torch.profiler`` rerun of the tune call for
    the device busy share and a cProfile rerun for the host's time by
    function; then every step on the ``numpy`` backend from the same float
-   weights: identical min-q, ``TuneResult``s and test scores, design rows
+   weights (host chains): identical min-q, ``TuneResult``s (the TM
+   tuner's ``stats["candidates"]`` aside: the device engine counts every
+   nudge of a failed pair) and test scores, design rows
    equal on the array engine and on the scalar one (which must agree),
    and SIMURG files byte-identical;
+6c. the device decision chains and measured dispatch on phase 6's net
+   and validation rows: both chain kernels (``chain_scan``, ``tm_chain``)
+   against their plain versions bit for bit (``torch.equal`` on every
+   output), the serial one also against the host chain, on the tuners'
+   own first-sweep runs and on random runs at every layer of 16-16-10-10
+   and of a 5-layer net (pair accepts, nudge hits and steps where every
+   nudge fails all seen), each timed on layer 0's first-sweep run
+   (device time from ``torch.profiler``) beside the host chain's wall
+   time; ``tune_time_multiplexed(scope="neuron", max_sweeps=2,
+   chain_engine="device")`` on ``csd`` identical to phase 6's run and,
+   ``stats["candidates"]`` aside, to ``chain_engine="host"``'s on ``csd``
+   and to numpy's (host chains, each timed), ``tm_chain`` launched once
+   per chain call; ``tune_parallel(cost="adders",
+   max_sweeps=4)`` on the card (the serial chain on ``chain_scan``)
+   identical to phase 6's; every kernel's counter zeroed just before and
+   read just after the two tuners; then ``REPRO_TUNE`` on with the cache
+   in a temporary file: races of ``qsweep_backend`` and ``bhw_backend``
+   on CPU evaluators (on the card ``csd`` is their one candidate, which
+   a CUDA evaluator must resolve to under the filled cache) and of
+   ``tm_chain`` on the card at the paper's shapes (each entrant's time
+   and the winner printed), a second decide of each a hit, the reloaded
+   file keeping every winner, ``find_min_q`` and both tuners identical
+   under the filled cache, and ``ServeEngine(decode_kernel="auto")`` on a tiny
+   f32 model "dense" on a miss and a forced cache pick ("fused") when one
+   exists, with equal greedy tokens;
 6b. the design-space explorer at the reference walkthrough's size through
    ``launch/explore.py``: 16-16-10 trained on the card (25 epochs, seed
    3), ``q_span=2``, tuners ``none``, ``parallel``, ``parallel-adders``
@@ -1034,7 +1063,8 @@ def tiny_lm_phase(torch):
 # host functions of the tune call whose cumulative time the paper phase
 # reads off cProfile (nested ones overlap: commit_many holds _refresh)
 HOST_SPANS = ("tuning.py:_adders_polish_batched", "batched.py:evaluate_chain",
-              "batched.py:_chain_np", "batched.py:commit_many",
+              "batched.py:_chain_np", "torchtail.py:chain",
+              "batched.py:commit_many",
               "batched.py:commit", "batched.py:evaluate",
               "torchtail.py:counts", "torchtail.py:sync",
               "planner.py:plan", "mcm.py:synthesize")
@@ -1062,10 +1092,14 @@ def host_breakdown(torch, fn):
     return out, wall, spans
 
 
-def _tune_summary(tp):
+def _tune_summary(tp, candidates=True):
+    """A TuneResult's fields and stats but its backend; with ``candidates``
+    False also without ``stats["candidates"]``, which the TM tuner's device
+    chain engine counts otherwise than the host's."""
+    drop = {"backend"} if candidates else {"backend", "candidates"}
     return (tp.bha, tp.initial_ha, tp.replacements, tp.sweeps, tp.log,
             [w.tolist() for w in tp.mlp.weights + tp.mlp.biases],
-            {k: v for k, v in tp.stats.items() if k != "backend"})
+            {k: v for k, v in tp.stats.items() if k not in drop})
 
 
 _REPORT_FIELDS = ("arch", "style", "area_um2", "latency_ns", "energy_pj",
@@ -1116,19 +1150,25 @@ def paper_phase(torch):
                                   tune_time_multiplexed)
     from repro_torch.core.csd import tnzd
     from repro_torch.eval import QSweepEvaluator
+    from repro_torch.kernels.chain_scan import (chain_scan_kernel,
+                                                tm_chain_kernel)
     from repro_torch.kernels.csd_matvec import (csd_matvec_kernel,
                                                 csd_qsweep_kernel)
     from repro_torch.launch import quickstart
     sweeps = quickstart.MAX_SWEEPS
     csd_qsweep_kernel.launches = 0
     csd_matvec_kernel.launches = 0
+    chain_scan_kernel.launches = 0
+    tm_chain_kernel.launches = 0
     csd_qsweep_kernel.route_launches.update(resident=0, chunked=0)
     csd_matvec_kernel.route_launches.update(streaming=0, planes=0)
     with qsweep_shapes() as seen:
         run = quickstart.run_pipeline("cuda",
                                       out_dir=os.path.join(SIMURG_OUT, "csd"))
     launches = {"csd_qsweep": csd_qsweep_kernel.launches,
-                "csd_matvec": csd_matvec_kernel.launches}
+                "csd_matvec": csd_matvec_kernel.launches,
+                "chain_scan": chain_scan_kernel.launches,
+                "tm_chain": tm_chain_kernel.launches}
     routes = dict(csd_qsweep_kernel.route_launches)
     mv_routes = dict(csd_matvec_kernel.route_launches)
     res, qr, tp, sweep_ev = run.train, run.qr, run.tp, run.sweep_ev
@@ -1142,7 +1182,10 @@ def paper_phase(torch):
           and tp.stats["backend"] == "csd",
           f"auto did not pick csd: {sweep_ev.backend}, {tp.stats['backend']}")
     check(all(v > 0 for v in launches.values()),
-          f"a CSD kernel of the path was not launched: {launches}")
+          f"a kernel of the path was not launched: {launches}")
+    check(launches["tm_chain"] == run.tm.stats["eval_calls"],
+          f"tm_chain launches {launches['tm_chain']}, TM chain calls "
+          f"{run.tm.stats['eval_calls']}")
     s = tp.stats
     print(f"paper min-q (csd): q={qr.q} ha={qr.ha!r} history="
           f"{[(q, h) for q, h in qr.history]}; {run.seconds['min_q']:.3f} s, "
@@ -1161,7 +1204,7 @@ def paper_phase(torch):
     tm = run.tm
     check(tm.stats["backend"] == "csd", f"TM tuner on {tm.stats['backend']}")
     print(f"paper tm tune (csd, scope=neuron, max_sweeps="
-          f"{quickstart.TM_SWEEPS}, chains on the host): "
+          f"{quickstart.TM_SWEEPS}, chains on the tm_chain kernel): "
           f"{run.seconds['tm']:.3f} s [{CARD}]; bha {tm.initial_ha!r} -> "
           f"{tm.bha!r}, {tm.replacements} replacements in {tm.sweeps} "
           f"sweeps, log {tm.log}; {tm.stats['eval_calls']} evaluator calls, "
@@ -1225,7 +1268,8 @@ def paper_phase(torch):
                                   max_sweeps=quickstart.TM_SWEEPS,
                                   backend="numpy")
     t_tm_np = time.perf_counter() - t0
-    check(_tune_summary(tm) == _tune_summary(tm_np),
+    check(_tune_summary(tm, candidates=False)
+          == _tune_summary(tm_np, candidates=False),
           "tune_time_multiplexed on csd differs from numpy")
     designs_np = quickstart.price_designs(tp_np, tm_np)
     check(designs_np == run.designs,
@@ -1250,7 +1294,400 @@ def paper_phase(torch):
           f"{len(designs_np)} design rows (array and scalar engines, which "
           f"agree) and {len(got)} SIMURG files "
           f"({sum(map(len, got.values()))} bytes) identical to csd")
-    return launches
+    return launches, run, tm_np
+
+
+def event_ms(torch, fn, reps):
+    """Milliseconds a call from CUDA events around ``reps`` calls, after
+    one untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(torch, fn, name, reps):
+    """Device milliseconds a launch of the kernel whose name holds
+    ``name``, from ``torch.profiler`` over ``reps`` calls of ``fn`` (one
+    launch each) after one untimed call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in device_events(prof) if name in e.name]
+    check(len(evs) == reps, f"{name}: {len(evs)} device events for {reps} "
+                            f"calls")
+    return sum(e.time_range.end - e.time_range.start for e in evs) \
+        / reps / 1e3
+
+
+def host_ms(fn, reps=3):
+    """Median wall milliseconds of ``reps`` calls of a host function."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[len(ts) // 2]
+
+
+def _first_sweep_runs(ev, k):
+    """The tuners' own first-sweep runs at layer k of ``ev``'s network:
+    ``tune_parallel``'s first chunk of CSD-digit drops (the serial chain)
+    and ``tune_time_multiplexed``'s smallest-left-shift steps of every
+    neuron of layer k (the TM chain, nudges +-1..4)."""
+    from repro_torch.core import csd
+    from repro_torch.core.tuning import _neuron_groups, _sls_candidates
+    from repro_torch.eval import Candidate, TMStep
+    w = ev.mlp.weights[k]
+    flat = w.ravel()
+    alts = csd.drop_least_significant_digit_array(flat)
+    cands = [Candidate(k, int(i) % w.shape[1], int(i) // w.shape[1],
+                       int(alts[i])) for i in np.nonzero(flat)[0]]
+    dbs = tuple(d for d in range(-4, 5) if d)
+    steps = [TMStep(kk, m, n, tuple(pws), dbs)
+             for g in _neuron_groups(ev.mlp, "neuron")
+             for kk, m, n, _w, pws in _sls_candidates(ev.mlp, g) if kk == k]
+    return cands[:ev.chunk], steps
+
+
+def _random_runs(rng, ev, k, n, spread):
+    """Random runs at layer k: n candidates / TM steps over distinct
+    weights, values up to ``spread`` from the weight."""
+    from repro_torch.eval import Candidate, TMStep
+    w = ev.mlp.weights[k]
+    cells = [(i, j) for i in range(w.shape[0]) for j in range(w.shape[1])]
+    rng.shuffle(cells)
+    cells = cells[:n]
+    near = lambda v: v + int(rng.integers(-spread, spread + 1))  # noqa: E731
+    cands = [Candidate(k, j, i, near(int(w[i, j])),
+                       dbias=int(rng.integers(-3, 4))) for i, j in cells]
+    steps = [TMStep(k, j, i, tuple(near(int(w[i, j]))
+                                   for _ in range(1 + (t % 3 > 0))),
+                    tuple(d for d in range(-4, 5) if d))
+             for t, (i, j) in enumerate(cells)]
+    return cands, steps
+
+
+def _chain_bytes(args, n_steps, n_ok, out_cols):
+    """Bytes a chain call must move: its inputs read once (the caches of
+    layers k and k+1, the packed weights, the labels), per step the three
+    int32 columns a step reads (layer k's inputs, accumulators and
+    outputs), per accepted step the two it writes, and its outputs."""
+    a, acc, w, bsh, lab, lab_safe, _acts, _q, k = args[:9]
+    last = k == len(w) - 1
+    ins = [a[k], acc[k], a[k + 1], lab, lab_safe] + ([] if last else (
+        [acc[k + 1], w[k + 1]] + [t for l in range(k + 2, len(w))
+                                  for t in (w[l], bsh[l])]))
+    M = a[k].shape[0]
+    return (sum(t.numel() * t.element_size() for t in ins)
+            + 4 * M * (3 * n_steps + 2 * n_ok) + 4 * out_cols * n_steps)
+
+
+def chains_phase(torch, run, tm_np):
+    """Phase 6c: the device decision chains and measured dispatch at the
+    paper's full size (phase 6's 16-16-10-10 and validation split)."""
+    import tempfile
+    from repro_torch import tune
+    from repro_torch.core import (find_min_q, tune_parallel,
+                                  tune_time_multiplexed)
+    from repro_torch.core.intmlp import IntMLP
+    from repro_torch.eval import BatchedHWEvaluator, QSweepEvaluator
+    from repro_torch.kernels.chain_scan import (chain_scan_kernel,
+                                                chain_scan_plain,
+                                                tm_chain_kernel,
+                                                tm_chain_plain)
+    from repro_torch.kernels.csd_matvec import (csd_matvec_kernel,
+                                                csd_qsweep_kernel)
+    from repro_torch.launch import quickstart
+    from repro_torch.tune.cache import DispatchCache
+    qr, xval, yval = run.qr, run.x_val, run.y_val
+    rng = np.random.default_rng(0)
+
+    # (1) each kernel against its plain version, bit for bit
+    deep_ws = [rng.integers(-64, 64, (a, b)).astype(np.int64)
+               for a, b in zip((16, 16, 14, 12, 10), (16, 14, 12, 10, 10))]
+    deep = IntMLP(deep_ws, [rng.integers(-32, 32, (w.shape[1],))
+                            .astype(np.int64) for w in deep_ws],
+                  ["htanh", "relu", "satlin", "htanh", "hsig"], 5)
+    nets = (("paper", qr.mlp), ("deep 5-layer", deep))
+    kinds = collections.Counter()
+    timed = {}
+    n_checked = 0
+    for label, mlp in nets:
+        ev = BatchedHWEvaluator(mlp, xval, yval)
+        check(ev.backend == "csd", f"{label}: backend {ev.backend}")
+        dev = ev._device_state()
+        for k in range(len(mlp.weights)):
+            runs = [("first sweep",) + _first_sweep_runs(ev, k),
+                    ("random",) + _random_runs(rng, ev, k, 64, 40)]
+            for kind, cands, steps in runs:
+                args = dev._chain_args(k, ev._count)
+                _, wi, wj, dw, db = ev._pack(cands)
+                n0 = chain_scan_kernel.launches
+                got = chain_scan_kernel(*args, wi, wj, dw, db)
+                torch.cuda.synchronize()
+                check(chain_scan_kernel.launches == n0 + 1,
+                      "chain_scan: not one launch")
+                want = chain_scan_plain(*args, wi, wj, dw, db)
+                check(torch.equal(got.cpu(), want.cpu()),
+                      f"chain_scan kernel != plain ({label}, k={k}, {kind})")
+                host = ev._chain_np(k, wi, wj, dw, db)
+                check(np.array_equal(got[:, 0].cpu().numpy(), host[0])
+                      and np.array_equal(got[:, 1].cpu().numpy() != 0,
+                                         host[1]),
+                      f"chain_scan != the host chain ({label}, k={k})")
+                packed = ev._tm_pack(k, steps) if steps else None
+                if packed is not None:
+                    n0 = tm_chain_kernel.launches
+                    got_tm = tm_chain_kernel(*args, *packed)
+                    torch.cuda.synchronize()
+                    check(tm_chain_kernel.launches == n0 + 1,
+                          "tm_chain: not one launch")
+                    want_tm = tm_chain_plain(*args, *packed)
+                    check(torch.equal(got_tm.cpu(), want_tm.cpu()),
+                          f"tm_chain kernel != plain ({label}, k={k}, "
+                          f"{kind})")
+                    out = got_tm.cpu().numpy()
+                    kinds.update("pair" if ok and pair else "nudge" if ok
+                                 else "miss" for ok, pair in out[:, [0, 2]])
+                n_checked += 1
+                if (label, k, kind) != ("paper", 0, "first sweep"):
+                    continue
+                # the timed runs: layer 0 of the paper's net, first sweep
+                check(packed is not None, "no TM run at layer 0")
+                n_ok = int(got[:, 1].sum())
+                call = lambda: chain_scan_kernel(  # noqa: E731
+                    *args, wi, wj, dw, db)
+                timed["chain_scan"] = dict(
+                    steps=len(cands), accepted=n_ok,
+                    ms=kernel_device_ms(torch, call, "chain_scan_kernel", 20),
+                    eager_ms=event_ms(torch, call, 20),
+                    plain_ms=host_ms(lambda: (chain_scan_plain(
+                        *args, wi, wj, dw, db), torch.cuda.synchronize()), 1),
+                    host_ms=host_ms(lambda: ev._chain_np(k, wi, wj, dw, db)),
+                    bytes=_chain_bytes(args, len(cands), n_ok, 2))
+                n_ok = int(got_tm[:, 0].sum().item())
+                call = lambda: tm_chain_kernel(*args, *packed)  # noqa: E731
+                timed["tm_chain"] = dict(
+                    steps=len(steps), accepted=n_ok,
+                    ms=kernel_device_ms(torch, call, "tm_chain_kernel", 20),
+                    eager_ms=event_ms(torch, call, 20),
+                    plain_ms=host_ms(lambda: (tm_chain_plain(
+                        *args, *packed), torch.cuda.synchronize()), 1),
+                    host_ms=host_ms(lambda: ev._tm_chain_np(k, steps)),
+                    bytes=_chain_bytes(args, len(steps), n_ok, 6))
+    check(set(kinds) == {"pair", "nudge", "miss"},
+          f"the TM runs missed a kind of step: {dict(kinds)}")
+    print(f"chains: both kernels bit-exact against their plain versions "
+          f"(and the serial chain against the host chain) on {n_checked} "
+          f"runs, every layer of 16-16-10-10 and of a 5-layer net, 2248 "
+          f"rows; TM steps: {dict(kinds)}")
+    rows = []
+    for name, t in timed.items():
+        bound_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        print(f"{name}: {t['ms']*1e3:.2f} us a launch on the card "
+              f"({t['eager_ms']*1e3:.2f} us an eager call; {t['steps']} "
+              f"steps, {t['accepted']} accepted, layer 0), the host chain "
+              f"{t['host_ms']*1e3:.2f} us, the "
+              f"plain version {t['plain_ms']*1e3:.2f} us, bound "
+              f"{bound_ms*1e3:.3f} us (bytes) [{CARD}]")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chain_scan.cu",
+            "replaces": "src/repro/eval/jaxtail.py:" + (
+                "346" if name == "chain_scan" else "267"),
+            "max_abs_err": 0.0, "ms": t["ms"], "eager_ms": t["eager_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "host_chain_ms": t["host_ms"],
+            "shape": f"16-16-10-10, 2248 rows, layer 0, {t['steps']} steps "
+                     f"of the first sweep"})
+
+    # (2) the TM tuner on device chains: identical to phase 6's and, the
+    # device engine's candidate count aside, to numpy's host chains; (3)
+    # tune_parallel on the card, its serial chain on chain_scan
+    counters = (("chain_scan", chain_scan_kernel),
+                ("tm_chain", tm_chain_kernel),
+                ("csd_matvec", csd_matvec_kernel),
+                ("csd_qsweep", csd_qsweep_kernel))
+    for _, kern in counters:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    tm_dev = tune_time_multiplexed(qr.mlp, xval, yval, scope="neuron",
+                                   max_sweeps=quickstart.TM_SWEEPS,
+                                   chain_engine="device")
+    t_tm = time.perf_counter() - t0
+    n_tm = tm_chain_kernel.launches
+    t0 = time.perf_counter()
+    tm_host = tune_time_multiplexed(qr.mlp, xval, yval, scope="neuron",
+                                    max_sweeps=quickstart.TM_SWEEPS,
+                                    chain_engine="host")
+    t_tm_host = time.perf_counter() - t0
+    check(tm_chain_kernel.launches == n_tm,
+          "chain_engine=host launched tm_chain")
+    t0 = time.perf_counter()
+    tp_dev = tune_parallel(qr.mlp, xval, yval, cost="adders",
+                           max_sweeps=quickstart.MAX_SWEEPS)
+    t_tp = time.perf_counter() - t0
+    chain_launches = {name: kern.launches for name, kern in counters}
+    n_tp = chain_launches["chain_scan"]
+    check(tm_dev.stats["backend"] == "csd", "TM tuner left csd")
+    check(_tune_summary(tm_dev) == _tune_summary(run.tm)
+          and _tune_summary(tm_host) == _tune_summary(tm_np)
+          and _tune_summary(tm_dev, candidates=False)
+          == _tune_summary(tm_host, candidates=False),
+          "tune_time_multiplexed on device chains differs from phase 6's "
+          "or from the host chains' (csd and numpy)")
+    check(n_tm == tm_dev.stats["eval_calls"] > 0,
+          f"tm_chain launches {n_tm}, chain calls "
+          f"{tm_dev.stats['eval_calls']}")
+    print(f"chains: tune_time_multiplexed(scope=neuron, max_sweeps="
+          f"{quickstart.TM_SWEEPS}) on csd: chain_engine=device {t_tm:.3f} s, "
+          f"chain_engine=host {t_tm_host:.3f} s [{CARD}]; "
+          f"{tm_dev.replacements} replacements, bha {tm_dev.bha!r}, identical "
+          f"to phase 6's, the host chains' and numpy's; {n_tm} tm_chain "
+          f"launches, one a chain call; candidates "
+          f"{tm_dev.stats['candidates']} (host chains "
+          f"{tm_host.stats['candidates']})")
+    check(_tune_summary(tp_dev) == _tune_summary(run.tp),
+          "tune_parallel on the device chain differs from phase 6's")
+    check(n_tp > 0, "chain_scan was not launched")
+    print(f"chains: tune_parallel(cost=adders, max_sweeps="
+          f"{quickstart.MAX_SWEEPS}) on the serial device chain {t_tp:.3f} s "
+          f"(phase 6: {run.seconds['tune']:.3f} s) [{CARD}]; TuneResult "
+          f"identical to phase 6's; launches of the two tuners "
+          f"{chain_launches}")
+
+    # (4) measured dispatch: races into a cache file, hits, reload, reruns
+    path = os.path.join(tempfile.mkdtemp(), "tune_cache.json")
+    saved = {v: os.environ.get(v) for v in (tune.ENV_ENABLED, tune.ENV_CACHE)}
+    os.environ[tune.ENV_ENABLED] = "1"
+    os.environ[tune.ENV_CACHE] = path
+    tune.set_cache(None)
+    tune.set_enabled(None)
+    try:
+        cache = tune.get_cache()
+        # the backend races run between the host backends of CPU
+        # evaluators; on the card csd is the one candidate
+        QSweepEvaluator(xval, yval, device="cpu")   # races qsweep_backend
+        BatchedHWEvaluator(qr.mlp, xval, yval, device="cpu")  # bhw_backend
+        ev = BatchedHWEvaluator(qr.mlp, xval, yval, backend="csd")
+        _, steps = _first_sweep_runs(ev, 0)
+        ev.evaluate_tm_chain(steps, ev.accuracy())   # races tm_chain
+        for key, rec in sorted(cache.entries.items()):
+            times = ", ".join(f"{n} " + ("left out" if t is None else
+                                         f"{t*1e3:.3f} ms")
+                              for n, t in rec["timings"].items())
+            print(f"race {key}: {times} -> {rec['winner']} [{CARD}]")
+        raced = {tuple(key.split("|")[:2]) for key in cache.entries}
+        check(raced == {("cpu", "qsweep_backend"), ("cpu", "bhw_backend"),
+                        ("cuda", "tm_chain")},
+              f"races filled {sorted(cache.entries)}")
+        check(QSweepEvaluator(xval, yval).backend
+              == BatchedHWEvaluator(qr.mlp, xval, yval).backend == "csd",
+              "a CUDA evaluator's auto left csd")
+        check(len(cache.entries) == 3, "a CUDA evaluator's auto raced")
+        # a second decide of each is a hit, and measures nothing
+        tune.set_enabled(False)
+        hits0 = tune.stats["hits"]
+        again = {"qsweep_backend": QSweepEvaluator(xval, yval,
+                                                   device="cpu").backend,
+                 "bhw_backend": BatchedHWEvaluator(qr.mlp, xval, yval,
+                                                   device="cpu").backend}
+        for key, rec in cache.entries.items():
+            plat, op, _bucket, dtype = key.split("|")
+            if op in again:
+                check(again[op] == rec["winner"], f"{op} did not hit")
+        n_direct = 0
+        for key, rec in cache.entries.items():
+            plat, op, bucket, dtype = key.split("|")
+            if op in again:
+                continue
+            shape = tuple(int(d) for d in bucket.split("x"))
+            check(tune.decide(op, shape=shape, dtype=dtype,
+                              candidates=(rec["winner"],), heuristic="none",
+                              plat=plat) == rec["winner"], f"{key} missed")
+            n_direct += 1
+        check(tune.stats["hits"] - hits0 == 2 + n_direct,
+              "a second decide was not a hit")
+        back = DispatchCache.load(path, config=tune.default_config())
+        check(back.entries == cache.entries and len(back.entries) == 3,
+              "the reloaded cache file lost winners")
+        print(f"measured dispatch: {len(cache.entries)} races filled "
+              f"{os.path.basename(path)}; every second decide hit; the "
+              f"reloaded file keeps every winner; config "
+              f"{tune.default_config()}")
+        # the tuners and the search under the filled cache
+        qr2 = find_min_q(run.train.weights, run.train.biases, run.acts, xval,
+                         yval)
+        check((qr2.q, qr2.ha, qr2.history) == (qr.q, qr.ha, qr.history),
+              "find_min_q under the filled cache differs")
+        tp2 = tune_parallel(qr.mlp, xval, yval, cost="adders",
+                            max_sweeps=quickstart.MAX_SWEEPS)
+        check(_tune_summary(tp2) == _tune_summary(run.tp),
+              "tune_parallel under the filled cache differs")
+        tm2 = tune_time_multiplexed(qr.mlp, xval, yval, scope="neuron",
+                                    max_sweeps=quickstart.TM_SWEEPS)
+        check(_tune_summary(tm2, candidates=False)
+              == _tune_summary(run.tm, candidates=False),
+              "tune_time_multiplexed under the filled cache differs")
+        print(f"under the filled cache: find_min_q, tune_parallel and "
+              f"tune_time_multiplexed identical to the heuristic's "
+              f"(backends {again}; tune_parallel on {tp2.stats['backend']})")
+        decode_auto_check(torch, tune, DispatchCache)
+    finally:
+        for var, val in saved.items():
+            if val is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = val
+        tune.set_cache(None)
+        tune.set_enabled(None)
+        if os.path.exists(path):
+            os.unlink(path)
+        os.rmdir(os.path.dirname(path))
+    return rows, chain_launches
+
+
+def decode_auto_check(torch, tune, DispatchCache):
+    """``ServeEngine(decode_kernel="auto")`` on a tiny f32 model: "dense" on
+    a miss, a forced cache pick ("fused") when one exists, the same greedy
+    tokens either way."""
+    import dataclasses
+    from repro_torch.nn import Model, get_config
+    from repro_torch.runtime.serve import Request, ServeEngine
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(), n_layers=2,
+                              vocab=64, dtype="float32")
+    params = Model(cfg, device="cpu").init(0)
+    forced = DispatchCache(tune.default_config())
+    forced.put(tune.make_key("cuda", "decode_kernel",
+                             tune.shape_bucket((2, 32, 8)), "float32"),
+               "fused")
+    picks, toks = [], []
+    for cache in (DispatchCache(tune.default_config()), forced):
+        with tune.use_cache(cache, measure=False):
+            eng = ServeEngine(cfg, params, eos_id=-1, max_batch=2,
+                              max_context=32, prefill_chunk=8,
+                              kv_block_size=8, decode_kernel="auto")
+        req = Request(rid=0, prompt=np.arange(1, 7, dtype=np.int32),
+                      max_new_tokens=6)
+        eng.run([req])
+        picks.append(eng.decode_kernel)
+        toks.append(list(req.out_tokens))
+    check(picks == ["dense", "fused"] and toks[0] == toks[1],
+          f"decode_kernel=auto: {picks}, tokens {toks}")
+    print(f"ServeEngine(decode_kernel=auto), tiny f32 model: a miss -> "
+          f"dense, a forced pick -> fused; greedy tokens equal ({toks[0]})")
 
 
 def explore_phase(torch):
@@ -1263,6 +1700,8 @@ def explore_phase(torch):
     from repro_torch.eval import QSweepEvaluator
     from repro_torch.kernels.csd_matvec import (csd_matvec_kernel,
                                                 csd_qsweep_kernel)
+    from repro_torch.kernels.chain_scan import (chain_scan_kernel,
+                                                tm_chain_kernel)
     from repro_torch.launch import explore as lx
     t0 = time.perf_counter()
     res, x_val, y_val = lx.train_float("cuda")
@@ -1272,6 +1711,8 @@ def explore_phase(torch):
     check(ev.backend == "csd", f"auto resolved to {ev.backend}, not csd")
     csd_qsweep_kernel.launches = 0
     csd_matvec_kernel.launches = 0
+    chain_scan_kernel.launches = 0
+    tm_chain_kernel.launches = 0
     csd_qsweep_kernel.route_launches.update(resident=0, chunked=0)
     csd_matvec_kernel.route_launches.update(streaming=0, planes=0)
     with qsweep_shapes() as seen:
@@ -1279,7 +1720,9 @@ def explore_phase(torch):
                            planner=SynthesisPlanner(), evaluator=ev)
         torch.cuda.synchronize()
     launches = {"csd_qsweep": csd_qsweep_kernel.launches,
-                "csd_matvec": csd_matvec_kernel.launches}
+                "csd_matvec": csd_matvec_kernel.launches,
+                "chain_scan": chain_scan_kernel.launches,
+                "tm_chain": tm_chain_kernel.launches}
     routes = dict(csd_qsweep_kernel.route_launches)
     check(launches["csd_qsweep"] > 0,
           f"csd_qsweep was not launched on the explore path: {launches}")
@@ -2027,7 +2470,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
     sources = ("paged_gather", "paged_attention", "csd_matvec",
-               "flash_attention", "linear_scan", "qmatmul")
+               "flash_attention", "linear_scan", "qmatmul", "chain_scan")
     t0 = time.perf_counter()
     build.build(sources)
     print(f"build: {time.perf_counter()-t0:.2f} s "
@@ -2035,6 +2478,10 @@ def main() -> int:
     for name in sources:
         for fn, line in ptxas_lines(build.build_log(name)):
             print(f"  ptxas {name} {fn}: {line}")
+            if name == "chain_scan":
+                check(not any(int(n) for n in re.findall(
+                    r"(\d+) bytes spill", line)),
+                    f"chain_scan {fn}: ptxas spills: {line}")
     t0 = time.perf_counter()
     kernels = kernel_phase(torch)
     kernels += csd_kernel_phase(torch)
@@ -2054,9 +2501,16 @@ def main() -> int:
     print(f"serving phase: {time.perf_counter()-t0:.2f} s")
     profile_phase(torch, eng, spec)
     t0 = time.perf_counter()
-    paper_launches = paper_phase(torch)
+    paper_launches, paper_run, tm_np = paper_phase(torch)
     launches.update(paper_launches)
     print(f"paper phase: {time.perf_counter()-t0:.2f} s")
+    t0 = time.perf_counter()
+    chain_rows, chain_launches = chains_phase(torch, paper_run, tm_np)
+    kernels += chain_rows
+    for name, n in chain_launches.items():
+        launches[name] += n
+    del paper_run, tm_np
+    print(f"chains phase: {time.perf_counter()-t0:.2f} s")
     t0 = time.perf_counter()
     explore_launches = explore_phase(torch)
     print(f"explore phase: {time.perf_counter()-t0:.2f} s")
@@ -2077,7 +2531,8 @@ def main() -> int:
     print(f"hybrid phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
-               "paper": paper_launches, "explore": explore_launches,
+               "paper": paper_launches, "chains": chain_launches,
+               "explore": explore_launches,
                "ptq": {"flash_attention": launches["flash_attention"]},
                "mixed": mixed_launches, "hybrid": hybrid_launches,
                "op": {"qmatmul": qm_launches}}

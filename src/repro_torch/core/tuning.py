@@ -17,13 +17,14 @@ the validation split:
 Both run on the batched hardware-accuracy engine (``repro_torch.eval``,
 DESIGN.md 7) by default and decide whole candidate runs with *chain scans*
 (DESIGN.md 7.5): ``tune_parallel`` follows the serial accept/reject chain
-through each chunk with ``evaluate_chain`` and its polish scores with
-``evaluate``, whose tail runs through the ``csd_matvec`` kernel on the
-card; ``tune_time_multiplexed`` follows its candidate-pair + bias-nudge
-decision tree with ``evaluate_tm_chain``, on the host (as the reference
-does off a TPU), so it launches no kernel itself.  Every accept/reject
-decision reproduces the serial hill-climb exactly; ``engine="serial"``
-keeps the original per-candidate numpy loop.
+through each chunk with ``evaluate_chain`` (on the card one launch of the
+``chain_scan`` kernel a chunk) and its polish scores with ``evaluate``,
+whose tail runs through the ``csd_matvec`` kernel on the card;
+``tune_time_multiplexed`` follows its candidate-pair + bias-nudge decision
+tree with ``evaluate_tm_chain``, on the card as one launch of the
+``tm_chain`` kernel a run, on the CPU on the host (as the reference does
+off a TPU).  Every accept/reject decision reproduces the serial hill-climb
+exactly; ``engine="serial"`` keeps the original per-candidate numpy loop.
 """
 from __future__ import annotations
 
@@ -426,10 +427,13 @@ def tune_time_multiplexed(mlp: IntMLP, x_val_int: np.ndarray,
     evaluator built on ``device``.
 
     ``chain_engine`` picks that pass's implementation: ``"host"`` (the
-    sparsity-aware numpy chain) or ``"auto"``, which resolves to it, the
-    reference's static rule off a TPU.  ``"device"`` is not ported yet
-    (ROADMAP queue 1, item 7) and raises.  The chain's decisions never read
-    the device mirror, so every backend gives the same result."""
+    sparsity-aware numpy chain), ``"device"`` (one call of the device
+    chain a run: the ``tm_chain`` kernel on the card, its plain version on
+    the CPU) or ``"auto"``, the measured-dispatch cache's pick, else the
+    static rule: ``"device"`` on the card, ``"host"`` elsewhere, as the
+    reference runs its scan on its accelerator only.  Every engine and
+    backend gives the same decisions; ``stats["candidates"]`` follows the
+    engine, as in the reference (see ``evaluate_tm_chain``)."""
     if engine == "serial":
         return _tune_tm_serial(mlp, x_val_int, y_val, scope=scope,
                                bias_range=bias_range, max_sweeps=max_sweeps)

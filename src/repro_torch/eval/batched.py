@@ -30,12 +30,15 @@ Backends (the reference's names in brackets)
   hardware datapath, CUDA kernels on the card and their plain versions on
   the CPU.
 
-``auto`` resolves to ``csd`` on a CUDA device for both evaluators: the hand
-kernels are the card's exact integer product.  On the CPU it follows the
-reference: ``numpy`` for the sweep engine and ``torch`` for the mutation
-engine.  All backends give bit-identical results, so the pick moves only
-wall time.  Sharding the validation rows (the reference's ``shard=True``)
-is not ported.
+``auto`` is ``csd`` on a CUDA device for both evaluators: the hand kernels
+are the card's exact integer product, and the only candidate declared
+there.  On the CPU it asks the measured-dispatch cache (``repro_torch.tune``,
+DESIGN.md 17) for the winner of a race between the host backends
+(``HOST_BACKENDS``) at the evaluator's shape; on a miss it is the
+reference's pick, ``numpy`` for the sweep engine and ``torch`` for the
+mutation engine.  All backends give bit-identical results, so the pick
+moves only wall time.  Sharding the validation rows (the reference's
+``shard=True``) is not ported.
 
 Two evaluators live here:
 
@@ -43,7 +46,9 @@ Two evaluators live here:
   network and batches of single-column *mutations* of it (DESIGN.md 7).
   Its chains (:meth:`~BatchedHWEvaluator.evaluate_chain` for the IV-B
   tuner, :meth:`~BatchedHWEvaluator.evaluate_tm_chain` for the IV-C one)
-  run on the host, as the reference's do on every backend but a TPU.
+  run as one device call on the card (the chain kernels), as the
+  reference's run on its accelerator, and on the host elsewhere; where the
+  kernels do not take the net's shape they run on the host.
 * :class:`QSweepEvaluator`: the sweep engine, batches of *whole networks*
   sharing one (structure, activations), e.g. the same float weights
   quantized at several candidate q levels, scored in one stacked integer
@@ -69,6 +74,7 @@ __all__ = ["Candidate", "TMStep", "BatchedHWEvaluator", "QSweepEvaluator",
 
 _NEG = -(1 << 30)      # impossible score: a row that can never be correct
 _SPEC_CHUNK = 32       # prefix-composition (speculative) chunk size
+HOST_BACKENDS = ("numpy", "torch")   # ``auto``'s race on a CPU evaluator
 
 
 def ha_pct(count: int, n_val: int) -> float:
@@ -288,6 +294,12 @@ class BatchedHWEvaluator:
         self._labels = np.asarray(labels, dtype=np.int64)
         self._mp = self.n_val
         self._resolve_backend(backend)
+        # The chains run on the device where the reference's scans do on
+        # its own accelerator: on the card, as the chain kernels (off a
+        # numpy backend, which has no device state).  A CPU evaluator runs
+        # them on the host; the tests set this to reach the plain versions.
+        self._chain_scan = (self.device.type == "cuda"
+                            and self.backend != "numpy")
         self._dev = None
         self._refresh(0)
 
@@ -353,14 +365,17 @@ class BatchedHWEvaluator:
 
     def evaluate_chain(self, cands: Sequence[Candidate],
                        bha: float) -> tuple[list[bool], list[float]]:
-        """Follow the serial greedy chain through ``cands`` in one call on
-        the host (the reference's chain off a TPU): candidate ``c`` is
-        scored against the network with every *previously accepted*
-        candidate applied, accepted iff its accuracy
+        """Follow the serial greedy chain through ``cands`` in one call:
+        candidate ``c`` is scored against the network with every
+        *previously accepted* candidate applied, accepted iff its accuracy
         clears the running best (``>=``, updating it), exactly like the serial
         hill-climb (DESIGN.md 7.5).  Returns (accept_flags, accuracies);
         committed state is untouched — commit the accepted candidates with
-        :meth:`commit_many`.
+        :meth:`commit_many`.  On the card (``_chain_scan``) the chain is one
+        device call (``TorchState.chain``: the ``chain_scan`` kernel) where
+        the int32 guard holds and the kernel takes the net's shape
+        (``chain_scan.fits``); elsewhere it runs on the host, as the
+        reference's does off a TPU.
 
         ``bha`` must be the running best accuracy, which in a greedy sweep is
         always the committed network's own accuracy.  Accept decisions then
@@ -376,7 +391,15 @@ class BatchedHWEvaluator:
             raise ValueError("bha must equal the committed network's "
                              "accuracy (greedy invariant)")
         n, wi, wj, dw, db = self._pack(cands)
-        counts, flags = self._chain_np(k, wi, wj, dw, db)
+        # the reference pads the run to a jit-stable size, and its int32
+        # guard counts the padded steps
+        pad_to = _SPEC_CHUNK if n <= _SPEC_CHUNK else self.chunk
+        if (self._chain_scan and self._chain_refusal(k) is None
+                and self._spec_safe(k, np.pad(dw, (0, pad_to - n)), db)):
+            counts, flags = self._device_state().chain(k, self._count, wi,
+                                                       wj, dw, db)
+        else:
+            counts, flags = self._chain_np(k, wi, wj, dw, db)
         self.stats["eval_calls"] += 1
         self.stats["candidates"] += n
         return ([bool(f) for f in flags[:n]],
@@ -482,17 +505,33 @@ class BatchedHWEvaluator:
         greedy invariant), which reduces every threshold to an exact integer
         correct-count comparison.
 
-        ``engine``: ``"host"`` runs the sparsity-aware numpy chain against
-        the maintained caches; ``"auto"`` resolves to it, the reference's
-        static rule off a TPU.  ``"device"`` (the reference's one-dispatch
-        chain scan) is not ported yet: ROADMAP queue 1, item 7.
+        ``engine`` selects the chain implementation:
+
+        * ``"host"`` — the sparsity-aware numpy chain against the maintained
+          caches; no device round-trip until the commit.
+        * ``"device"`` — one device call over the whole run
+          (``TorchState.tm_chain``): the ``tm_chain`` kernel on the card,
+          its plain version on the CPU; pair and nudge counts on the
+          device, nudges only when the pair fails.  Falls back to the host
+          chain, as the reference does, when the backend is numpy, the
+          int32 composition guard fails, a step carries more than two
+          candidate values, or steps disagree on the nudge schedule.  On
+          the card a net the kernel does not take (``chain_scan.fits``)
+          raises ``ValueError``.
+        * ``"auto"`` — the measured-dispatch cache's winner for this
+          (platform, rows x steps) neighbourhood when one exists
+          (DESIGN.md 17); on a miss, the static rule: ``device`` exactly
+          where the serial chain scan already runs on the device
+          (``_chain_scan``: on the card), ``host`` otherwise.  A ``device``
+          pick the kernel cannot take runs on the host.
+
+        Both engines make bit-identical decisions.  ``stats["candidates"]``
+        follows the engine that ran, as in the reference: the device
+        engine counts every nudge of a failed pair, the host engine the
+        nudges it tried up to the first hit.
         """
         if engine not in ("auto", "host", "device"):
             raise ValueError(engine)
-        if engine == "device":
-            raise NotImplementedError(
-                "the device TM chain is not ported (ROADMAP queue 1, item "
-                "7); use engine='host' or 'auto'")
         if not steps:
             return []
         k = steps[0].layer
@@ -508,10 +547,112 @@ class BatchedHWEvaluator:
         if ha_pct(self._count, self.n_val) != bha:
             raise ValueError("bha must equal the committed network's "
                              "accuracy (greedy invariant)")
-        decisions, n_evals = self._tm_chain_np(k, steps)
+        use_device = engine == "device"
+        if engine == "auto":
+            from repro_torch import tune
+            pick = tune.decide(
+                "tm_chain", shape=(self.n_val, len(steps)), dtype="int64",
+                candidates=("host", "device"),
+                heuristic=("device" if self._chain_scan else "host"),
+                plat=self.device.type,
+                measure=lambda: tune.tm_chain_thunks(self, k, steps))
+            use_device = pick == "device"
+        decisions = None
+        if use_device:
+            decisions, n_evals = self._tm_chain_device(
+                k, steps, strict=engine == "device")
+        if decisions is None:
+            decisions, n_evals = self._tm_chain_np(k, steps)
         self.stats["eval_calls"] += 1
         self.stats["candidates"] += n_evals
         return decisions
+
+    def _chain_refusal(self, k: int, n_db: int = 0) -> str | None:
+        """Why the device chain cannot take layer k, or None: never on the
+        CPU (the plain versions take any shape); on the card,
+        ``chain_scan.refusal``."""
+        if self.device.type != "cuda":
+            return None
+        from repro_torch.kernels.chain_scan import refusal
+        mlp = self._mlp
+        widths = [self._x.shape[1]] + [w.shape[1] for w in mlp.weights]
+        return refusal(widths, k, self._mp, mlp.q, n_db)
+
+    def _tm_pack(self, k: int, steps: Sequence[TMStep], *,
+                 strict: bool = False):
+        """A TM run as the device chain takes it: ``(dbsh, wi, wj, dw0, dw1,
+        has2, valid, pw0, pw1)``, nudges ``<< FRAC``.  None when the device
+        contract cannot hold: numpy backend, >2 candidate values, mixed
+        nudge schedules, or int32-unsafe composed deltas; and on the card
+        when the kernel does not take the net (``strict``: raise instead).
+        The reference pads the run to a jit-stable size with invalid steps;
+        nothing is padded here, so every step is valid."""
+        if self.backend == "numpy":
+            return None
+        dbs = steps[0].dbs
+        if any(s.dbs != dbs for s in steps) or any(len(s.pws) > 2
+                                                   for s in steps):
+            return None
+        w_k = self._mlp.weights[k]
+        n = len(steps)
+        dw_all = np.asarray([int(pw) - int(w_k[s.row, s.col])
+                             for s in steps for pw in s.pws] or [0], np.int64)
+        db_all = np.asarray([db << FRAC for db in dbs] or [0], np.int64)
+        if not self._spec_safe(k, dw_all, db_all):
+            return None
+        why = self._chain_refusal(k, len(dbs))
+        if why is not None:
+            if strict:
+                raise ValueError(f"the tm_chain kernel takes {why}; use "
+                                 f"engine='host' or 'auto'")
+            return None
+        wi = np.zeros(n, np.int64)
+        wj = np.zeros(n, np.int64)
+        dw0 = np.zeros(n, np.int64)
+        dw1 = np.zeros(n, np.int64)
+        has2 = np.zeros(n, bool)
+        valid = np.ones(n, bool)
+        pw0 = np.zeros(n, np.int64)
+        pw1 = np.zeros(n, np.int64)
+        for t, s in enumerate(steps):
+            wi[t], wj[t] = s.row, s.col
+            w0 = int(w_k[s.row, s.col])
+            pw0[t] = s.pws[0]
+            dw0[t] = int(s.pws[0]) - w0
+            if len(s.pws) > 1:
+                has2[t] = True
+                pw1[t] = s.pws[1]
+                dw1[t] = int(s.pws[1]) - w0
+        dbsh = tuple(int(db) << FRAC for db in dbs)
+        return dbsh, wi, wj, dw0, dw1, has2, valid, pw0, pw1
+
+    def _tm_chain_device(self, k: int, steps: Sequence[TMStep], *,
+                         strict: bool = False):
+        """The device decision-tree chain over a TM run; (None, 0) (fall
+        back to the host chain) where :meth:`_tm_pack` refuses the run."""
+        packed = self._tm_pack(k, steps, strict=strict)
+        if packed is None:
+            return None, 0
+        dbs = steps[0].dbs
+        ok, sel, pair_ok, db_idx, cnt_best, cnt_dec = \
+            self._device_state().tm_chain(k, self._count, *packed)
+        decisions = []
+        n_evals = 0
+        for t, s in enumerate(steps):
+            n_evals += len(s.pws)
+            pw_best = int(s.pws[1] if sel[t] else s.pws[0])
+            if not ok[t]:
+                n_evals += len(dbs)     # all nudges were scored on device
+                decisions.append((False, pw_best, 0,
+                                  ha_pct(int(cnt_best[t]), self.n_val)))
+            elif pair_ok[t]:
+                decisions.append((True, pw_best, 0,
+                                  ha_pct(int(cnt_dec[t]), self.n_val)))
+            else:
+                n_evals += len(dbs)
+                decisions.append((True, pw_best, int(dbs[int(db_idx[t])]),
+                                  ha_pct(int(cnt_dec[t]), self.n_val)))
+        return decisions, n_evals
 
     def _tm_chain_np(self, k: int, steps: Sequence[TMStep]):
         """int64/int32 numpy chain over the TM decision tree: the same
@@ -685,9 +826,20 @@ class BatchedHWEvaluator:
 
     def _resolve_backend(self, backend: str) -> None:
         if backend == "auto":
-            # the static rule: the digit-plane kernels are the card's exact
-            # integer product; on the CPU the reference's int32 tier
-            backend = "csd" if self.device.type == "cuda" else "torch"
+            # measured dispatch (DESIGN.md 17).  On the card the one
+            # candidate is the digit-plane kernels, the card's exact integer
+            # product; on the CPU the cached race winner between the host
+            # backends for this shape neighbourhood, else the reference's
+            # int32 tier
+            from repro_torch import tune
+            mlp, x, lab, dev = self._mlp, self._x, self._labels, self.device
+            on_card = dev.type == "cuda"
+            backend = tune.decide(
+                "bhw_backend", shape=x.shape, dtype="int64",
+                candidates=("csd",) if on_card else HOST_BACKENDS,
+                heuristic="csd" if on_card else "torch", plat=dev.type,
+                measure=None if on_card else lambda: tune.bhw_backend_thunks(
+                    mlp, x, lab, device=dev))
         self.backend = backend
         if backend != "numpy" and not int32_safe_bound(self._mlp):
             self._demote("weights exceed the int32-safe accumulator bound")
@@ -698,6 +850,7 @@ class BatchedHWEvaluator:
         self.backend = "numpy"
         self.stats["demoted"] = why
         self._dev = None
+        self._chain_scan = False
 
     # -- cache maintenance -------------------------------------------------
 
@@ -925,8 +1078,9 @@ class QSweepEvaluator:
     every network's weights expand to CSD planes at a shared per-layer
     depth and all q levels run the bit-exact shift-add ASIC datapath
     through the ``csd_qsweep`` kernel in one launch.  ``auto`` resolves to
-    ``csd`` on a CUDA device and to ``numpy`` on the CPU.  Demotion is per
-    *network*, by the mutation-free accumulator bound
+    ``csd`` on a CUDA device, and on the CPU to the measured-dispatch
+    cache's winner between the host backends, else to ``numpy``.  Demotion
+    is per *network*, by the mutation-free accumulator bound
     (:func:`net_accum_bound` / :func:`net_int32_safe`; the csd backend uses
     the tighter CSD absolute-digit bound :func:`csd_net_int32_safe`,
     typically only the highest q levels of a sweep leave the fast tier),
@@ -951,10 +1105,21 @@ class QSweepEvaluator:
         self.qchunk = int(qchunk)
         self.stats = {"eval_calls": 0, "networks": 0, "demoted": 0}
         if backend == "auto":
-            # the static rule: the digit-plane kernel on the card; on the
-            # CPU the stacked BLAS-float path (exact below 2^53), as the
-            # reference picks on CPU hosts
-            backend = "csd" if self.device.type == "cuda" else "numpy"
+            # measured dispatch (DESIGN.md 17).  On the card the one
+            # candidate is the digit-plane kernel; on the CPU the cached
+            # race winner between the host backends for this shape
+            # neighbourhood, else the stacked BLAS-float path (exact below
+            # 2^53), as the reference picks on CPU hosts
+            from repro_torch import tune
+            dev = self.device
+            on_card = dev.type == "cuda"
+            backend = tune.decide(
+                "qsweep_backend", shape=x_val_int.shape, dtype="int64",
+                candidates=("csd",) if on_card else HOST_BACKENDS,
+                heuristic="csd" if on_card else "numpy", plat=dev.type,
+                measure=None if on_card else lambda: (
+                    tune.qsweep_backend_thunks(x_val_int, labels,
+                                               device=dev)))
         self.backend = backend
         x = np.asarray(x_val_int, dtype=np.int64)
         self._x = x

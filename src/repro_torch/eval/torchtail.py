@@ -13,8 +13,12 @@ for independent candidates (``core``) or prefix-composed ones
 bit-exact ``csd_matvec`` shift-add kernel, with each layer's CSD digit
 planes expanded on the host, uploaded once and dropped when a commit
 touches the layer; on ``torch`` it is an integer matmul
-(``repro_torch.core.intmlp.matmul_int``).  The reference's ``lax.scan``
-chains are not ported: chains run on the host (``_chain_np``).
+(``repro_torch.core.intmlp.matmul_int``).  The reference's two
+``lax.scan`` chains, the serial greedy chain (``chain``) and the
+time-multiplexed tuner's decision tree (``tm_chain``), run a whole candidate
+run in one call: on a CUDA state one launch of the chain kernels
+(``repro_torch.kernels.chain_scan``), on a CPU state their plain versions,
+as the reference's scans run on XLA's CPU.
 
 For the sweep engine (``QSweepEvaluator``), :class:`QSweepTorch` holds the
 validation rows on the device and runs the stacked forward: one (Q, M, n)
@@ -121,6 +125,33 @@ class TorchState:
         db = torch.as_tensor(db, dtype=torch.int32, device=dev)
         fn = self._spec_core if kind == "spec" else self._core
         return fn(k, use_csd, wi, wj, dw, db).cpu().numpy()
+
+    def _chain_args(self, k: int, count0: int) -> tuple:
+        mlp = self.ev._mlp
+        return (self.a, self.acc, self.W, self.bsh, self.lab, self.lab_safe,
+                mlp.activations, mlp.q, k, count0)
+
+    def chain(self, k: int, count0: int, wi, wj, dw, db):
+        """Serial-chain scan over a candidate run: every accept/reject
+        decision is made on the device against the evolving prefix state.
+        Returns (counts, flags) as numpy arrays."""
+        out = ops.chain_scan(*self._chain_args(k, count0),
+                             wi, wj, dw, db).cpu().numpy()
+        return out[:, 0], out[:, 1].astype(bool)
+
+    def tm_chain(self, k: int, count0: int, dbsh: tuple,
+                 wi, wj, dw0, dw1, has2, valid, pw0, pw1):
+        """The time-multiplexed tuner's decision-tree chain over a run
+        (DESIGN.md 7.5): per step, the candidate pair is scored against the
+        evolving prefix state, ranked by ``(count, value)`` descending, and
+        on a failed pair the bias nudges run, the first nudge clearing the
+        running count winning, exactly like the host chain.  Returns the
+        scan's six per-step arrays (ok, sel, pair_ok, db_idx, cnt_best,
+        cnt_dec) as numpy."""
+        out = ops.tm_chain(*self._chain_args(k, count0), dbsh, wi, wj, dw0,
+                           dw1, has2, valid, pw0, pw1).cpu().numpy()
+        return (out[:, 0].astype(bool), out[:, 1].astype(bool),
+                out[:, 2].astype(bool), out[:, 3], out[:, 4], out[:, 5])
 
     def _dense_tail(self, k: int, act_a: torch.Tensor,
                     use_csd: bool) -> torch.Tensor:

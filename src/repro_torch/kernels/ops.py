@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core.csd import to_csd_array
 
+from .chain_scan import (chain_scan_kernel, chain_scan_plain, tm_chain_kernel,
+                         tm_chain_plain)
 from .csd_matvec import (csd_matvec_kernel, csd_matvec_plain,
                          csd_qsweep_kernel, csd_qsweep_plain)
 from .flash_attention import flash_attention_kernel, flash_attention_plain
@@ -24,7 +26,7 @@ from .qmatmul import qmatmul_kernel, qmatmul_plain
 __all__ = ["qmatmul", "quantize_pot", "exp2_int", "paged_gather",
            "paged_gather_pair", "paged_attention", "csd_expand",
            "csd_expand_stack", "csd_matvec", "csd_qsweep", "flash_attention",
-           "linear_scan"]
+           "linear_scan", "chain_scan", "tm_chain"]
 
 
 def csd_expand(w_int, depth: int | None = None) -> np.ndarray:
@@ -208,3 +210,31 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return linear_scan_kernel(a, x)
     _plain_or_raise(a, "linear_scan")
     return linear_scan_plain(a, x)
+
+
+def chain_scan(a, acc, w, bsh, lab, lab_safe, acts, q, k, count0,
+               wi, wj, dw, db) -> torch.Tensor:
+    """The serial greedy chain over one run of layer-k candidates in one
+    launch (``repro_torch.kernels.chain_scan``): (n, 2) int32 of (count,
+    accepted).  The caches are read, never written; the CUDA kernel is
+    bit-identical to the plain version."""
+    args = (a, acc, w, bsh, lab, lab_safe, acts, q, k, count0, wi, wj, dw,
+            db)
+    if a[k].is_cuda:
+        return chain_scan_kernel(*args)
+    _plain_or_raise(a[k], "chain_scan")
+    return chain_scan_plain(*args)
+
+
+def tm_chain(a, acc, w, bsh, lab, lab_safe, acts, q, k, count0, dbsh,
+             wi, wj, dw0, dw1, has2, valid, pw0, pw1) -> torch.Tensor:
+    """The time-multiplexed tuner's decision-tree chain in one launch
+    (``repro_torch.kernels.chain_scan``): (n, 6) int32 of (ok, sel,
+    pair_ok, db_idx, cnt_best, cnt_dec).  The CUDA kernel is bit-identical
+    to the plain version."""
+    args = (a, acc, w, bsh, lab, lab_safe, acts, q, k, count0, dbsh,
+            wi, wj, dw0, dw1, has2, valid, pw0, pw1)
+    if a[k].is_cuda:
+        return tm_chain_kernel(*args)
+    _plain_or_raise(a[k], "tm_chain")
+    return tm_chain_plain(*args)

@@ -49,10 +49,12 @@ def main(argv=None):
     ap.add_argument("--kv-gather", choices=("take", "cuda"), default="take",
                     help="block-table gather route (block-paged mode only)")
     ap.add_argument("--decode-kernel",
-                    choices=("dense", "reference", "fused"), default="dense",
+                    choices=("auto", "dense", "reference", "fused"),
+                    default="dense",
                     help="decode attention route (block-paged mode only): "
-                         "gather+dense, the block-sequential reference, or "
-                         "the fused paged-attention kernel")
+                         "gather+dense, the block-sequential reference, the "
+                         "fused paged-attention kernel, or auto (the "
+                         "measured-dispatch cache's pick, else dense)")
     ap.add_argument("--admission", choices=("reject", "truncate"),
                     default="truncate")
     ap.add_argument("--deadline", type=float, default=None,

@@ -19,7 +19,8 @@
   stream does not depend on the batch it rides in;
 * ``kv_gather`` (``"take"`` or the ``"cuda"`` gather kernel) and
   ``decode_kernel`` (``"dense"``, ``"reference"`` or the ``"fused"``
-  paged-attention kernel) for the block-paged reads;
+  paged-attention kernel) for the block-paged reads; ``"auto"`` consults
+  the measured-dispatch cache (``repro_torch.tune``);
 * in-place cache updates: both dispatches write the KV tensors in place.
 
 With ``quantized=True`` the matmul weights stay resident as int8-PoT and
@@ -33,7 +34,7 @@ serving context, and batch refresh only at prefill boundaries.
 
 Both engines run on the card unless the caller passes ``device="cpu"``;
 with no card visible they raise.  Not ported yet: data/tensor-parallel
-decode, ``decode_kernel="auto"``, MoE.
+decode, MoE.
 """
 from __future__ import annotations
 
@@ -157,6 +158,26 @@ def _row_seed(seed: int, rid: int, step: int) -> int:
     return h & 0x7FFFFFFFFFFFFFFF
 
 
+def _auto_decode_kernel(cfg: ArchConfig, device, max_batch: int,
+                        max_context: int, kv_block_size: int) -> str:
+    """``decode_kernel="auto"``: the measured-dispatch cache's winner for
+    this (platform, batch x context x block) neighbourhood, else the static
+    "dense" rule.  Consult-only, as in the reference: nothing is measured
+    here.  Without a block pool only the gather+dense route exists.  Fused
+    and dense are candidates together only in f32, where the tests hold
+    their greedy tokens equal; in bf16 the two round the softmax at other
+    places and agree only within a tolerance, so there "dense" is the one
+    candidate and no cache entry can move a bf16 engine's tokens."""
+    if not kv_block_size:
+        return "dense"
+    from repro_torch import tune
+    cands = ("dense", "fused") if cfg.dtype == "float32" else ("dense",)
+    return tune.decide("decode_kernel",
+                       shape=(max_batch, max_context, kv_block_size),
+                       dtype=str(cfg.dtype), candidates=cands,
+                       heuristic="dense", plat=device.type)
+
+
 class ServeEngine:
     """Slot-paged serving engine for the dense family."""
 
@@ -174,13 +195,16 @@ class ServeEngine:
                 f"not {cfg.family!r}")
         if kv_gather not in ("take", "cuda"):
             raise ValueError(f"unknown kv_gather {kv_gather!r}")
+        self.device = resolve_device(device)
+        if decode_kernel == "auto":
+            decode_kernel = _auto_decode_kernel(cfg, self.device, max_batch,
+                                                max_context, kv_block_size)
         if decode_kernel not in ("dense", "reference", "fused"):
             raise ValueError(f"unknown decode_kernel {decode_kernel!r}")
         if decode_kernel != "dense" and not kv_block_size:
             raise ValueError(
                 "decode_kernel='reference'/'fused' read the block pool "
                 "directly; they need kv_block_size > 0")
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.model = Model(cfg, device=self.device)
         self.max_batch = max_batch

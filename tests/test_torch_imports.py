@@ -47,13 +47,17 @@ def test_port_files_exist():
                 "kernels/linear_scan.py", "core/archs.py", "core/simurg.py",
                 "quant/mixed.py", "explore/__init__.py", "explore/pareto.py",
                 "explore/space.py", "launch/explore.py",
-                "kernels/qmatmul.py", "launch/mixed_bitwidth.py"):
+                "kernels/qmatmul.py", "launch/mixed_bitwidth.py",
+                "tune/__init__.py", "tune/bench.py", "tune/cache.py",
+                "tune/dispatch.py", "tune/measurers.py",
+                "kernels/chain_scan.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/flash_attention.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/linear_scan.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/qmatmul.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/chain_scan.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -5,8 +5,8 @@ package on the CPU, with no tolerance: ``tune_time_multiplexed`` for scopes
 ``test_intmlp_quant_tuning.py::test_tune_time_multiplexed_raises_sls`` and
 ``::test_tune_ann_scope`` (16-10 trained on the pendigits surrogate,
 min-q with ``hsig``); ``evaluate_tm_chain``'s decisions against the
-reference's host chain, its errors, and the device chain that is not
-ported.  On the card (``gpu`` marker) the tuner on ``csd`` equals
+reference's host chain, its errors, and the device chain's decisions
+against the host's.  On the card (``gpu`` marker) the tuner on ``csd`` equals
 ``numpy``."""
 import warnings
 
@@ -61,17 +61,23 @@ def _jref(m):
                    [b.copy() for b in m.biases], list(m.activations), m.q)
 
 
-def _assert_same(got, want, backend_name):
+def _assert_same(got, want, backend_name, candidates=True):
+    """Equal results and stats; ``candidates=False`` leaves out
+    ``stats["candidates"]``, which the device chain engine counts otherwise
+    than the host's."""
     for a, b in zip(got.mlp.weights + got.mlp.biases,
                     want.mlp.weights + want.mlp.biases):
         np.testing.assert_array_equal(a, b)
     assert (got.bha, got.initial_ha, got.replacements, got.sweeps,
             got.log) == (want.bha, want.initial_ha, want.replacements,
                          want.sweeps, want.log)
-    stats = dict(got.stats)
+    stats, want_stats = dict(got.stats), dict(want.stats)
     if "backend" in stats:
         stats["backend"] = backend_name
-    assert stats == want.stats
+    if not candidates:
+        stats.pop("candidates")
+        want_stats.pop("candidates")
+    assert stats == want_stats
 
 
 @pytest.mark.parametrize("backend", ["numpy", "torch"])
@@ -163,8 +169,9 @@ def test_evaluate_tm_chain_equals_reference(trained, backend):
 
 
 def test_evaluate_tm_chain_errors(trained):
-    """The reference's ValueErrors, and the device chain, which is not
-    ported (ROADMAP queue 1, item 7), as NotImplementedError."""
+    """The reference's ValueErrors; the device chain (ported since the
+    device chains came) decides as the host chain, alone and in the
+    tuner."""
     mlp, x, y = trained
     ev = BatchedHWEvaluator(_port(mlp), x, y, backend="torch", device="cpu")
     jev = JEvaluator(_jref(mlp), x, y, backend="numpy")
@@ -187,11 +194,17 @@ def test_evaluate_tm_chain_errors(trained):
     with pytest.raises(ValueError):
         ev.evaluate_tm_chain([good], bha, engine="scan")
     assert ev.evaluate_tm_chain([], bha) == []
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ev.evaluate_tm_chain([good], bha, engine="device")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tune_time_multiplexed(_port(mlp), x, y, max_sweeps=1,
-                              chain_engine="device", device="cpu")
+    assert ev.evaluate_tm_chain([good], bha, engine="device") == \
+        ev.evaluate_tm_chain([good], bha, engine="host")
+    dev = tune_time_multiplexed(_port(mlp), x, y, max_sweeps=1,
+                                chain_engine="device", device="cpu")
+    host = tune_time_multiplexed(_port(mlp), x, y, max_sweeps=1,
+                                 chain_engine="host", device="cpu")
+    assert (dev.bha, dev.replacements, dev.sweeps, dev.log) == \
+        (host.bha, host.replacements, host.sweeps, host.log)
+    assert all(np.array_equal(a, b) for a, b in
+               zip(dev.mlp.weights + dev.mlp.biases,
+                   host.mlp.weights + host.mlp.biases))
     with pytest.raises(ValueError):
         tune_time_multiplexed(_port(mlp), x, y, engine="loop", device="cpu")
     with pytest.raises(ValueError):
@@ -232,10 +245,13 @@ def _needs_card():
 
 @pytest.mark.gpu
 def test_gpu_tm_tuner_csd_equals_numpy():
-    """On the card ``auto`` is the csd backend; the TM tuner's whole result
-    equals the numpy backend's for both scopes (its chains run on the
-    host, so no kernel launches from the chain itself)."""
+    """On the card ``auto`` is the csd backend and the chain engine the
+    ``tm_chain`` kernel, one launch a chain call; the TM tuner's result
+    equals the numpy backend's for both scopes, ``stats["candidates"]``
+    aside (the device engine counts every nudge of a failed pair), and
+    with ``chain_engine="host"`` on csd the whole result does."""
     _needs_card()
+    from repro_torch.kernels.chain_scan import tm_chain_kernel
     rng = np.random.default_rng(2)
     ws = [(rng.integers(-40, 41, (16, 16)) * rng.integers(1, 3, (16, 16)))
           .astype(np.int64), (rng.integers(-40, 41, (16, 10)) * 2)
@@ -246,10 +262,15 @@ def test_gpu_tm_tuner_csd_equals_numpy():
     xv = rng.integers(-128, 128, (2248, 16)).astype(np.int64)
     yv = rng.integers(0, 10, 2248)
     for scope in ("neuron", "ann"):
+        n0 = tm_chain_kernel.launches
         got = tune_time_multiplexed(_port(m), xv, yv, scope=scope,
                                     max_sweeps=2)
+        assert tm_chain_kernel.launches - n0 == got.stats["eval_calls"]
+        host = tune_time_multiplexed(_port(m), xv, yv, scope=scope,
+                                     max_sweeps=2, chain_engine="host")
         want = tune_time_multiplexed(_port(m), xv, yv, scope=scope,
                                      max_sweeps=2, backend="numpy",
                                      device="cpu")
-        assert got.stats["backend"] == "csd"
-        _assert_same(got, want, "numpy")
+        assert got.stats["backend"] == host.stats["backend"] == "csd"
+        _assert_same(got, want, "numpy", candidates=False)
+        _assert_same(host, want, "numpy")
