@@ -102,13 +102,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    and SIMURG files byte-identical;
 6c. the device decision chains and measured dispatch on phase 6's net
    and validation rows: both chain kernels (``chain_scan``, ``tm_chain``)
-   against their plain versions bit for bit (``torch.equal`` on every
-   output), the serial one also against the host chain, on the tuners'
-   own first-sweep runs and on random runs at every layer of 16-16-10-10
-   and of a 5-layer net (pair accepts, nudge hits and steps where every
-   nudge fails all seen), each timed on layer 0's first-sweep run
-   (device time from ``torch.profiler``) beside the host chain's wall
-   time; ``tune_time_multiplexed(scope="neuron", max_sweeps=2,
+   on both routes (``cluster``, ``block``) against their plain versions
+   bit for bit (``torch.equal`` on every output), the serial one also
+   against the host chain, on the tuners' own first-sweep runs and on
+   random runs at every layer of 16-16-10-10 and of a 5-layer net (pair
+   accepts, nudge hits and steps where every nudge fails all seen); each
+   timed on layer 0's first-sweep run (device time from
+   ``torch.profiler``) on the cluster at every size that holds the rows
+   and on the block, each also on the run's no-move twin (every move
+   zeroed: the route's synchronisation floor a step), beside the host
+   chain's wall time and the bytes bound, the rule's route and size
+   printed; the chain launches of phases 6, 6c and 6b counted by route
+   and size, every one on the cluster route;
+   ``tune_time_multiplexed(scope="neuron", max_sweeps=2,
    chain_engine="device")`` on ``csd`` identical to phase 6's run and,
    ``stats["candidates"]`` aside, to ``chain_engine="host"``'s on ``csd``
    and to numpy's (host chains, each timed), ``tm_chain`` launched once
@@ -405,10 +411,15 @@ def kernel_phase(torch):
     from repro_torch.nn.layers import _gather_kv_rows
     _gather_kv_rows(kpool[1], vpool[1], g_tbl, engine="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _gather_kv_rows(kpool[1], vpool[1], g_tbl, engine="cuda")
-        torch.cuda.synchronize()
-    names = [e.name for e in device_events(prof)]
+    for _ in range(3):      # a window whose trace recorded nothing again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _gather_kv_rows(kpool[1], vpool[1], g_tbl, engine="cuda")
+            torch.cuda.synchronize()
+        names = [e.name for e in device_events(prof)]
+        if names:
+            break
+        print("paged_gather: the profiler recorded no device event; "
+              "profiling again")
     check(len(names) == 1 and "gather_bulk_kernel" in names[0],
           f"the K+V gather launched {names}, not one bulk pair kernel")
     print(f"paged_gather: bit-exact on both routes (pair and one leaf); the "
@@ -1162,6 +1173,7 @@ def paper_phase(torch):
     tm_chain_kernel.launches = 0
     csd_qsweep_kernel.route_launches.update(resident=0, chunked=0)
     csd_matvec_kernel.route_launches.update(streaming=0, planes=0)
+    zero_chain_routes()
     with qsweep_shapes() as seen:
         run = quickstart.run_pipeline("cuda",
                                       out_dir=os.path.join(SIMURG_OUT, "csd"))
@@ -1171,6 +1183,7 @@ def paper_phase(torch):
                 "tm_chain": tm_chain_kernel.launches}
     routes = dict(csd_qsweep_kernel.route_launches)
     mv_routes = dict(csd_matvec_kernel.route_launches)
+    check_chain_routes("paper", launches)
     res, qr, tp, sweep_ev = run.train, run.qr, run.tp, run.sweep_ev
     xval_int, yval = run.x_val, run.y_val
     test_ha, tune_test_ha = run.test_ha
@@ -1312,20 +1325,26 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(torch, fn, name, reps):
+def kernel_device_ms(torch, fn, name, reps, tries=3):
     """Device milliseconds a launch of the kernel whose name holds
     ``name``, from ``torch.profiler`` over ``reps`` calls of ``fn`` (one
-    launch each) after one untimed call."""
+    launch each) after one untimed call.  A window whose trace lost a
+    launch's record is profiled again, up to ``tries`` windows."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in device_events(prof) if name in e.name]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in device_events(prof) if name in e.name]
+        if len(evs) == reps:
+            break
+        print(f"{name}: {len(evs)} device events for {reps} calls; "
+              f"profiling again")
     check(len(evs) == reps, f"{name}: {len(evs)} device events for {reps} "
-                            f"calls")
+                            f"calls in each of {tries} windows")
     return sum(e.time_range.end - e.time_range.start for e in evs) \
         / reps / 1e3
 
@@ -1338,6 +1357,70 @@ def host_ms(fn, reps=3):
         fn()
         ts.append((time.perf_counter() - t0) * 1e3)
     return sorted(ts)[len(ts) // 2]
+
+
+def on_route(torch, kernel, how, args):
+    """One launch of a chain kernel on route ``how`` (the cluster at the
+    rule's size), checked to be one launch on that route."""
+    n0, r0 = kernel.launches, dict(kernel.route_launches)
+    out = kernel(*args, _route=how)
+    torch.cuda.synchronize()
+    check(kernel.launches == n0 + 1 and kernel.route_launches[how]
+          == r0[how] + 1, f"{kernel.__name__}: not one launch on {how}")
+    return out
+
+
+def time_chain(torch, kernel, plain, args, run, got, host):
+    """Device times of a chain kernel on layer 0's first-sweep ``run``: on
+    the rule's route, on the cluster at every size that holds the rows and
+    on the block, each also on the run's no-move twin (every move zeroed);
+    the plain version's and the host chain's wall times, and the bytes
+    bound."""
+    from repro_torch.kernels.chain_scan import (CLUSTER_SIZES, SMEM_OPTIN,
+                                                cluster_smem, route)
+    tm = kernel.__name__ == "tm_chain_kernel"
+    name = "tm_chain" if tm else "chain_scan"
+    a = args[0]
+    widths = [a[0].shape[1]] + [x.shape[1] for x in args[2]]
+    k, M = args[8], a[args[8]].shape[0]
+    n_db = len(run[0]) if tm else 0
+    sizes0 = dict(kernel.size_launches)
+    check(torch.equal(on_route(torch, kernel, "cluster", (*args, *run)).cpu(),
+                      got.cpu()), f"{name}: the cluster route differs")
+    first = [c for c, n in kernel.size_launches.items() if n > sizes0[c]]
+    check(route(widths, k, M, n_db) == "cluster" and len(first) == 1,
+          f"{name}: not one cluster launch at layer 0: {first}")
+    still = _no_move(run, tm)
+    still_want = plain(*args, *still).cpu()
+    variants = [("cluster", c) for c in CLUSTER_SIZES
+                if cluster_smem(widths, k, M, n_db, c) <= SMEM_OPTIN]
+    routes = {}
+    for how, size in variants + [("block", None)]:
+        label = how if size is None else f"cluster C={size}"
+        kname = f"{name}_cluster_kernel" if how == "cluster" \
+            else f"{name}_kernel"
+        call = lambda: kernel(*args, *run, _route=how,  # noqa: E731
+                              _size=size)
+        out = call()
+        check(torch.equal(out.cpu(), got.cpu()),
+              f"{name} on {label} differs from the rule's route")
+        still_call = lambda: kernel(*args, *still,  # noqa: E731
+                                    _route=how, _size=size)
+        check(torch.equal(still_call().cpu(), still_want),
+              f"{name}'s no-move run on {label} differs from the plain "
+              f"version")
+        routes[label] = dict(
+            ms=kernel_device_ms(torch, call, kname, 20),
+            eager_ms=event_ms(torch, call, 20),
+            floor_ms=kernel_device_ms(torch, still_call, kname, 20))
+    n_ok = int(got[:, 0 if tm else 1].sum().item())
+    n = len(run[1]) if tm else len(run[0])
+    return dict(
+        steps=n, accepted=n_ok, route=f"cluster C={first[0]}", routes=routes,
+        plain_ms=host_ms(lambda: (plain(*args, *run),
+                                  torch.cuda.synchronize()), 1),
+        host_ms=host_ms(host),
+        bytes=_chain_bytes(args, n, n_ok, 6 if tm else 2))
 
 
 def _first_sweep_runs(ev, k):
@@ -1393,6 +1476,42 @@ def _chain_bytes(args, n_steps, n_ok, out_cols):
             + 4 * M * (3 * n_steps + 2 * n_ok) + 4 * out_cols * n_steps)
 
 
+def zero_chain_routes():
+    from repro_torch.kernels.chain_scan import (chain_scan_kernel,
+                                                tm_chain_kernel)
+    for kern in (chain_scan_kernel, tm_chain_kernel):
+        kern.route_launches.update(cluster=0, block=0)
+        kern.size_launches.update(dict.fromkeys(kern.size_launches, 0))
+
+
+def check_chain_routes(label, launches):
+    """Print the chain kernels' launches by route since
+    ``zero_chain_routes`` and check that every one ran on the cluster
+    route (the paper's shapes)."""
+    from repro_torch.kernels.chain_scan import (chain_scan_kernel,
+                                                tm_chain_kernel)
+    routes = {"chain_scan": dict(chain_scan_kernel.route_launches),
+              "tm_chain": dict(tm_chain_kernel.route_launches)}
+    sizes = {"chain_scan": dict(chain_scan_kernel.size_launches),
+             "tm_chain": dict(tm_chain_kernel.size_launches)}
+    print(f"{label} chain launches by route: {routes}; cluster launches by "
+          f"size: {sizes}")
+    for name, r in routes.items():
+        check(r == {"cluster": launches[name], "block": 0},
+              f"{label}: {name} launches {launches[name]} off the cluster "
+              f"route: {r}")
+
+
+def _no_move(args_steps, tm):
+    """The same run with every move zeroed (dw = db = 0, the nudges 0):
+    no row's layer-k output moves, so no row runs a tail."""
+    if tm:
+        dbsh, wi, wj, dw0, dw1, *rest = args_steps
+        return ((0,) * len(dbsh), wi, wj, 0 * dw0, 0 * dw1, *rest)
+    wi, wj, dw, db = args_steps
+    return wi, wj, 0 * dw, 0 * db
+
+
 def chains_phase(torch, run, tm_np):
     """Phase 6c: the device decision chains and measured dispatch at the
     paper's full size (phase 6's 16-16-10-10 and validation split)."""
@@ -1402,7 +1521,7 @@ def chains_phase(torch, run, tm_np):
                                   tune_time_multiplexed)
     from repro_torch.core.intmlp import IntMLP
     from repro_torch.eval import BatchedHWEvaluator, QSweepEvaluator
-    from repro_torch.kernels.chain_scan import (chain_scan_kernel,
+    from repro_torch.kernels.chain_scan import (ROUTES, chain_scan_kernel,
                                                 chain_scan_plain,
                                                 tm_chain_kernel,
                                                 tm_chain_plain)
@@ -1433,14 +1552,13 @@ def chains_phase(torch, run, tm_np):
             for kind, cands, steps in runs:
                 args = dev._chain_args(k, ev._count)
                 _, wi, wj, dw, db = ev._pack(cands)
-                n0 = chain_scan_kernel.launches
-                got = chain_scan_kernel(*args, wi, wj, dw, db)
-                torch.cuda.synchronize()
-                check(chain_scan_kernel.launches == n0 + 1,
-                      "chain_scan: not one launch")
                 want = chain_scan_plain(*args, wi, wj, dw, db)
-                check(torch.equal(got.cpu(), want.cpu()),
-                      f"chain_scan kernel != plain ({label}, k={k}, {kind})")
+                for how in ROUTES:
+                    got = on_route(torch, chain_scan_kernel, how,
+                                   (*args, wi, wj, dw, db))
+                    check(torch.equal(got.cpu(), want.cpu()),
+                          f"chain_scan kernel ({how}) != plain ({label}, "
+                          f"k={k}, {kind})")
                 host = ev._chain_np(k, wi, wj, dw, db)
                 check(np.array_equal(got[:, 0].cpu().numpy(), host[0])
                       and np.array_equal(got[:, 1].cpu().numpy() != 0,
@@ -1448,15 +1566,13 @@ def chains_phase(torch, run, tm_np):
                       f"chain_scan != the host chain ({label}, k={k})")
                 packed = ev._tm_pack(k, steps) if steps else None
                 if packed is not None:
-                    n0 = tm_chain_kernel.launches
-                    got_tm = tm_chain_kernel(*args, *packed)
-                    torch.cuda.synchronize()
-                    check(tm_chain_kernel.launches == n0 + 1,
-                          "tm_chain: not one launch")
                     want_tm = tm_chain_plain(*args, *packed)
-                    check(torch.equal(got_tm.cpu(), want_tm.cpu()),
-                          f"tm_chain kernel != plain ({label}, k={k}, "
-                          f"{kind})")
+                    for how in ROUTES:
+                        got_tm = on_route(torch, tm_chain_kernel, how,
+                                          (*args, *packed))
+                        check(torch.equal(got_tm.cpu(), want_tm.cpu()),
+                              f"tm_chain kernel ({how}) != plain ({label}, "
+                              f"k={k}, {kind})")
                     out = got_tm.cpu().numpy()
                     kinds.update("pair" if ok and pair else "nudge" if ok
                                  else "miss" for ok, pair in out[:, [0, 2]])
@@ -1465,51 +1581,49 @@ def chains_phase(torch, run, tm_np):
                     continue
                 # the timed runs: layer 0 of the paper's net, first sweep
                 check(packed is not None, "no TM run at layer 0")
-                n_ok = int(got[:, 1].sum())
-                call = lambda: chain_scan_kernel(  # noqa: E731
-                    *args, wi, wj, dw, db)
-                timed["chain_scan"] = dict(
-                    steps=len(cands), accepted=n_ok,
-                    ms=kernel_device_ms(torch, call, "chain_scan_kernel", 20),
-                    eager_ms=event_ms(torch, call, 20),
-                    plain_ms=host_ms(lambda: (chain_scan_plain(
-                        *args, wi, wj, dw, db), torch.cuda.synchronize()), 1),
-                    host_ms=host_ms(lambda: ev._chain_np(k, wi, wj, dw, db)),
-                    bytes=_chain_bytes(args, len(cands), n_ok, 2))
-                n_ok = int(got_tm[:, 0].sum().item())
-                call = lambda: tm_chain_kernel(*args, *packed)  # noqa: E731
-                timed["tm_chain"] = dict(
-                    steps=len(steps), accepted=n_ok,
-                    ms=kernel_device_ms(torch, call, "tm_chain_kernel", 20),
-                    eager_ms=event_ms(torch, call, 20),
-                    plain_ms=host_ms(lambda: (tm_chain_plain(
-                        *args, *packed), torch.cuda.synchronize()), 1),
-                    host_ms=host_ms(lambda: ev._tm_chain_np(k, steps)),
-                    bytes=_chain_bytes(args, len(steps), n_ok, 6))
+                timed["chain_scan"] = time_chain(
+                    torch, chain_scan_kernel, chain_scan_plain, args,
+                    (wi, wj, dw, db), got,
+                    lambda: ev._chain_np(k, wi, wj, dw, db))
+                timed["tm_chain"] = time_chain(
+                    torch, tm_chain_kernel, tm_chain_plain, args, packed,
+                    got_tm, lambda: ev._tm_chain_np(k, steps))
     check(set(kinds) == {"pair", "nudge", "miss"},
           f"the TM runs missed a kind of step: {dict(kinds)}")
     print(f"chains: both kernels bit-exact against their plain versions "
-          f"(and the serial chain against the host chain) on {n_checked} "
-          f"runs, every layer of 16-16-10-10 and of a 5-layer net, 2248 "
-          f"rows; TM steps: {dict(kinds)}")
+          f"on both routes ({' and '.join(ROUTES)}; the serial chain "
+          f"also against the host chain) on {n_checked} runs, every layer "
+          f"of 16-16-10-10 and of a 5-layer net, 2248 rows; TM steps: "
+          f"{dict(kinds)}")
     rows = []
     for name, t in timed.items():
         bound_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        print(f"{name}: {t['ms']*1e3:.2f} us a launch on the card "
-              f"({t['eager_ms']*1e3:.2f} us an eager call; {t['steps']} "
-              f"steps, {t['accepted']} accepted, layer 0), the host chain "
-              f"{t['host_ms']*1e3:.2f} us, the "
-              f"plain version {t['plain_ms']*1e3:.2f} us, bound "
-              f"{bound_ms*1e3:.3f} us (bytes) [{CARD}]")
+        main = t["routes"][t["route"]]
+        for how, r in t["routes"].items():
+            print(f"{name} on {how}: {r['ms']*1e3:.2f} us a launch on the "
+                  f"card, {r['ms']*1e3/t['steps']:.3f} us a step "
+                  f"({r['eager_ms']*1e3:.2f} us an eager call; "
+                  f"{t['steps']} steps, {t['accepted']} accepted, layer 0); "
+                  f"the no-move run {r['floor_ms']*1e3:.2f} us, "
+                  f"{r['floor_ms']*1e3/t['steps']:.3f} us a step "
+                  f"(the route's synchronisation floor) [{CARD}]")
+        print(f"{name}: the rule's route {t['route']}; the host chain "
+              f"{t['host_ms']*1e3:.2f} us, the plain version "
+              f"{t['plain_ms']*1e3:.2f} us, bound {bound_ms*1e3:.3f} us "
+              f"(bytes), {bound_ms*1e3/t['steps']:.4f} us a step [{CARD}]")
         rows.append({
             "name": name, "route": "cuda",
+            "kernel_route": t["route"],
             "source": "src/repro_torch/kernels/csrc/chain_scan.cu",
             "replaces": "src/repro/eval/jaxtail.py:" + (
                 "346" if name == "chain_scan" else "267"),
-            "max_abs_err": 0.0, "ms": t["ms"], "eager_ms": t["eager_ms"],
-            "plain_ms": t["plain_ms"],
+            "max_abs_err": 0.0, "ms": main["ms"],
+            "eager_ms": main["eager_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
             "host_chain_ms": t["host_ms"],
+            "routes_ms": {how: r["ms"] for how, r in t["routes"].items()},
+            "no_move_ms": {how: r["floor_ms"]
+                           for how, r in t["routes"].items()},
             "shape": f"16-16-10-10, 2248 rows, layer 0, {t['steps']} steps "
                      f"of the first sweep"})
 
@@ -1522,6 +1636,7 @@ def chains_phase(torch, run, tm_np):
                 ("csd_qsweep", csd_qsweep_kernel))
     for _, kern in counters:
         kern.launches = 0
+    zero_chain_routes()
     t0 = time.perf_counter()
     tm_dev = tune_time_multiplexed(qr.mlp, xval, yval, scope="neuron",
                                    max_sweeps=quickstart.TM_SWEEPS,
@@ -1540,6 +1655,7 @@ def chains_phase(torch, run, tm_np):
                            max_sweeps=quickstart.MAX_SWEEPS)
     t_tp = time.perf_counter() - t0
     chain_launches = {name: kern.launches for name, kern in counters}
+    check_chain_routes("chains (the two tuners)", chain_launches)
     n_tp = chain_launches["chain_scan"]
     check(tm_dev.stats["backend"] == "csd", "TM tuner left csd")
     check(_tune_summary(tm_dev) == _tune_summary(run.tm)
@@ -1715,6 +1831,7 @@ def explore_phase(torch):
     tm_chain_kernel.launches = 0
     csd_qsweep_kernel.route_launches.update(resident=0, chunked=0)
     csd_matvec_kernel.route_launches.update(streaming=0, planes=0)
+    zero_chain_routes()
     with qsweep_shapes() as seen:
         r = lx.run_explore(res, x_val, y_val, "cuda", tuners=tuners,
                            planner=SynthesisPlanner(), evaluator=ev)
@@ -1724,6 +1841,7 @@ def explore_phase(torch):
                 "chain_scan": chain_scan_kernel.launches,
                 "tm_chain": tm_chain_kernel.launches}
     routes = dict(csd_qsweep_kernel.route_launches)
+    check_chain_routes("explore", launches)
     check(launches["csd_qsweep"] > 0,
           f"csd_qsweep was not launched on the explore path: {launches}")
     check(sum(seen.values()) == launches["csd_qsweep"] == routes["resident"],

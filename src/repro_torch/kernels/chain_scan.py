@@ -28,8 +28,27 @@ running count ``count0``; the steps are host integers.  The caches are
 read, never written.  :func:`chain_scan_plain` and :func:`tm_chain_plain`
 are the same functions in plain PyTorch, a Python loop over the steps with
 a full recount of every row at each, as in the ``lax.scan``; the CPU path
-and the kernels' on-card checks use them.  ``chain_scan_kernel.launches``
-and ``tm_chain_kernel.launches`` count every launch.
+and the kernels' on-card checks use them.
+
+Each kernel has two routes, both bit-identical to the plain versions:
+
+* ``cluster``: one chain on one thread-block cluster of C CTAs (C in
+  ``CLUSTER_SIZES``), each holding a contiguous share of the rows' state
+  in its shared memory for the whole launch; a step's counts are summed
+  across the cluster through distributed shared memory and one cluster
+  barrier.  Taken wherever a CTA's shared memory holds its share of the
+  rows (:func:`cluster_smem`), the first size of ``CLUSTER_SIZES`` that
+  does (the fastest at the paper's shapes) and the card can place
+  (``cudaOccupancyMaxActiveClusters``, queried once a shape).
+* ``block``: one block on one SM, the state in a device-memory
+  workspace; every case the cluster cannot hold, up to 65,280 rows.
+
+:func:`route` is the rule, a pure function of the shapes and the card's
+limits; :func:`fits` / :func:`refusal` are the kernels' whole contract,
+the same on both routes.  ``chain_scan_kernel.launches`` and
+``tm_chain_kernel.launches`` count every launch, their ``route_launches``
+the launches of each route and ``size_launches`` the cluster launches of
+each size.
 """
 from __future__ import annotations
 
@@ -44,8 +63,9 @@ from repro_torch.core.intmlp import act_requant, matmul_int
 from . import build
 
 __all__ = ["chain_scan_plain", "tm_chain_plain", "chain_scan_kernel",
-           "tm_chain_kernel", "fits", "refusal", "ACT_CODES", "MAX_LAYERS",
-           "WIDTHS"]
+           "tm_chain_kernel", "fits", "refusal", "route", "cluster_size",
+           "cluster_smem", "ACT_CODES", "MAX_LAYERS", "WIDTHS", "ROUTES",
+           "CLUSTER_SIZES", "SMEM_OPTIN"]
 
 _NEG = -(1 << 30)
 ACT_CODES = {"htanh": 0, "satlin": 1, "relu": 2, "hsig": 3, "lin": 4}
@@ -53,6 +73,14 @@ MAX_LAYERS = 8          # csrc/chain_scan.cu's kMaxLayers
 WIDTHS = (12, 16)       # the kernels' padded widths of layers past k+1
 _META_INTS = 8 + (MAX_LAYERS + 1) + 3 * MAX_LAYERS
 _I32 = (-(1 << 31), (1 << 31) - 1)
+ROUTES = ("cluster", "block")
+# The cluster route's sizes, the fastest at the paper's shapes first.
+CLUSTER_SIZES = (16, 8, 4, 2)
+SMEM_OPTIN = 232448     # shared memory a block may opt into on an H100
+# csrc/chain_scan.cu: the cluster's reduction slots (2 x kGroup x 16 CTAs
+# x 8 warps ints), and room for a CTA's static shared memory (its Shared)
+_SLOT_INTS = 2 * 8 * 16 * 8
+_STATIC_BYTES = 4096
 
 
 def _count(act_a: torch.Tensor, lab: torch.Tensor,
@@ -169,9 +197,56 @@ def tm_chain_plain(a, acc, w, bsh, lab, lab_safe, acts, q, k, count0, dbsh,
 def _entry(name: str):
     lib = build.load("chain_scan")
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.cache
+def _card_limits(name: str, index: int, width: int, size: int,
+                 smem: int) -> tuple[int, int]:
+    """(shared memory a block may opt into, clusters the card holds at
+    once) on card ``index`` for ``name``'s cluster kernel at ``width`` on
+    ``size`` CTAs of ``smem`` dynamic bytes each; queried once."""
+    lib = build.load("chain_scan")
+    fn = lib.chain_cluster_limits
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    optin, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(int(name == "tm_chain"), width, size, smem,
+                 ctypes.byref(optin), ctypes.byref(clusters))
+    build.check(lib, "chain_cluster_limits", err)
+    return optin.value, clusters.value
+
+
+def _plan(name, dev, widths, k, M, n_db, width, how, size):
+    """(route, cluster size or 0) of a launch: :func:`route`'s under the
+    card's queried limits, or the one forced by ``how`` (and ``size``),
+    which raises where the card cannot take it."""
+    if how not in (None, *ROUTES):
+        raise ValueError(f"route must be one of {ROUTES}, not {how!r}")
+    if how == "block":
+        return "block", 0
+    sizes = CLUSTER_SIZES
+    if size is not None:
+        if how != "cluster" or size not in CLUSTER_SIZES:
+            raise ValueError(f"a cluster size is one of {CLUSTER_SIZES} "
+                             f"on the cluster route, not {size!r}")
+        sizes = (size,)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    limits = {c: _card_limits(name, index, width, c,
+                              cluster_smem(widths, k, M, n_db, c)
+                              - _STATIC_BYTES) for c in sizes}
+    c = cluster_size(widths, k, M, n_db, smem_max=limits[sizes[0]][0],
+                     sizes=tuple(c for c in sizes if limits[c][1] > 0))
+    if c is not None:
+        return "cluster", c
+    if how == "cluster":
+        raise ValueError(f"{name}_kernel: no cluster of {sizes} holds {M} "
+                         f"rows at layer {k} of {list(widths)} on this card")
+    return "block", 0
 
 
 def _int32(values, what: str) -> np.ndarray:
@@ -225,6 +300,44 @@ def fits(widths, k: int, M: int, q: int, n_db: int = 0) -> bool:
     return refusal(widths, k, M, q, n_db) is None
 
 
+def cluster_smem(widths, k: int, M: int, n_db: int, size: int) -> int:
+    """Shared-memory bytes a CTA of the cluster route takes at layer k of
+    a net of ``widths`` over M rows with ``n_db`` nudges on a cluster of
+    ``size`` CTAs: the reduction slots, the packed weights and nudges,
+    ceil(M / size) rows of state (layer k's inputs, accumulators and
+    outputs, layer k+1's accumulators at their padded stride, the row's
+    bit, its candidates' bits and its label) and the static share."""
+    width = _width(widths, k)
+    last = k == len(widths) - 2
+    stride = width + 4 if width % 8 == 0 else width
+    row = (0 if last else stride) + widths[k] + 2 * widths[k + 1] + 3
+    words = _weight_ints(widths, k, width) + n_db
+    return (4 * (_SLOT_INTS + -(-words // 4) * 4 + -(-M // size) * row)
+            + _STATIC_BYTES)
+
+
+def cluster_size(widths, k: int, M: int, n_db: int = 0, *,
+                 smem_max: int = SMEM_OPTIN,
+                 sizes=CLUSTER_SIZES) -> int | None:
+    """The cluster route's size for a shape the kernels take: the first of
+    ``sizes`` whose CTAs' shared memory (at most ``smem_max`` bytes) holds
+    their rows; None when none does.  ``smem_max`` and ``sizes`` are the
+    card's limits (an H100's by default; the wrapper passes the queried
+    ones)."""
+    if _width(widths, k) is None:
+        return None
+    return next((c for c in sizes
+                 if cluster_smem(widths, k, M, n_db, c) <= smem_max), None)
+
+
+def route(widths, k: int, M: int, n_db: int = 0, *,
+          smem_max: int = SMEM_OPTIN, sizes=CLUSTER_SIZES) -> str:
+    """``"cluster"`` where :func:`cluster_size` finds a size, else
+    ``"block"``: a pure function of the shapes and the card's limits."""
+    return "block" if cluster_size(widths, k, M, n_db, smem_max=smem_max,
+                                   sizes=sizes) is None else "cluster"
+
+
 def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     """``t`` (2-D, or 1-D as one row) zero-padded to (rows, cols), flat."""
     t = t.reshape(-1, t.shape[-1])
@@ -233,9 +346,10 @@ def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _launch(name, a, acc, w, bsh, lab, lab_safe, acts, q, k, count0,
-            n_steps, n_db, step_ints, n_out_cols):
-    """Check the caches, pack the weights and the Net, launch ``name``;
-    returns the (n_steps, n_out_cols) int32 output."""
+            n_steps, n_db, step_ints, n_out_cols, how, size):
+    """Check the caches, pack the weights and the Net, launch ``name`` on
+    its route; returns the (n_steps, n_out_cols) int32 output, the route
+    and the cluster's size (0 on the block)."""
     L = len(w)
     dev = a[k].device
     if dev.type != "cuda":
@@ -281,48 +395,70 @@ def _launch(name, a, acc, w, bsh, lab, lab_safe, acts, q, k, count0,
     wpack = (torch.cat(packed) if packed
              else torch.zeros(4, dtype=torch.int32, device=dev))
     steps = torch.from_numpy(step_ints).to(dev)
-    n1 = widths[k + 1]
-    ws = torch.empty(M * (widths[k] + 2 * n1 + (0 if last else width) + 2),
-                     dtype=torch.int32, device=dev)
+    how, size = _plan(name, dev, widths, k, M, n_db, width, how, size)
+    if how == "block":
+        n1 = widths[k + 1]
+        ws = torch.empty(M * (widths[k] + 2 * n1 + (0 if last else width)
+                              + 2), dtype=torch.int32, device=dev)
+        ws_ptr, smem = ws.data_ptr(), 0
+    else:
+        ws_ptr = 0
+        smem = cluster_smem(widths, k, M, n_db, size) - _STATIC_BYTES
     out = torch.empty((n_steps, n_out_cols), dtype=torch.int32, device=dev)
     lib, fn = _entry(name)
     err = fn(meta.ctypes.data, a[k].data_ptr(), acc[k].data_ptr(),
              a[k + 1].data_ptr(), 0 if last else acc[k + 1].data_ptr(),
              wpack.data_ptr(), lab.data_ptr(), lab_safe.data_ptr(),
-             steps.data_ptr(), ws.data_ptr(), out.data_ptr(), width,
+             steps.data_ptr(), ws_ptr, out.data_ptr(), width, size, smem,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, name, err)
-    return out
+    return out, how, size
 
 
 def chain_scan_kernel(a, acc, w, bsh, lab, lab_safe, acts, q, k, count0,
-                      wi, wj, dw, db) -> torch.Tensor:
+                      wi, wj, dw, db, *, _route=None,
+                      _size=None) -> torch.Tensor:
     """The CUDA kernel: the contract of :func:`chain_scan_plain`, bit
     identical to it, in one launch.  Up to ``MAX_LAYERS`` layers, layers
     past k+1 at most ``WIDTHS[-1]`` wide, at most 65,280 rows, ``0 <= q <=
-    23``."""
+    23``.  The route is :func:`route`'s under the card's limits; the tests
+    force one with ``_route`` (and the cluster's size with ``_size``)."""
     steps = np.stack([_int32(x, "a step") for x in (wi, wj, dw, db)],
                      axis=1).reshape(-1) if len(wi) else \
         np.zeros(0, np.int32)
-    out = _launch("chain_scan", a, acc, w, bsh, lab, lab_safe, acts, q, k,
-                  count0, len(wi), 0, steps, 2)
+    out, how, size = _launch("chain_scan", a, acc, w, bsh, lab, lab_safe,
+                             acts, q, k, count0, len(wi), 0, steps, 2,
+                             _route, _size)
     chain_scan_kernel.launches += 1
+    chain_scan_kernel.route_launches[how] += 1
+    if size:
+        chain_scan_kernel.size_launches[size] += 1
     return out
 
 
 def tm_chain_kernel(a, acc, w, bsh, lab, lab_safe, acts, q, k, count0, dbsh,
-                    wi, wj, dw0, dw1, has2, valid, pw0, pw1) -> torch.Tensor:
+                    wi, wj, dw0, dw1, has2, valid, pw0, pw1, *, _route=None,
+                    _size=None) -> torch.Tensor:
     """The CUDA kernel: the contract of :func:`tm_chain_plain`, bit
-    identical to it, in one launch.  Limits as :func:`chain_scan_kernel`."""
+    identical to it, in one launch.  Limits and routes as
+    :func:`chain_scan_kernel`."""
     cols = (wi, wj, dw0, dw1, has2, valid, pw0, pw1)
     steps = np.stack([_int32(x, "a step") for x in cols], axis=1) \
         .reshape(-1) if len(wi) else np.zeros(0, np.int32)
     steps = np.concatenate([_int32(dbsh, "a nudge"), steps])
-    out = _launch("tm_chain", a, acc, w, bsh, lab, lab_safe, acts, q, k,
-                  count0, len(wi), len(dbsh), steps, 6)
+    out, how, size = _launch("tm_chain", a, acc, w, bsh, lab, lab_safe,
+                             acts, q, k, count0, len(wi), len(dbsh), steps,
+                             6, _route, _size)
     tm_chain_kernel.launches += 1
+    tm_chain_kernel.route_launches[how] += 1
+    if size:
+        tm_chain_kernel.size_launches[size] += 1
     return out
 
 
 chain_scan_kernel.launches = 0
+chain_scan_kernel.route_launches = dict.fromkeys(ROUTES, 0)
+chain_scan_kernel.size_launches = dict.fromkeys(CLUSTER_SIZES, 0)
 tm_chain_kernel.launches = 0
+tm_chain_kernel.route_launches = dict.fromkeys(ROUTES, 0)
+tm_chain_kernel.size_launches = dict.fromkeys(CLUSTER_SIZES, 0)

@@ -7,9 +7,12 @@ against the reference's device engines (its ``lax.scan`` chains on a
 of ``test_batched_eval.py``, nudge hits and misses among them; whole
 ``TuneResult``s, stats included, of ``tune_time_multiplexed(chain_engine=
 "device")`` and of ``tune_parallel`` on the serial device chain on a
-reduced pendigits case; and every fall-back condition of the device
-engines.  On the card (``gpu`` marker) each chain kernel against its plain
-version bit for bit, one launch a call."""
+reduced pendigits case; every fall-back condition of the device engines;
+and the kernels' route rule (``chain_scan.route``: ``cluster`` wherever
+a CTA's shared memory holds its share of the rows, ``block`` elsewhere).
+On the card (``gpu`` marker) each chain kernel against its plain version
+bit for bit, one launch a call, on both routes and every cluster size
+that holds the rows, each launch's route read off ``route_launches``."""
 import numpy as np
 import pytest
 import torch
@@ -32,10 +35,13 @@ from repro_torch.core.intmlp import FRAC, IntMLP
 from repro_torch.eval import BatchedHWEvaluator, Candidate, TMStep
 from repro_torch.kernels import ops
 from repro_torch.configs.pendigits_mlp import STRUCTURES
-from repro_torch.kernels.chain_scan import (WIDTHS, _width,
+from repro_torch.kernels.chain_scan import (CLUSTER_SIZES, SMEM_OPTIN,
+                                            WIDTHS, _width,
                                             chain_scan_kernel,
-                                            chain_scan_plain, fits, refusal,
-                                            tm_chain_kernel, tm_chain_plain)
+                                            chain_scan_plain, cluster_size,
+                                            cluster_smem, fits, refusal,
+                                            route, tm_chain_kernel,
+                                            tm_chain_plain)
 
 # test_batched_eval.py's structures and activations: its STRUCTS, the
 # commit test's and the deep-tail fallback test's
@@ -70,9 +76,9 @@ def _jref(net):
     return JIntMLP([w.copy() for w in ws], [b.copy() for b in bs], acts, q)
 
 
-def _tm_steps(rng, w, k, n, spread):
+def _tm_steps(rng, w, k, n, spread, dbs=DBS):
     """n TM steps over distinct weights of layer k: one or two candidate
-    values ``spread`` around the weight, the nudges DBS."""
+    values ``spread`` around the weight, the nudges ``dbs``."""
     cells = [(i, j) for i in range(w.shape[0]) for j in range(w.shape[1])]
     rng.shuffle(cells)
     steps = []
@@ -80,7 +86,7 @@ def _tm_steps(rng, w, k, n, spread):
         v = int(w[i, j])
         pws = tuple(v + int(rng.integers(-spread, spread + 1))
                     for _ in range(1 if rng.random() < 0.3 else 2))
-        steps.append((k, j, i, pws, DBS))
+        steps.append((k, j, i, pws, dbs))
     return steps
 
 
@@ -390,6 +396,68 @@ def test_chain_kernel_fits(widths, k, M, q, n_db, ok):
     assert (refusal(widths, k, M, q, n_db) is None) is ok
 
 
+@pytest.mark.parametrize("M", [1, 211, 2248])
+@pytest.mark.parametrize("struct", STRUCTURES, ids=str)
+def test_chain_route_is_cluster_on_the_paper_structures(struct, M):
+    """At every layer of the paper's five structures, with eight nudges,
+    the rule takes the cluster route, at its fastest size (the first of
+    ``CLUSTER_SIZES``), and a CTA's shared memory stays within the 227 KB
+    a block may opt into."""
+    for k in range(len(struct) - 1):
+        assert route(list(struct), k, M, len(DBS)) == "cluster", (k, M)
+        assert cluster_size(list(struct), k, M, len(DBS)) == \
+            CLUSTER_SIZES[0]
+        assert cluster_smem(list(struct), k, M, len(DBS),
+                            CLUSTER_SIZES[0]) <= SMEM_OPTIN == 227 * 1024
+
+
+@pytest.mark.parametrize("widths,k,M,n_db,size", [
+    ((16, 16, 10, 10), 0, 65280, 8, None),       # the block's most rows
+    ((16, 16, 10, 10), 2, 65280, 0, None),
+    ((16, 16, 10, 10), 0, 20000, 8, None),       # 1250 rows a CTA
+    ((16, 16, 10, 10), 2, 16000, 0, 16),         # k last: no layer k+1 row
+    ((16, 16, 10, 10), 0, 9000, 8, 16),          # only 16 holds
+    ((16, 16, 10, 10), 0, 4000, 8, 16),
+    ((16, 700, 16, 10), 0, 2248, 8, None),       # 700 wide layer k+1
+    ((16, 150, 16, 10), 0, 2248, 8, 16),
+    ((8, 40, 16, 4), 0, 2248, 9, 16),            # W = 16, stride 20
+    ((4,) * 9, 3, 65280, 0, None),
+])
+def test_chain_route_block_where_the_cluster_cannot_hold(widths, k, M, n_db,
+                                                         size):
+    """Where no cluster size's CTAs hold their rows in shared memory the
+    rule takes the block route; where one does, the first that does."""
+    assert fits(widths, k, M, 6, n_db)
+    assert cluster_size(widths, k, M, n_db) == size
+    assert route(widths, k, M, n_db) == ("block" if size is None
+                                         else "cluster")
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+@pytest.mark.parametrize("n_db", [0, 8, 9, 400])
+def test_chain_cluster_smem_stays_within_the_card(k, n_db):
+    """Whenever the rule picks the cluster, the reckoned shared memory a
+    CTA stays within ``smem_max`` (227 KB by default), over rows from 1 to
+    past the block's limit; the bytes grow with the rows, shrink with the
+    size, and the card's queried limits (fewer sizes, less memory) only
+    move shapes to the block route."""
+    widths = [16, 16, 10, 10]
+    for M in [1, 2, 15, 16, 17, 211, 2248, 4097, 8191, 12000, 16385, 30000,
+              65280]:
+        picked = cluster_size(widths, k, M, n_db)
+        if picked is not None:
+            assert cluster_smem(widths, k, M, n_db, picked) <= SMEM_OPTIN
+            assert all(cluster_smem(widths, k, M, n_db, c) > SMEM_OPTIN
+                       for c in CLUSTER_SIZES[:CLUSTER_SIZES.index(picked)])
+        smem = [cluster_smem(widths, k, M, n_db, c) for c in CLUSTER_SIZES]
+        assert smem == sorted(smem)         # 16 CTAs hold fewer rows each
+        assert cluster_smem(widths, k, M + 16, n_db, 16) > smem[0]
+        assert route(widths, k, M, n_db, sizes=()) == "block"
+        assert route(widths, k, M, n_db, smem_max=100 * 1024,
+                     sizes=(4, 2)) in (("cluster",) if smem[2] <= 100 * 1024
+                                       else ("block",))
+
+
 def test_wide_net_device_engine_on_the_cpu(plain_calls):
     """The kernels' limits are the card's: on a CPU evaluator a net wider
     than the kernels take still runs the device engine, its plain version,
@@ -461,6 +529,113 @@ def test_gpu_chain_kernels_bit_exact(M, struct, acts):
         torch.cuda.synchronize()
         assert tm_chain_kernel.launches == n0 + 1
         assert torch.equal(got.cpu(), tm_chain_plain(*args, *packed).cpu())
+
+
+NUDGES = {0: (), 8: DBS, 9: DBS + (5,)}       # n_db 9: a group boundary
+ROUTE_NETS = [PAPER, *STRUCTS, ((8, 40, 16, 4), ("htanh", "relu", "hsig"))]
+
+
+def _routes(widths, k, M, n_db):
+    """(route, size) pairs to force: the block, and the cluster at every
+    size whose CTAs hold their rows."""
+    return [("block", None)] + [
+        ("cluster", c) for c in CLUSTER_SIZES
+        if cluster_smem(widths, k, M, n_db, c) <= SMEM_OPTIN]
+
+
+def _forced(kernel, args, how, size):
+    """One launch of ``kernel`` on a forced route; asserts the route from
+    ``route_launches``."""
+    before = dict(kernel.route_launches)
+    out = kernel(*args, _route=how, _size=size)
+    torch.cuda.synchronize()
+    after = kernel.route_launches
+    assert {r: after[r] - before[r] for r in after} == \
+        {r: int(r == how) for r in after}, (how, size)
+    return out.cpu()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 15, 2248, 4097])
+@pytest.mark.parametrize("struct,acts", ROUTE_NETS,
+                         ids=["paper", *[str(s) for s, _ in STRUCTS],
+                              "width-16"])
+def test_gpu_chain_routes_bit_exact(M, struct, acts):
+    """Both chain kernels on both routes, the cluster at every size that
+    holds the rows, equal their plain versions bit for bit at every layer
+    (the last included): M = 1 (CTAs with no row), C - 1, the paper's 2248
+    and one past 16 CTAs x 256 threads; W = 16 (``[8, 40, 16, 4]``); 0, 8
+    and 9 nudges (one past a group).  At the larger M the TM runs see pair
+    accepts, nudge hits and misses."""
+    _needs_card()
+    rng = np.random.default_rng(M + 3 * sum(struct))
+    ev, net = _state(rng, struct, acts, 5, M, "cuda")
+    dev = ev._device_state()
+    widths = list(struct)
+    kinds = set()
+    for k in range(len(net[0])):
+        w = net[0][k]
+        args = dev._chain_args(k, ev._count)
+        _, wi, wj, dw, db = ev._pack([Candidate(*c) for c in _chain_cands(
+            rng, w, k, min(w.size, 48), 20)])
+        want = chain_scan_plain(*args, wi, wj, dw, db).cpu()
+        for how, size in _routes(widths, k, M, 0):
+            got = _forced(chain_scan_kernel, (*args, wi, wj, dw, db), how,
+                          size)
+            assert torch.equal(got, want), (k, how, size)
+        for n_db, dbs in NUDGES.items():
+            steps = [TMStep(*s) for s in _tm_steps(rng, w, k,
+                                                   min(w.size, 32), 40, dbs)]
+            packed = ev._tm_pack(k, steps)
+            assert len(packed[0]) == n_db
+            packed[6][::5] = False          # invalid steps never accept
+            want = tm_chain_plain(*args, *packed).cpu()
+            kinds |= {"pair" if ok and pair else "nudge" if ok else "miss"
+                      for ok, pair in want[:, [0, 2]].tolist()}
+            for how, size in _routes(widths, k, M, n_db):
+                got = _forced(tm_chain_kernel, (*args, *packed), how, size)
+                assert torch.equal(got, want), (k, n_db, how, size)
+    if M >= 2248:
+        assert kinds == {"pair", "nudge", "miss"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,how", [(2248, "cluster"), (211, "cluster"),
+                                   (30000, "block")])
+def test_gpu_default_route_is_the_rule(M, how):
+    """Unforced, each kernel takes :func:`route`'s route (the cluster at
+    the paper's shapes, the block where no cluster holds the rows), one
+    launch a call, bit for bit; a forced cluster that cannot hold the
+    rows raises, and launches nothing."""
+    _needs_card()
+    rng = np.random.default_rng(M)
+    ev, net = _state(rng, *PAPER, 6, M, "cuda")
+    dev = ev._device_state()
+    assert route(list(PAPER[0]), 0, M, len(DBS)) == how
+    args = dev._chain_args(0, ev._count)
+    _, wi, wj, dw, db = ev._pack([Candidate(*c) for c in _chain_cands(
+        rng, net[0][0], 0, 24, 20)])
+    before = dict(chain_scan_kernel.route_launches)
+    got = ops.chain_scan(*args, wi, wj, dw, db)
+    torch.cuda.synchronize()
+    assert chain_scan_kernel.route_launches[how] == before[how] + 1
+    assert torch.equal(got.cpu(), chain_scan_plain(*args, wi, wj, dw,
+                                                   db).cpu())
+    packed = ev._tm_pack(0, [TMStep(*s) for s in _tm_steps(
+        rng, net[0][0], 0, 24, 40)])
+    before = dict(tm_chain_kernel.route_launches)
+    got = ops.tm_chain(*args, *packed)
+    torch.cuda.synchronize()
+    assert tm_chain_kernel.route_launches[how] == before[how] + 1
+    assert torch.equal(got.cpu(), tm_chain_plain(*args, *packed).cpu())
+    if how == "block":
+        n0 = chain_scan_kernel.launches
+        with pytest.raises(ValueError, match="cluster"):
+            chain_scan_kernel(*args, wi, wj, dw, db, _route="cluster")
+        with pytest.raises(ValueError, match="cluster"):
+            chain_scan_kernel(*args, wi, wj, dw, db, _route="cluster",
+                              _size=16)
+        assert chain_scan_kernel.launches == n0
 
 
 @pytest.mark.gpu
