@@ -181,7 +181,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    serving: 26 linear-scan and 12 flash launches per prefill or loss
    forward, 26 linear-scan and no flash launches per decode step; the
    loss's scans all on the ring route, the serving's on the ring
-   (prefill) and step (decode) routes.
+   (prefill) and step (decode) routes;
+10. the MoE family, after the hybrid's memory is freed: first the three
+   attention-path kernels at its new shapes against their plain versions
+   and timed (the K+V pair gather bit for bit and the split paged
+   attention at 16 / 16 and 56 / 8 heads of 128, flash at qwen2-moe's
+   loss and first ReferenceEngine prefill shapes under
+   ``bf16_disagreement``); then qwen2-moe-a2.7b at full width and depth
+   (14,315,735,040 f32 parameters from seed 0, each leaf cast to bf16
+   once): ``ServeEngine`` at the serving cell's settings on its 16
+   requests on the fused route (counters zeroed just before and read just
+   after: one K+V pair gather a layer and prefill dispatch, one attention
+   and one combine launch a layer and decode step), then take/dense
+   (first decode logits within ``LOGIT_REL_TOL``) and cuda/dense (tokens
+   and logits identical to take/dense); the fused run's first prefill
+   dispatch's layer-0 routing (``moe_route`` on the card) identical to a
+   numpy recomputation on the same probabilities; ``ReferenceEngine`` (4
+   rows x 2048, the hybrid's 8 prompts, one flash launch a layer and
+   prefill); one 8 x 1024 ``Model.loss`` (xent near ln V + s2/2, aux
+   printed); the int8-PoT engine at 8 of the 24 layers (both routes, its
+   serving ledger and ``quant_bytes`` printed, the f32 masters dropped
+   once the engines are built); arctic-480b's full-width layer (1 of 35)
+   in bf16 on both routes, 8 of the serving cell's requests.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -231,6 +252,25 @@ HYB_LOSS_SEQ = 4096
 # a lost recurrent or conv state moves them by a large share of it.
 HYB_DECODE_PROMPT = 2100
 HYB_DECODE_REL = 2e-3          # x max |logit|
+# The MoE path: qwen2-moe-a2.7b at full width and depth (24 layers,
+# d_model 2048, 16 / 16 heads of 128, 60 routed experts of width 1408, top
+# 4, and 4 shared, vocab 151936) with random weights from seed 0, f32
+# masters cast to bf16 once; the serving cell's engine and 16 requests,
+# the hybrid cell's ReferenceEngine batch and prompts, one 8 x 1024 loss.
+# The int8-PoT engine does not fit at full depth (a 25.72 GiB qtree, a
+# 26.67 GiB bf16 dequantized transient a dispatch, quantized from 53.33
+# GiB of f32 masters): it runs 8 of the 24 layers (19.32 GiB of masters,
+# an 8.96 GiB qtree).  arctic-480b (d_model 7168, 56 / 8 heads of 128,
+# 128 experts of width 4864, top 2, a dense residual of width 4864) is
+# 14.07 B parameters a layer, 52.41 GiB in f32: one layer of 35, on 8 of
+# the serving cell's requests.
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_PARAMS = 14_315_735_040        # leaves of the reference's Model.init
+MOE_QUANT_LAYERS, MOE_QUANT_PARAMS = 8, 5_186_799_616
+MOE_LOSS_BATCH, MOE_LOSS_SEQ = 8, 1024
+ARCTIC_ARCH = "arctic-480b"
+ARCTIC_LAYERS, ARCTIC_PARAMS = 1, 14_069_945_344
+ARCTIC_REQUESTS = 8
 # The int8 power-of-two matmul: held bit for bit at the reference tests'
 # shapes, the kernel lane's (benchmarks/run.py) and M = 1; then at
 # qwen2-0.5b's widths at M = 8 (a decode step of 8 slots) and M = 512 (a
@@ -562,9 +602,27 @@ def tiny_reference_phase(torch):
     print(f"tiny f32 model: card tokens == CPU tokens ({outs[1][0]} ...)")
 
 
+def serving_spec(vocab):
+    """The serving cell's 16 requests: seeded prompts of 64-700 tokens, 32
+    new tokens each."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 701, 16)
+    return [(rng.integers(0, vocab, n).astype(np.int32), 32) for n in lens]
+
+
 def serve(torch, cfg, params, reqs_spec, record_first, **kw):
-    from repro_torch.runtime.serve import Request, ServeEngine, summarize
+    """A fresh ``ServeEngine`` on the card run over ``reqs_spec``; returns
+    (engine, requests, summary, wall s, first decode logits or None)."""
+    from repro_torch.runtime.serve import ServeEngine
     eng = ServeEngine(cfg, params, eos_id=-1, device="cuda", **kw)
+    return (eng,) + run_engine(torch, eng, reqs_spec, record_first)
+
+
+def run_engine(torch, eng, reqs_spec, record_first):
+    """Serve ``reqs_spec`` [(prompt, max_new)] on ``eng``; returns
+    (requests, summary, wall s, the first decode dispatch's logits when
+    ``record_first``)."""
+    from repro_torch.runtime.serve import Request, summarize
     first = {}
     dispatch = eng._decode
 
@@ -581,7 +639,8 @@ def serve(torch, cfg, params, reqs_spec, record_first, **kw):
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return eng, reqs, summarize(reqs, eng), wall, first.get("logits")
+    eng._decode = dispatch
+    return reqs, summarize(reqs, eng), wall, first.get("logits")
 
 
 def serving_phase(torch):
@@ -599,10 +658,7 @@ def serving_phase(torch):
         return tree.numel()
     print(f"qwen2-0.5b params: {numel(params)/1e9:.3f} B (f32), init "
           f"{time.perf_counter()-t0:.2f} s")
-    rng = np.random.default_rng(0)
-    lens = rng.integers(64, 701, 16)
-    spec = [(rng.integers(0, cfg.vocab, n).astype(np.int32), 32)
-            for n in lens]
+    spec = serving_spec(cfg.vocab)
     kw = dict(max_batch=8, max_context=1024, kv_block_size=32,
               prefill_chunk=128, prefill_batch=4, quantized=True,
               quant_bits=8)
@@ -844,12 +900,54 @@ def visible_pairs(Sq, Skv, causal, window, offset):
     return int(ok.sum())
 
 
+def flash_timing(torch, qkv, shape, kw, reps, dt):
+    """The flash kernel's time at ``shape`` (B, Sq, Skv, Hq, Hkv, D) over
+    input sets from ``qkv(shape, dt)`` (at least twice the L2 together);
+    in bf16 also the plain version's, ``scaled_dot_product_attention``'s
+    and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain)
+    B, Sq, Skv, Hq, Hkv, D = shape
+    one = dt.itemsize * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
+    sets = [qkv(shape, dt)                              # q, o, k, v
+            for _ in range(max(2, -(-2 * L2_BYTES // one)))]
+    ms, eager_ms = time_calls(
+        torch, lambda q, k, v: flash_attention_kernel(q, k, v, **kw),
+        sets, reps)
+    if dt == torch.float32:        # the f32 route's own time only
+        return {"ms": ms, "eager_ms": eager_ms, "sets": len(sets)}
+    plain_ms, _ = time_calls(
+        torch, lambda q, k, v: flash_attention_plain(q, k, v, **kw),
+        sets, 1)
+    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
+                for s in sets]
+    window = kw.get("window", 0)
+    if window:                     # SDPA takes the window as a mask
+        pos = torch.arange(Sq, device="cuda")[:, None] + kw["offset"]
+        kpos = torch.arange(Skv, device="cuda")[None, :]
+        mask = (kpos <= pos) & (kpos > pos - window)
+        sdpa = dict(attn_mask=mask)
+    else:
+        sdpa = dict(is_causal=True)
+    lib_ms, _ = time_calls(
+        torch, lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True, **sdpa), lib_sets, reps)
+    pairs = visible_pairs(Sq, Skv, True, window, kw["offset"])
+    t_ops = 4 * D * pairs * Hq * B / BF16_FLOPS
+    t_bytes = one / HBM_BYTES_PER_S
+    return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "visible_pairs": pairs,
+            "sets": len(sets)}
+
+
 def flash_kernel_phase(torch):
     """The flash-attention kernel against its plain version on the card,
     f32 and bf16, and its time at the loss shape beside the bound, the
     plain version and scaled_dot_product_attention; the same at the hybrid
     path's shapes (D = 256, MQA 16:1, window 2048)."""
-    import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         BF16_SHARE, KEY_TILE, bf16_disagreement, flash_attention_kernel,
@@ -929,39 +1027,7 @@ def flash_kernel_phase(torch):
                       f"{c_share:.3e} (must exceed {BF16_SHARE})")
 
     def timing(shape, kw, reps, dt=torch.bfloat16):
-        B, Sq, Skv, Hq, Hkv, D = shape
-        one = dt.itemsize * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
-        sets = [qkv(shape, dt)                              # q, o, k, v
-                for _ in range(max(2, -(-2 * L2_BYTES // one)))]
-        ms, eager_ms = time_calls(
-            torch, lambda q, k, v: flash_attention_kernel(q, k, v, **kw),
-            sets, reps)
-        if dt == torch.float32:        # the f32 route's own time only
-            return {"ms": ms, "eager_ms": eager_ms, "sets": len(sets)}
-        plain_ms, _ = time_calls(
-            torch, lambda q, k, v: flash_attention_plain(q, k, v, **kw),
-            sets, 1)
-        lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
-                    for s in sets]
-        window = kw.get("window", 0)
-        if window:                     # SDPA takes the window as a mask
-            pos = torch.arange(Sq, device="cuda")[:, None] + kw["offset"]
-            kpos = torch.arange(Skv, device="cuda")[None, :]
-            mask = (kpos <= pos) & (kpos > pos - window)
-            sdpa = dict(attn_mask=mask)
-        else:
-            sdpa = dict(is_causal=True)
-        lib_ms, _ = time_calls(
-            torch, lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, enable_gqa=True, **sdpa), lib_sets, reps)
-        pairs = visible_pairs(Sq, Skv, True, window, kw["offset"])
-        t_ops = 4 * D * pairs * Hq * B / BF16_FLOPS
-        t_bytes = one / HBM_BYTES_PER_S
-        return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_ops, t_bytes) * 1e3,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib_ms, "visible_pairs": pairs,
-                "sets": len(sets)}
+        return flash_timing(torch, qkv, shape, kw, reps, dt)
 
     row = timing((8, 1024, 1024, 14, 2, 64), dict(causal=True, **chunked), 3)
     pre = timing((8, S_pre, S_pre, 14, 2, 64), dict(causal=True, **chunked),
@@ -1101,6 +1167,25 @@ def host_breakdown(torch, fn):
             c0, t0_ = spans.get(key, (0, 0.0))
             spans[key] = (c0 + calls, t0_ + cum)
     return out, wall, spans
+
+
+def host_top(torch, fn, top):
+    """Run ``fn`` under cProfile and print its wall time and the ``top``
+    functions by their own (not cumulative) host seconds."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])
+    print(f"host profile: wall {wall*1e3:.3f} ms under cProfile")
+    for (path, line, name), (_, calls, own, cum, _) in rows[:top]:
+        print(f"  {own*1e3:9.3f} ms own {cum*1e3:9.3f} ms cum {calls:7d} x  "
+              f"{os.path.basename(path)}:{line}:{name}"[:110])
 
 
 def _tune_summary(tp, candidates=True):
@@ -2573,6 +2658,613 @@ def hybrid_phase(torch):
     return launches
 
 
+def moe_kernel_readings(torch):
+    """The attention path's kernels at the MoE cells' shapes, new to the
+    card: the K+V pair gather and the split paged attention at qwen2-moe's
+    16 / 16 heads of 128 and arctic's 56 / 8 (G = 7), the serving cell's
+    8 slots of mixed lengths in 32-token blocks, and flash at qwen2-moe's
+    loss shape and first ReferenceEngine prefill batch, 16 / 16 heads of
+    128.  Each against its plain version (the gather bit for bit), then
+    timed beside the bound, the plain version and the library call."""
+    from repro_torch.kernels.flash_attention import (
+        BF16_SHARE, KEY_TILE, bf16_disagreement, flash_attention_kernel,
+        flash_attention_plain)
+    from repro_torch.kernels.paged_attention import (paged_attention_kernel,
+                                                     paged_attention_plain,
+                                                     splits)
+    from repro_torch.kernels.paged_gather import (paged_gather_pair_kernel,
+                                                  paged_gather_plain)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = torch.bfloat16
+    L, B, D, bs, C, P = 24, 8, 128, 32, 1024, 4
+    nb = C // bs
+    NB = B * nb
+    lens = np.array([1, 33, 100, 257, 511, 640, 900, 1024], np.int32)
+    tbl = rng.permutation(NB).reshape(B, nb).astype(np.int32)
+    for b in range(B):
+        tbl[b, -(-lens[b] // bs):] = NB                 # not granted: sentinel
+    table = torch.from_numpy(tbl).cuda()
+    clen = torch.from_numpy(lens).cuda()
+    tbl_c = torch.clamp(table, max=NB - 1)
+    g_tbl, g_cl = table[:P].long(), tbl_c[:P].long()
+    flat = g_cl.reshape(-1)
+    uniq = int(torch.unique(g_cl).numel())
+    tokens = int(lens.sum())
+    out = {"paged_gather": {}, "paged_attention": {}, "flash_attention": {}}
+    for arch, Hq, Hkv in ((MOE_ARCH, 16, 16), (ARCTIC_ARCH, 56, 8)):
+        kpool = torch.randn((L, NB, bs, Hkv, D), generator=gen,
+                            device="cuda", dtype=dt)
+        vpool = torch.randn((L, NB, bs, Hkv, D), generator=gen,
+                            device="cuda", dtype=dt)
+        q = torch.randn((B, 1, Hq, D), generator=gen, device="cuda",
+                        dtype=dt)
+        gk, gv = paged_gather_pair_kernel(kpool[0], vpool[0], g_tbl)
+        check(torch.equal(gk, paged_gather_plain(kpool[0], g_cl))
+              and torch.equal(gv, paged_gather_plain(vpool[0], g_cl)),
+              f"paged_gather pair kernel != plain version at {arch}'s heads")
+        pair_sets = [(kpool[i], vpool[i], g_tbl) for i in range(L)]
+        ms, eager_ms = time_calls(torch, paged_gather_pair_kernel, pair_sets,
+                                  10)
+        plain_ms, _ = time_calls(torch, lambda k, v, t: (
+            paged_gather_plain(k, g_cl), paged_gather_plain(v, g_cl)),
+            pair_sets, 5)
+        lib_ms, _ = time_calls(torch, lambda k, v, t: (
+            k.index_select(0, flat), v.index_select(0, flat)), pair_sets, 10)
+        block_bytes = bs * Hkv * D * 2
+        pair_bytes = 2 * (uniq + P * nb) * block_bytes + P * nb * 8
+        out["paged_gather"][arch] = {
+            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": pair_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": lib_ms, "max_abs_err": 0.0,
+            "shape": f"pools ({NB},{bs},{Hkv},{D}) bf16, K and V, table "
+                     f"({P},{nb}) int64 with sentinels"}
+
+        S, c = splits(B, Hkv, nb)
+        got = paged_attention_kernel(q, kpool[0], vpool[0], tbl_c, clen)
+        want = paged_attention_plain(q, kpool[0], vpool[0], table, clen)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(bool(torch.isfinite(got).all())
+              and torch.allclose(got.float(), want.float(), atol=ATTN_ATOL,
+                                 rtol=ATTN_RTOL),
+              f"paged_attention kernel vs plain at {arch}'s heads: max abs "
+              f"err {err}")
+        sets = [(q, kpool[i], vpool[i], tbl_c, clen) for i in range(L)]
+        ms, eager_ms = time_calls(torch, paged_attention_kernel, sets, 10)
+        plain_ms, _ = time_calls(torch, paged_attention_plain, sets, 1)
+        a_bytes = (tokens * Hkv * D * 2 * 2 + 2 * q.numel() * 2
+                   + table.numel() * 4 + clen.numel() * 4)
+        a_flops = 4 * Hq * D * tokens
+        t_b, t_o = a_bytes / HBM_BYTES_PER_S, a_flops / BF16_FLOPS
+        out["paged_attention"][arch] = {
+            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": None, "max_abs_err": err, "splits": [S, c],
+            "shape": f"q ({B},1,{Hq},{D}) bf16, pools ({NB},{bs},{Hkv},"
+                     f"{D}), lengths {lens.tolist()}"}
+        del kpool, vpool, pair_sets, sets
+
+    chunked = dict(causal=True, bk=KEY_TILE, offset=0)
+
+    def qkv(shape, dtype):
+        B_, Sq, Skv, Hq_, Hkv_, D_ = shape
+        return [torch.randn(s, generator=gen, device="cuda", dtype=dtype)
+                for s in ((B_, Sq, Hq_, D_), (B_, Skv, Hkv_, D_),
+                          (B_, Skv, Hkv_, D_))]
+
+    S_pre = hybrid_prefill_len()
+    for name, shape, reps in (
+            ("loss", (MOE_LOSS_BATCH, MOE_LOSS_SEQ, MOE_LOSS_SEQ, 16, 16, D),
+             3),
+            (f"prefill S={S_pre}", (HYB_BATCH, S_pre, S_pre, 16, 16, D), 2)):
+        q, k, v = qkv(shape, dt)
+        got = flash_attention_kernel(q, k, v, **chunked)
+        want = flash_attention_plain(q, k, v, **chunked)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ratio, share = bf16_disagreement(got, want)
+        check(ratio <= 1 and share <= BF16_SHARE
+              and bool(torch.isfinite(got).all()),
+              f"flash_attention vs plain at qwen2-moe's {name} shape: "
+              f"largest err / limit {ratio}, share {share}")
+        del q, k, v, got, want
+        r = flash_timing(torch, qkv, shape, chunked, reps, dt)
+        r.update(max_abs_err=err, bf16_ratio=ratio, bf16_share=share,
+                 shape=f"q ({shape[0]},{shape[1]},16,{D}), k/v "
+                       f"({shape[0]},{shape[2]},16,{D}) bf16 causal")
+        out["flash_attention"][f"{MOE_ARCH} {name}"] = r
+    for kname, rows in out.items():
+        for shape_name, r in rows.items():
+            lib = "none" if r["library_ms"] is None \
+                else f"{r['library_ms']*1e3:.2f} us"
+            print(f"{kname} at {shape_name} ({r['shape']}): "
+                  f"{r['ms']*1e3:.2f} us on the card ({r['eager_ms']*1e3:.2f}"
+                  f" us per eager call), plain {r['plain_ms']*1e3:.2f} us, "
+                  f"bound {r['bound_ms']*1e3:.3f} us ({r['bound_by']}), "
+                  f"library {lib}; max abs err {r['max_abs_err']:.3e} "
+                  f"[{CARD}]")
+    return out
+
+
+def cast_tree(tree, dtype):
+    """Cast every tensor leaf of a dict tree to ``dtype`` in place of the
+    old one, so each f32 leaf is freed as its copy lands."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            cast_tree(val, dtype)
+        else:
+            tree[key] = val.to(dtype)
+
+
+def paged_counters():
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.paged_gather import (paged_gather_kernel,
+                                                  paged_gather_pair_kernel)
+    return {"pairs": paged_gather_pair_kernel.launches,
+            "one_leaf": paged_gather_kernel.launches,
+            "attention": paged_attention_kernel.launches,
+            "combine": paged_attention_kernel.combine_launches}
+
+
+def zero_paged_counters():
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.paged_gather import (paged_gather_kernel,
+                                                  paged_gather_pair_kernel)
+    paged_gather_kernel.launches = paged_gather_pair_kernel.launches = 0
+    paged_attention_kernel.launches = 0
+    paged_attention_kernel.combine_launches = 0
+
+
+class RouteProbe:
+    """Stands in for ``blocks.moe_route`` during one engine run.  Without
+    ``pinned`` it keeps the run's first call (the first prefill dispatch's
+    layer 0: probabilities, K, C and the outputs) and every call's outputs
+    in the first decode dispatch.  With ``pinned`` (a recording run's
+    decode calls) each call of the first decode dispatch keeps the pinned
+    experts, keep mask and slots, takes its gates from its own
+    probabilities at those experts, and counts the experts its own
+    probabilities pick that the pinned choice does not hold.  In bf16 the router's
+    logits carry 8 mantissa bits and ties among the probabilities are
+    real, so a rounding difference upstream flips a choice now and then,
+    and one flip moves a row's output by the full size of an expert's."""
+
+    def __init__(self, blocks, pinned=None):
+        self.blocks, self.route, self.pinned = blocks, blocks.moe_route, pinned
+        self.first, self.decode, self.flips = None, [], []
+        self.in_decode = False          # set around the dispatch to probe
+
+    def attach(self, eng):
+        dispatch, seen = eng._decode, []
+
+        def first_decode(toks, pos):
+            self.in_decode = not seen
+            seen.append(1)
+            out = dispatch(toks, pos)
+            self.in_decode = False
+            return out
+        eng._decode = first_decode
+        self.blocks.moe_route = self
+
+    def detach(self):
+        self.blocks.moe_route = self.route
+
+    def __call__(self, probs, K, C):
+        import torch
+        out = self.route(probs, K, C)
+        if self.first is None:
+            self.first = (probs.cpu().numpy(), K, C,
+                          [t.cpu().numpy() for t in out])
+        if not self.in_decode:
+            return out
+        if self.pinned is None:
+            self.decode.append(out)
+            return out
+        _, idx, keep, slot = self.pinned[len(self.flips)]
+        moved = ~(out[1][..., :, None] == idx[..., None, :]).any(-1)
+        self.flips.append((int(moved.sum()), idx.numel()))
+        gate = torch.gather(probs, -1, idx)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        return gate, idx, keep, slot
+
+
+MOE_SERVE = dict(max_batch=8, max_context=1024, kv_block_size=32,
+                 prefill_chunk=128, prefill_batch=4, quant_bits=8)
+
+
+def moe_routes_f32(torch, cfg, params, spec, label, *, quantized=False):
+    """The fused and the take/dense route of ``ServeEngine`` in f32 on
+    the f32 masters (dequantized to f32 with ``quantized``), on ``spec``'s
+    first 8 requests cut to 2 new tokens: their first decode logits within
+    ``LOGIT_REL_TOL`` x max |logit|.  In f32 the two routes' attention
+    outputs differ by ~1e-7 and no expert choice flips; in bf16 the
+    routes' one-ulp differences at layer 0 grow through the layers
+    (``experiments/moe_route_divergence.py``), so this is the check that
+    the routes compute the same function at full width."""
+    import dataclasses
+    from repro_torch.runtime.serve import ServeEngine
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    short = [(p, 2) for p, _ in spec[:8]]
+    out = {}
+    for name, r in (("fused", dict(kv_gather="cuda", decode_kernel="fused")),
+                    ("take/dense", dict(kv_gather="take",
+                                        decode_kernel="dense"))):
+        eng = ServeEngine(c32, params, eos_id=-1, device="cuda",
+                          quantized=quantized, **MOE_SERVE, **r)
+        reqs, _, wall, lg = run_engine(torch, eng, short, True)
+        check(lg is not None and bool(torch.isfinite(lg).all()),
+              f"{label} f32 {name}: first decode logits missing or not "
+              f"finite")
+        out[name] = ([r.out_tokens for r in reqs], lg, wall)
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    (t_f, lg_f, w_f), (t_d, lg_d, w_d) = out["fused"], out["take/dense"]
+    diff = (lg_f - lg_d).abs().max().item()
+    scale = lg_d.abs().max().item()
+    print(f"{label} f32, 8 requests, 2 new tokens: fused {w_f:.3f} s, "
+          f"take/dense {w_d:.3f} s; first decode logits max abs diff "
+          f"{diff:.4e} (max |logit| {scale:.4e}, tolerance {LOGIT_REL_TOL} x "
+          f"max); greedy tokens {'identical' if t_f == t_d else 'differ'}")
+    check(diff <= LOGIT_REL_TOL * scale,
+          f"{label} f32: fused and dense first-decode logits disagree")
+
+
+def moe_routes(torch, cfg, params, spec, label, *, quantized=False,
+               warm=0, cuda_dense=False):
+    """Serve ``spec`` on ``ServeEngine`` at the serving cell's settings:
+    the fused route (``kv_gather="cuda"``, ``decode_kernel="fused"``)
+    with its counters zeroed just before and read just after, then
+    take/dense and, with ``cuda_dense``, cuda/dense (tokens and logits
+    identical to take/dense).  The dense routes' first decode dispatch
+    keeps the fused run's expert choices (``RouteProbe``): their own
+    routers' flips and the first decode logits' distance from the fused
+    route's are printed; ``moe_routes_f32`` holds the routes together.
+    ``quantized``: each route's engine is built first from the f32
+    masters, which are then dropped (``params`` is emptied).  Returns
+    (the fused run's launches, its first ``moe_route`` call)."""
+    from repro_torch.nn import blocks
+    from repro_torch.runtime.serve import ServeEngine
+    kw = dict(MOE_SERVE, quantized=quantized)
+    routes = [("fused", dict(kv_gather="cuda", decode_kernel="fused")),
+              ("take/dense", dict(kv_gather="take", decode_kernel="dense"))]
+    if cuda_dense:
+        routes.append(("cuda/dense", dict(kv_gather="cuda",
+                                          decode_kernel="dense")))
+    def build(name):
+        return ServeEngine(cfg, params, eos_id=-1, device="cuda", **kw,
+                           **dict(routes)[name])
+
+    built = {}
+    if quantized:
+        t0 = time.perf_counter()
+        built = {name: build(name) for name, _ in routes}
+        torch.cuda.synchronize()
+        eng = built["fused"]
+        sheet = eng.serving_sheet
+        print(f"{label}: quantized {len(routes)} engines in "
+              f"{time.perf_counter()-t0:.2f} s; resident weights "
+              f"(quant_bytes) "
+              f"{eng.quant_bytes:,} B ({eng.quant_bytes/2**30:.3f} GiB); "
+              f"serving ledger: {len(sheet)} quantized leaves, weight bytes "
+              f"{sheet.weight_bytes():,.0f}, unquantized "
+              f"{sheet.extra_bytes:,.0f}, total {sheet.total_bytes():,.0f} B,"
+              f" ops per token {sheet.ops_per_token():,.0f}, arithmetic "
+              f"intensity {sheet.arithmetic_intensity():.4f}")
+        for row in sheet.row_strs():
+            print(f"  {row}")
+        params.clear()                          # the f32 masters go
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    elif warm:
+        run_engine(torch, build("fused"), spec[:warm], False)
+    runs, pinned = {}, None
+    for name, _ in routes:
+        eng = built.pop(name) if quantized else build(name)
+        probe = RouteProbe(blocks, pinned)
+        probe.attach(eng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "fused":
+            zero_paged_counters()
+        reqs, summ, wall, lg = run_engine(torch, eng, spec, True)
+        probe.detach()
+        if name == "fused":
+            launches = check_fused_run(torch, label, cfg, eng, reqs, lg)
+            first, pinned = probe.first, probe.decode
+            check(len(pinned) == cfg.n_layers,
+                  f"{label}: {len(pinned)} routing calls in the first decode "
+                  f"dispatch")
+        peak = torch.cuda.max_memory_allocated()
+        s = eng.stats
+        runs[name] = (reqs, lg)
+        print(f"{label} {name}: {len(reqs)} requests in {wall:.3f} s; "
+              f"prefill {s['prefill_tokens']} tok in {s['prefill_s']:.3f} s "
+              f"({s['prefill_dispatches']} dispatches); decode "
+              f"{s['decode_tokens']} tok in {s['decode_s']:.3f} s "
+              f"({s['decode_steps']} steps, {summ['decode_tok_s']:.1f} tok/s, "
+              f"{1e3*s['decode_s']/max(1, s['decode_steps']):.3f} ms a step); "
+              f"first token p50 {summ['p50_first_token_s']*1e3:.1f} ms p99 "
+              f"{summ['p99_first_token_s']*1e3:.1f} ms; total p50 "
+              f"{summ['p50_total_s']*1e3:.1f} ms p99 "
+              f"{summ['p99_total_s']*1e3:.1f} ms; peak memory "
+              f"{peak/2**30:.3f} GiB [{CARD}]")
+        if name == "fused":
+            print(f"{label} launches on the fused run: {launches}; combine "
+                  f"{paged_counters()['combine']}")
+        else:
+            flips = [f for f, _ in probe.flips]
+            print(f"{label} {name}: its own router would have picked "
+                  f"{sum(flips)} other experts of "
+                  f"{sum(n for _, n in probe.flips)} choices in the first "
+                  f"decode dispatch (by layer {flips}); pinned to the fused "
+                  f"run's experts there")
+        del eng
+    (f_reqs, lg_f), (d_reqs, lg_d) = runs["fused"], runs["take/dense"]
+    same = np.mean([a == b for r, q in zip(f_reqs, d_reqs)
+                    for a, b in zip(r.out_tokens, q.out_tokens)])
+    diff = (lg_f - lg_d).abs().max().item()
+    scale = lg_d.abs().max().item()
+    print(f"{label}: take/dense against fused: identical greedy tokens "
+          f"{same*100:.2f} %; first decode logits (experts pinned) max abs "
+          f"diff {diff:.4e}, {diff / scale:.4f} x max |logit| ({scale:.4e})")
+    if cuda_dense:
+        c_reqs, lg_c = runs["cuda/dense"]
+        check(all(r.out_tokens == q.out_tokens
+                  for r, q in zip(c_reqs, d_reqs))
+              and torch.equal(lg_c, lg_d),
+              f"{label}: the cuda gather changed the dense route's tokens "
+              f"or logits")
+        print(f"{label}: cuda/dense tokens and first decode logits identical "
+              f"to take/dense")
+    return launches, first
+
+
+def check_fused_run(torch, label, cfg, eng, reqs, lg):
+    """The fused / cuda-gather run's checks: every request done with its
+    tokens, the K+V gathers all pairs, one a layer and prefill dispatch,
+    one attention and one combine launch a layer and decode step, finite
+    first decode logits.  Returns the run's paged-kernel launches."""
+    n = paged_counters()
+    s, L = eng.stats, cfg.n_layers
+    check(all(r.status == "done" and len(r.out_tokens) == r.max_new_tokens
+              for r in reqs), f"{label}: a request did not finish with its "
+          f"tokens")
+    check(n["one_leaf"] == 0 and n["pairs"] == s["prefill_dispatches"] * L,
+          f"{label}: {n['pairs']} K+V pair and {n['one_leaf']} one-leaf "
+          f"gathers for {s['prefill_dispatches']} prefill dispatches x {L} "
+          f"layers")
+    check(n["attention"] == s["decode_steps"] * L
+          and n["combine"] == n["attention"],
+          f"{label}: {n['attention']} attention and {n['combine']} combine "
+          f"launches for {s['decode_steps']} decode steps x {L} layers")
+    check(lg is not None and lg.shape == (eng.max_batch, 1, cfg.vocab)
+          and bool(torch.isfinite(lg).all()),
+          f"{label}: first decode logits missing, misshapen or not finite")
+    toks = np.array([t for r in reqs for t in r.out_tokens])
+    check(toks.min() >= 0 and toks.max() < cfg.vocab,
+          f"{label}: token out of range")
+    return {"paged_gather": n["pairs"], "paged_attention": n["attention"]}
+
+
+def numpy_route(probs, K, C):
+    """The routing recomputed in numpy: a stable argsort of -probs for the
+    top K (the lower index first among equals), then each (token, k)
+    pair's running count in its expert over the token-major flattening,
+    the keep mask and the slot (drop slot E * C)."""
+    B, S, E = probs.shape
+    idx = np.argsort(-probs, axis=-1, kind="stable")[..., :K]
+    flat = idx.reshape(B, S * K)
+    onehot = flat[..., None] == np.arange(E)
+    pos = (np.cumsum(onehot, axis=1) * onehot).sum(-1) - 1
+    keep = pos < C
+    return idx, keep, np.where(keep, flat * C + pos, E * C)
+
+
+def moe_phase(torch):
+    """The MoE family on the card: the kernels at its new shapes, then
+    qwen2-moe-a2.7b at full width and depth, random weights from seed 0
+    ((a) init and counts; (b) ServeEngine on three routes; (c) the
+    routing of the first prefill dispatch's layer 0 against numpy; (d)
+    ReferenceEngine; (e) one Model.loss), (f) the int8-PoT engine at 8 of
+    24 layers and (g) arctic-480b's full-width layer on ServeEngine.
+    Returns (the path's launches, the kernel readings)."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.nn import Model, get_config
+    from repro_torch.runtime.serve import ReferenceEngine, Request, ServeEngine
+    readings = moe_kernel_readings(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"paged_gather": 0, "paged_attention": 0,
+                "flash_attention": 0}
+
+    def add(n):
+        for k, v in n.items():
+            launches[k] += v
+
+    # (a) init at full width and depth in f32, then bf16 once
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n = _numel(params)
+    print(f"{MOE_ARCH} params: {n:,} (f32 masters {n * 4 / 2**30:.2f} GiB, "
+          f"init {time.perf_counter() - t0:.2f} s); params_count() "
+          f"{cfg.params_count():,}, active_params_count() "
+          f"{cfg.active_params_count():,} [{CARD}]")
+    check(n == MOE_PARAMS, f"{n} parameters, the reference has {MOE_PARAMS}")
+    spec = serving_spec(cfg.vocab)
+    moe_routes_f32(torch, cfg, params, spec, MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cast_tree(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"{MOE_ARCH}: bf16 {n * 2 / 2**30:.2f} GiB after one cast, "
+          f"{time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated()/2**30:.3f} GiB")
+
+    # (b) ServeEngine on bf16 weights, the serving cell's requests
+    t0 = time.perf_counter()
+    n, rec = moe_routes(torch, cfg, params, spec, f"{MOE_ARCH} bf16",
+                        warm=2, cuda_dense=True)
+    add(n)
+    print(f"{MOE_ARCH} ServeEngine routes: {time.perf_counter()-t0:.2f} s")
+    eng = ServeEngine(cfg, params, eos_id=-1, device="cuda", max_batch=8,
+                      max_context=1024, kv_block_size=32, prefill_chunk=128,
+                      prefill_batch=4, kv_gather="cuda",
+                      decode_kernel="fused")
+    profile_phase(torch, eng, spec)
+    for i, (p, _) in enumerate(spec[:8]):       # the host's share of a step
+        eng.submit(Request(rid=200 + i, prompt=p.copy(), max_new_tokens=16))
+    while any(st.phase == "prefill" for st in eng.slots.values()):
+        eng.step()
+    host_top(torch, lambda: [eng.step() for _ in range(4)], 15)
+    while eng.queue or eng.slots:
+        eng.step()
+    del eng
+
+    # (c) the fused run's first routing call (the first prefill dispatch's
+    # layer 0) against numpy on the same probabilities
+    probs, K, C, (_, idx, keep, slot) = rec
+    w_idx, w_keep, w_slot = numpy_route(probs, K, C)
+    srt = -np.sort(-probs, axis=-1)
+    straddle = int((srt[..., K - 1] == srt[..., K]).sum())
+    tied = int((srt[..., :-1] == srt[..., 1:]).any(-1).sum())
+    print(f"{MOE_ARCH} routing (first prefill dispatch, layer 0): probs "
+          f"{probs.shape}, K {K}, C {C}; {straddle} positions with a tie "
+          f"straddling the top-{K} boundary, {tied} with any tie; kept "
+          f"{int(keep.sum())} of {keep.size} pairs")
+    check(np.array_equal(idx, w_idx) and np.array_equal(keep, w_keep)
+          and np.array_equal(slot, w_slot),
+          f"{MOE_ARCH}: moe_route on the card differs from numpy's "
+          f"(ids {int((idx != w_idx).sum())}, keep "
+          f"{int((keep != w_keep).sum())}, slots "
+          f"{int((slot != w_slot).sum())} differ)")
+
+    # (d) ReferenceEngine, the hybrid cell's batch and prompts
+    prompts = hybrid_prompts(cfg.vocab)
+    eng = ReferenceEngine(cfg, params, max_batch=HYB_BATCH,
+                          max_context=HYB_CONTEXT, eos_id=-1, device="cuda")
+    reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=HYB_NEW)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_flash = flash_attention_kernel.launches
+    n_batches = -(-len(reqs) // HYB_BATCH)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(r.status == "done" and len(r.out_tokens) == HYB_NEW
+              for r in reqs), f"{MOE_ARCH}: a ReferenceEngine request did "
+          f"not finish its tokens")
+    out = np.array([r.out_tokens for r in reqs])
+    check(out.min() >= 0 and out.max() < cfg.vocab, "token out of range")
+    check(n_flash == n_batches * cfg.n_layers,
+          f"{MOE_ARCH} ReferenceEngine: {n_flash} flash launches for "
+          f"{n_batches} prefill calls x {cfg.n_layers} layers")
+    s = eng.stats
+    print(f"{MOE_ARCH} ReferenceEngine (bf16, {HYB_BATCH} rows x "
+          f"{HYB_CONTEXT}): {len(reqs)} requests in {wall:.3f} s, "
+          f"{n_batches} batches; prefill {s['prefill_tokens']} tok in "
+          f"{s['prefill_s']:.3f} s ({s['prefill_tokens']/s['prefill_s']:.1f} "
+          f"tok/s); decode {s['decode_tokens']} tok in {s['decode_s']:.3f} s "
+          f"({s['decode_tokens']/s['decode_s']:.1f} tok/s); peak memory "
+          f"{peak/2**30:.3f} GiB; flash launches {n_flash}; first tokens "
+          f"{out[:, 0].tolist()} [{CARD}]")
+    launches["flash_attention"] += n_flash
+    del eng, reqs
+
+    # (e) one Model.loss on an 8 x 1024 TokenPipeline batch
+    m = Model(cfg, device="cuda")
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=MOE_LOSS_SEQ,
+                          global_batch=MOE_LOSS_BATCH, seed=0).batch(0)
+    m.loss(params, {k: v[:, :64] for k, v in batch.items()})   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    loss, mets = m.loss(params, batch)
+    torch.cuda.synchronize()
+    loss_s = time.perf_counter() - t0
+    xent, aux = float(mets["xent"]), float(mets["aux"])
+    n_flash = flash_attention_kernel.launches
+    # lm_head ~ N(0, 0.02^2) on unit-rms rows: logits ~ N(0, s2) and the
+    # expected cross-entropy is ln V + s2 / 2
+    s2 = 0.02 ** 2 * cfg.d_model
+    expect = float(np.log(cfg.vocab)) + s2 / 2
+    print(f"{MOE_ARCH} bf16 Model.loss ({MOE_LOSS_BATCH} x {MOE_LOSS_SEQ}): "
+          f"loss {float(loss)!r}, xent {xent!r} (expected ln V + s2/2 = "
+          f"{expect:.4f}), aux {aux!r}; {loss_s:.3f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated()/2**30:.3f} GiB; flash "
+          f"launches {n_flash} [{CARD}]")
+    check(np.isfinite(float(loss)) and np.isfinite(aux) and aux > 0
+          and abs(xent - expect) <= 0.2,
+          f"{MOE_ARCH} loss: xent {xent} far from {expect} or aux {aux}")
+    check(n_flash == cfg.n_layers,
+          f"{MOE_ARCH} loss: {n_flash} flash launches, not one a layer")
+    launches["flash_attention"] += n_flash
+    del m, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the int8-PoT engine at 8 of the 24 layers
+    qcfg = dataclasses.replace(cfg, n_layers=MOE_QUANT_LAYERS)
+    t0 = time.perf_counter()
+    params = Model(qcfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n = _numel(params)
+    print(f"{MOE_ARCH} cut to {MOE_QUANT_LAYERS} of {cfg.n_layers} layers "
+          f"for int8-PoT: {n:,} params ({n * 4 / 2**30:.2f} GiB f32), init "
+          f"{time.perf_counter()-t0:.2f} s")
+    check(n == MOE_QUANT_PARAMS,
+          f"{n} parameters at {MOE_QUANT_LAYERS} layers, the reference has "
+          f"{MOE_QUANT_PARAMS}")
+    label = f"{MOE_ARCH} int8-PoT {MOE_QUANT_LAYERS} layers"
+    moe_routes_f32(torch, qcfg, params, spec, label, quantized=True)
+    add(moe_routes(torch, qcfg, params, spec, label, quantized=True)[0])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) arctic-480b, one layer at full width, bf16
+    acfg = dataclasses.replace(get_config(ARCTIC_ARCH),
+                               n_layers=ARCTIC_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model(acfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n = _numel(params)
+    print(f"{ARCTIC_ARCH} cut to {ARCTIC_LAYERS} of 35 layers: {n:,} params "
+          f"({n * 4 / 2**30:.2f} GiB f32), init "
+          f"{time.perf_counter()-t0:.2f} s [{CARD}]")
+    check(n == ARCTIC_PARAMS,
+          f"{n} parameters, the reference's layer has {ARCTIC_PARAMS}")
+    a_spec = serving_spec(acfg.vocab)[:ARCTIC_REQUESTS]
+    moe_routes_f32(torch, acfg, params, a_spec, ARCTIC_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    cast_tree(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"{ARCTIC_ARCH}: bf16 {n * 2 / 2**30:.2f} GiB after one cast, peak "
+          f"{torch.cuda.max_memory_allocated()/2**30:.3f} GiB")
+    add(moe_routes(torch, acfg, params, a_spec,
+                   f"{ARCTIC_ARCH} bf16 {ARCTIC_LAYERS} layer", warm=1)[0])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the MoE path was not launched: {launches}")
+    print(f"launches on the MoE path: {launches}")
+    return launches, readings
+
+
 def main() -> int:
     global CARD
     import torch
@@ -2647,18 +3339,25 @@ def main() -> int:
     t0 = time.perf_counter()
     hybrid_launches = hybrid_phase(torch)
     print(f"hybrid phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()                        # the MoE's 53.33 GiB need the room
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_launches, moe_readings = moe_phase(torch)
+    print(f"moe phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
                "explore": explore_launches,
                "ptq": {"flash_attention": launches["flash_attention"]},
                "mixed": mixed_launches, "hybrid": hybrid_launches,
-               "op": {"qmatmul": qm_launches}}
+               "moe": moe_launches, "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
     for name, n in explore_launches.items():
         launches[name] += n
     for name, n in mixed_launches.items():
+        launches[name] += n
+    for name, n in moe_launches.items():
         launches[name] += n
     launches["qmatmul"] = qm_launches
     for k in kernels:
@@ -2669,6 +3368,8 @@ def main() -> int:
             k["launch_unit"] = "one K+V pair (paged_gather_pair_kernel)"
         k["launches_by_path"] = {p: v[k["name"]] for p, v in by_path.items()
                                  if k["name"] in v}
+        if k["name"] in moe_readings:
+            k["moe_shapes"] = moe_readings[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ gather through the CUDA kernel; ``--decode-kernel fused`` runs decode
 attention straight from the KV block pool through the fused CUDA kernel.
 ``--engine reference`` runs the reference's continuous-batching-lite
 ``ReferenceEngine`` instead (whole-prompt prefill through the
-flash-attention kernel).  The hybrid family (``--arch recurrentgemma-9b``)
+flash-attention kernel).  The MoE family (``--arch qwen2-moe-a2.7b``,
+``--arch arctic-480b --reduced``) serves through either engine, its
+experts' products in cuBLAS.  The hybrid family (``--arch recurrentgemma-9b``)
 always serves through ``ReferenceEngine``, as in the reference: its RG-LRU
 layers run the linear-scan kernel and its local attention the
 flash-attention kernel.  Parameters are random, from ``--seed``.

@@ -1,5 +1,5 @@
-"""Attention, dense-FFN and RG-LRU blocks, init + apply style (counterpart
-of ``repro/nn/blocks.py``; MoE and RWKV are not ported yet).
+"""Attention, dense-FFN, MoE and RG-LRU blocks, init + apply style
+(counterpart of ``repro/nn/blocks.py``; RWKV is not ported yet).
 
 Parameters are plain dicts of tensors in the reference's layouts (weights
 ``(in, out)``); ``lead`` prepends stacking dims, so a model initializes all
@@ -21,8 +21,9 @@ from .types import ArchConfig
 
 def _dense(gen, shape, lead=(), scale=None):
     scale = scale or 1.0 / math.sqrt(shape[0])
+    # scaled in place: an expert leaf is 15.5 GiB at full width
     return torch.randn((*lead, *shape), generator=gen, device=gen.device,
-                       dtype=torch.float32) * scale
+                       dtype=torch.float32).mul_(scale)
 
 
 def _zeros(gen, shape, lead=()):
@@ -179,6 +180,114 @@ def init_mlp(gen: torch.Generator, d: int, f: int, lead=()):
 def mlp_apply(p, x):
     return swiglu(x, p["wg"].to(x.dtype), p["wu"].to(x.dtype),
                   p["wd"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: top-k routing, capacity-bounded gather dispatch
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig, lead=()):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    # the experts' fan-in is their leading dim E, as in the reference
+    p = {
+        "router": _dense(gen, (d, E), lead),
+        "wg": _dense(gen, (E, d, f), lead),
+        "wu": _dense(gen, (E, d, f), lead),
+        "wd": _dense(gen, (E, f, d), lead),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, d, f * cfg.n_shared_experts, lead)
+    if cfg.moe_dense_residual:
+        p["dense"] = init_mlp(gen, d, cfg.dense_ff, lead)
+    return p
+
+
+def moe_capacity(cfg: ArchConfig, S: int) -> int:
+    """Slots per expert and batch row for S routed positions:
+    ``min(max(4, ceil(capacity_factor * S * K / E)), S)``, in the
+    reference's float order."""
+    C = max(4, int(math.ceil(cfg.capacity_factor * S * cfg.top_k
+                             / cfg.n_experts)))
+    return min(C, S)
+
+
+def moe_route(probs: torch.Tensor, K: int, C: int):
+    """Top-K routing with capacity C of router probabilities ``probs``
+    (B, S, E) f32.
+
+    Returns ``(gate (B, S, K) f32, expert_idx (B, S, K) int64, keep
+    (B, S*K) bool, slot (B, S*K) int64)``.  The top K come from a stable
+    descending sort, so among equal probabilities the lower expert index
+    comes first, as ``lax.top_k`` orders them (``torch.topk`` promises no
+    order on ties).  The gates are normalized by ``max(sum, 1e-9)``.  A
+    (token, k) pair's place in its expert is a running count over the
+    token-major flattening (B, S*K); it keeps its slot ``e * C + pos``
+    while pos < C, else it goes to the drop slot E * C."""
+    B, S, E = probs.shape
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert_idx = vals[..., :K], idx[..., :K]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat_e = expert_idx.reshape(B, S * K)
+    onehot = flat_e[..., None] == torch.arange(E, device=probs.device)
+    pos = torch.gather(torch.cumsum(onehot, dim=1), 2,
+                       flat_e[..., None])[..., 0] - 1          # 0-based
+    keep = pos < C
+    slot = torch.where(keep, flat_e * C + pos, E * C)
+    return gate, expert_idx, keep, slot
+
+
+def moe_apply(p, x, cfg: ArchConfig):
+    """x: (B, S, d).  Capacity-bounded top-k dispatch by gather and
+    scatter, every expert computed over its C slots (the reference's
+    three einsums over all E experts); pairs past an expert's capacity
+    are dropped.  Adds the shared experts' MLP and arctic's dense
+    residual.  Returns (y in x.dtype, the Switch load-balance loss aux,
+    0-d f32)."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(cfg, S)
+    # the router matmul in the model dtype; only the logits go to f32
+    logits = (x @ p["router"].to(x.dtype)).float()                # (B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, expert_idx, keep, slot = moe_route(probs, K, C)
+
+    # token index of every filled slot; the drop slot E * C is the only
+    # one that takes duplicate writes, and it is cut off
+    token = torch.arange(S, device=x.device).repeat_interleave(K)
+    table = torch.zeros((B, E * C + 1), dtype=torch.int64, device=x.device)
+    table.scatter_(1, slot, token.expand(B, -1))
+    filled = torch.zeros((B, E * C + 1), dtype=torch.bool, device=x.device)
+    filled.scatter_(1, slot, True)
+    idx = table[:, :E * C]
+    xe = torch.gather(x, 1, idx[..., None].expand(B, E * C, d))
+    xe = torch.where(filled[:, :E * C, None], xe, 0).reshape(B, E, C, d)
+    h = torch.einsum("becd,edf->becf", xe, p["wg"].to(x.dtype))
+    u = torch.einsum("becd,edf->becf", xe, p["wu"].to(x.dtype))
+    ye = torch.einsum("becf,efd->becd", F.silu(h) * u,
+                      p["wd"].to(x.dtype))                      # (B,E,C,d)
+
+    # combine: each (token, k) gathers its slot's output (zero if dropped)
+    ye_flat = torch.cat([ye.reshape(B, E * C, d),
+                         torch.zeros((B, 1, d), dtype=ye.dtype,
+                                     device=x.device)], dim=1)
+    tok_out = torch.gather(ye_flat, 1, slot[..., None].expand(B, S * K, d))
+    w = gate.to(x.dtype) * keep.reshape(B, S, K)
+    y = torch.einsum("bskd,bsk->bsd", tok_out.reshape(B, S, K, d), w)
+
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(p["shared"], x)
+    if cfg.moe_dense_residual:
+        y = y + mlp_apply(p["dense"], x)
+    # auxiliary load-balance loss (Switch): E * sum(f_e * p_e); the counts
+    # are exact in f32 in any order of the adds (bincount would wait on the
+    # card for its output's length)
+    flat = expert_idx.reshape(-1)
+    frac = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=x.device)) / flat.numel()
+    imp = probs.mean(dim=(0, 1))
+    aux = E * torch.sum(frac * imp)
+    return y.to(x.dtype), aux
 
 
 # ---------------------------------------------------------------------------

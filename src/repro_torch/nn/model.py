@@ -1,13 +1,21 @@
-"""Model assembly for the dense and hybrid families (counterpart of
+"""Model assembly for the dense, MoE and hybrid families (counterpart of
 ``repro/nn/model.py``).
 
 Parameters are a dict tree in the reference's layout: per-layer leaves are
 stacked on a leading layer axis (``params["layers"]["attn"]["wq"]`` is
 (L, d_model, Hq*hd)), weights are (in, out), and a Python loop over layers
-takes the place of ``lax.scan``.  Dense caches are ``{"k", "v"}`` tensors
-of (L, batch, context, Hkv, hd), or (L, n_blocks, block_size, Hkv, hd)
-when block-paged; the serving dispatches update them IN PLACE and return
-the same dict (the reference donates the cache to XLA instead).
+takes the place of ``lax.scan``.  Dense and MoE caches are ``{"k", "v"}``
+tensors of (L, batch, context, Hkv, hd), or (L, n_blocks, block_size, Hkv,
+hd) when block-paged; the serving dispatches update them IN PLACE and
+return the same dict (the reference donates the cache to XLA instead).
+
+The MoE family (qwen2-moe, arctic) is the dense decoder with
+``params["layers"]["moe"]`` (router, the experts' (L, E, d, f) leaves, the
+shared experts' and the dense residual's MLPs) in place of ``"mlp"``.  Its
+routing capacity is counted over the positions of one call: the whole
+padded sequence in ``loss`` and ``prefill``, one chunk row in
+``prefill_chunks`` (so chunking can change which pairs are dropped, the
+reference's chunked-prefill capacity caveat), one token in decode.
 
 The hybrid family (recurrentgemma) stacks units of (RG-LRU, RG-LRU, local
 attention), each block followed by an MLP, on ``params["layers"]`` (one
@@ -25,6 +33,7 @@ Public surface:
     logits, cache = m.prefill(params, batch)  # ReferenceEngine: the prompt
     cache = m.init_cache(batch, context)
     logits, cache = m.prefill_chunks(params, cache, tokens, slots, offs, nv)
+    logits, cache = m.prefill_chunk(params, cache, tokens, slot, off, nv)
     logits, cache = m.decode_step(params, cache, tokens, pos)
 
 Nothing here takes a gradient: every entry point runs under
@@ -81,13 +90,13 @@ def params_from_jax(tree, device="cuda"):
 
 
 class Model:
-    """Dense or hybrid decoder LM with the reference's parameter and cache
-    layouts."""
+    """Dense, MoE or hybrid decoder LM with the reference's parameter and
+    cache layouts."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "hybrid"):
+        if cfg.family not in ("dense", "moe", "hybrid"):
             raise NotImplementedError(
-                f"repro_torch ports the dense and hybrid families, not "
+                f"repro_torch ports the dense, MoE and hybrid families, not "
                 f"{cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -108,13 +117,18 @@ class Model:
             "final_norm": torch.zeros((d,), device=dev),
             "lm_head": torch.randn((d, V), generator=gen, device=dev) * 0.02,
         }
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             params["layers"] = {
                 "ln1": torch.zeros((L, d), device=dev),
                 "ln2": torch.zeros((L, d), device=dev),
                 "attn": blocks.init_attention(gen, cfg, lead=(L,)),
-                "mlp": blocks.init_mlp(gen, d, cfg.d_ff, lead=(L,)),
             }
+            if cfg.family == "moe":
+                params["layers"]["moe"] = blocks.init_moe(gen, cfg,
+                                                          lead=(L,))
+            else:
+                params["layers"]["mlp"] = blocks.init_mlp(gen, d, cfg.d_ff,
+                                                          lead=(L,))
             return params
         n_units, rem = divmod(L, 3)
         params["layers"] = self._init_hybrid_unit(gen, lead=(n_units,))
@@ -143,12 +157,21 @@ class Model:
         }
 
     # ------------------------------------------------------------- forward
+    def _ffn(self, p, h):
+        """A decoder layer's FFN on its normed input: (y, the MoE's aux
+        loss, or None for the dense MLP)."""
+        if "moe" in p:
+            return blocks.moe_apply(p["moe"], h, self.cfg)
+        return blocks.mlp_apply(p["mlp"], h), None
+
     def _decoder_block(self, p, x, *, window: int = 0):
+        """Returns (x, aux or None)."""
         cfg = self.cfg
         h = rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
         x = x + blocks.attention_seq(p["attn"], h, cfg, window=window)
         h = rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
-        return x + blocks.mlp_apply(p["mlp"], h)
+        y, aux = self._ffn(p, h)
+        return x + y, aux
 
     def _hybrid_unit(self, p, x, caches=None, collect_kv=False,
                      attend=None):
@@ -199,18 +222,25 @@ class Model:
         return x, h, c
 
     def _backbone(self, params, x):
-        """Full-sequence trunk (loss / prefill), x: (B, S, d)."""
+        """Full-sequence trunk (loss), x: (B, S, d).  Returns (x, the sum
+        of the layers' aux losses in layer order, 0-d f32; zero but for
+        MoE)."""
         cfg = self.cfg
-        if cfg.family == "dense":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family in ("dense", "moe"):
             for i in range(cfg.n_layers):
-                x = self._decoder_block(layer_params(params["layers"], i), x)
+                x, a = self._decoder_block(layer_params(params["layers"], i),
+                                           x)
+                if a is not None:
+                    aux = aux + a
         else:
             for i in range(cfg.n_layers // 3):
                 x, _, _ = self._hybrid_unit(
                     layer_params(params["layers"], i), x)
             for tp in params.get("tail", []):
                 x, _, _ = self._tail_layer(tp, x)
-        return rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+        x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+        return x, aux
 
     def _embed_inputs(self, params, batch):
         """Token embedding; returns (x, labels, loss_mask), the last two
@@ -244,19 +274,20 @@ class Model:
     @torch.no_grad()
     def loss(self, params, batch):
         """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
-        of (B, S)); returns (loss, {"xent", "aux"}) as 0-d f32 tensors."""
+        of (B, S)); returns (xent + 0.01 * aux, {"xent", "aux"}) as 0-d
+        f32 tensors, aux being the MoE layers' load-balance loss (zero for
+        the other families)."""
         x, labels, mask = self._embed_inputs(params, batch)
-        x = self._backbone(params, x)
+        x, aux = self._backbone(params, x)
         xent = self._xent(params, x, labels, mask)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, params, batch):
         """Ingest whole prompts ``batch["tokens"]`` (B, S); returns
         (last-position logits (B, 1, V) f32, the cache :meth:`decode_step`
-        reads).  Dense: {k, v} of (L, B, S, Hkv, hd) with K roped at
-        positions 0..S-1.  Hybrid: the states after position S-1, and K/V
+        reads).  Dense and MoE: {k, v} of (L, B, S, Hkv, hd) with K roped
+        at positions 0..S-1.  Hybrid: the states after position S-1, and K/V
         of the last W = min(S, local_window) positions in their ring slots
         (the :meth:`init_cache` layout at context S)."""
         cfg = self.cfg
@@ -273,7 +304,7 @@ class Model:
             _, k, v = blocks._qkv(pl["attn"], hn, cfg)
             cache["k"][i] = rope(k, positions, cfg.rope_theta)
             cache["v"][i] = v
-            x = self._decoder_block(pl, x)
+            x, _ = self._decoder_block(pl, x)
         x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
         logits = x[:, -1:] @ params["lm_head"].to(x.dtype)
         return logits.float(), cache
@@ -306,14 +337,14 @@ class Model:
         torch.empty); see :meth:`init_cache`."""
         cfg = self.cfg
         dt, dev = self.dtype, self.device
-        if cfg.family == "dense":
+        if cfg.family != "hybrid":
             L, C = cfg.n_layers, context
         else:
             L, C = cfg.n_layers // 3, min(context, cfg.local_window)
         kv = (L, batch, C, cfg.n_kv_heads, cfg.head_dim_)
         c = {"k": alloc(kv, dtype=dt, device=dev),
              "v": alloc(kv, dtype=dt, device=dev)}
-        if cfg.family == "dense":
+        if cfg.family != "hybrid":
             return c
         w = cfg.rglru_width
         for h, conv, n in (("h1", "c1", L), ("h2", "c2", L),
@@ -324,9 +355,10 @@ class Model:
         return c
 
     def init_cache(self, batch: int, context: int) -> dict:
-        """Zeroed decode cache.  Dense: {k, v} of (L, batch, context, Hkv,
-        hd).  Hybrid: the unit states, K/V rings of (n_units, batch,
-        min(context, local_window), Hkv, hd), and the tail's states."""
+        """Zeroed decode cache.  Dense and MoE: {k, v} of (L, batch,
+        context, Hkv, hd).  Hybrid: the unit states, K/V rings of (n_units,
+        batch, min(context, local_window), Hkv, hd), and the tail's
+        states."""
         return self._empty_cache(torch.zeros, batch, context)
 
     def _long(self, x) -> torch.Tensor:
@@ -353,11 +385,16 @@ class Model:
         ``block_table`` ((n_slots, nb) with sentinel NB) switches the cache
         leaves to the (NB, bs, Hkv, D) block pool: writes land at
         (table[slot, p // bs], p % bs), and reads gather the logical rows
-        (``kv_gather``: ``"take"`` or the ``"cuda"`` kernel)."""
+        (``kv_gather``: ``"take"`` or the ``"cuda"`` kernel).
+
+        MoE routes each chunk row on its own: capacity counts the row's c
+        positions, its padded tail and dummy rows included, as in the
+        reference."""
         cfg = self.cfg
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"chunked prefill serves the dense family, not {cfg.family!r}")
+                f"chunked prefill serves the standard-KV families (dense, "
+                f"moe), not {cfg.family!r}")
         tokens = self._long(tokens)
         slots, offsets = self._long(slots), self._long(offsets)
         n_valid = self._long(n_valid)
@@ -393,19 +430,27 @@ class Model:
             a = chunk_cache_attention(q, krow, vrow, positions)
             x = x + a.reshape(P, c, -1) @ pl["attn"]["wo"].to(x.dtype)
             hn = rms_norm(x, pl["ln2"].to(x.dtype), cfg.norm_eps)
-            x = x + blocks.mlp_apply(pl["mlp"], hn)
+            x = x + self._ffn(pl, hn)[0]
         x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
         idx = torch.clamp(n_valid - 1, 0, c - 1)
         xl = x[torch.arange(P, device=self.device), idx]           # (P, d)
         logits = xl @ params["lm_head"].to(x.dtype)
         return logits.float(), cache
 
+    def prefill_chunk(self, params, cache, tokens, slot, offset, n_valid):
+        """Single-slot chunked prompt ingestion: the P = 1 case of
+        :meth:`prefill_chunks` on the contiguous cache.  tokens: (1, c);
+        slot / offset / n_valid: ints.  Returns ((1, V) f32 logits at the
+        last valid position, the cache)."""
+        return self.prefill_chunks(params, cache, tokens, [slot], [offset],
+                                   [n_valid])
+
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, pos, block_table=None,
                     kv_gather: str = "take", decode_kernel: str = "dense"):
         """One token for the whole batch.  tokens: (B, 1); pos: an int or a
         (B,) per-row position vector (paged serving).  ``block_table``
-        (dense only) switches the KV leaves to the block pool and
+        (dense and MoE) switches the KV leaves to the block pool and
         ``decode_kernel`` picks its attention route (see
         :func:`repro_torch.nn.blocks.attention_step`).  The hybrid's local
         attention writes slot pos % C of its ring and attends over the
@@ -415,10 +460,10 @@ class Model:
         tokens = self._long(tokens)
         B = tokens.shape[0]
         x = params["embed"][tokens].to(self.dtype)                 # (B, 1, d)
-        if block_table is not None and cfg.family != "dense":
+        if block_table is not None and cfg.family == "hybrid":
             raise NotImplementedError(
-                f"block-paged decode serves the dense family, not "
-                f"{cfg.family!r}")
+                f"block-paged decode serves the standard-KV families (dense, "
+                f"moe), not {cfg.family!r}")
         if block_table is not None:
             block_table = self._long(block_table)
         if torch.is_tensor(pos) or np.ndim(pos):
@@ -441,7 +486,7 @@ class Model:
                     writes=writes)
                 x = x + a
                 hn = rms_norm(x, pl["ln2"].to(x.dtype), cfg.norm_eps)
-                x = x + blocks.mlp_apply(pl["mlp"], hn)
+                x = x + self._ffn(pl, hn)[0]
         x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
         logits = x @ params["lm_head"].to(x.dtype)
         return logits.float(), cache

@@ -81,6 +81,46 @@ class ArchConfig:
             opt_state_dtype="float32",
         )
 
+    def params_count(self) -> int:
+        """Approximate parameter count N (for MODEL_FLOPS = 6*N*D): the
+        reference's formula, which counts V x d once and no biases."""
+        d, f, V = self.d_model, self.d_ff, self.vocab
+        hd = self.head_dim_
+        if self.n_heads:
+            attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads \
+                + self.n_heads * hd * d
+        else:
+            attn = 0
+        if self.family == "ssm":   # rwkv6: r,k,v,g,w,o + channel mix
+            attn = 5 * d * d + d * d
+            ffn = 2 * d * f
+        elif self.n_experts:
+            ffn = (self.n_experts + self.n_shared_experts) * 3 * d * f
+            if self.moe_dense_residual:
+                ffn += 3 * d * self.dense_ff
+            ffn += d * self.n_experts  # router
+        else:
+            ffn = 3 * d * f
+        if self.family == "hybrid":
+            # RG-LRU layers replace attention with gated recurrence
+            attn = 2 * d * self.rglru_width + 2 * self.rglru_width
+        per_layer = attn + ffn + 2 * d
+        total = self.n_layers * per_layer + V * d + d
+        if self.is_encdec:
+            total += self.n_enc_layers * per_layer
+        return int(total)
+
+    def active_params_count(self) -> int:
+        """N_active for MoE MODEL_FLOPS: only top_k of the routed experts
+        count."""
+        if not self.n_experts:
+            return self.params_count()
+        d, f = self.d_model, self.d_ff
+        routed_all = self.n_experts * 3 * d * f
+        routed_active = self.top_k * 3 * d * f
+        return self.params_count() \
+            - self.n_layers * (routed_all - routed_active)
+
 
 _REGISTRY: dict = {}
 
@@ -104,5 +144,6 @@ def list_configs() -> list:
 
 def _load_all():
     import importlib
-    for mod in ["qwen2_0_5b", "recurrentgemma_9b"]:
+    for mod in ["qwen2_0_5b", "arctic_480b", "qwen2_moe_a2_7b",
+                "recurrentgemma_9b"]:
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -1,7 +1,7 @@
 """Paged-slot serving engine: chunked prefill, admission queue, slot reuse
 (counterpart of ``repro/runtime/serve.py``).
 
-``ServeEngine`` serves the dense family with:
+``ServeEngine`` serves the standard-KV families, dense and MoE, with:
 
 * a slot-based paged KV cache (:class:`repro_torch.runtime.kvcache.
   PagedKVCache`): fixed ``max_batch`` x ``max_context`` capacity, per-slot
@@ -34,7 +34,7 @@ serving context, and batch refresh only at prefill boundaries.
 
 Both engines run on the card unless the caller passes ``device="cpu"``;
 with no card visible they raise.  Not ported yet: data/tensor-parallel
-decode, MoE.
+decode.
 """
 from __future__ import annotations
 
@@ -179,7 +179,8 @@ def _auto_decode_kernel(cfg: ArchConfig, device, max_batch: int,
 
 
 class ServeEngine:
-    """Slot-paged serving engine for the dense family."""
+    """Slot-paged serving engine for the standard-KV families (dense,
+    moe)."""
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
                  max_context: int = 512, eos_id: int = 0,
@@ -189,10 +190,10 @@ class ServeEngine:
                  kv_block_size: int = 0, kv_gather: str = "take",
                  decode_kernel: str = "dense", admission: str = "reject",
                  device="cuda", clock=time.monotonic):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"paged serving in repro_torch supports the dense family, "
-                f"not {cfg.family!r}")
+                f"paged serving supports the standard-KV families (dense, "
+                f"moe), not {cfg.family!r}; use ReferenceEngine")
         if kv_gather not in ("take", "cuda"):
             raise ValueError(f"unknown kv_gather {kv_gather!r}")
         self.device = resolve_device(device)

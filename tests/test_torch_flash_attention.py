@@ -174,6 +174,7 @@ GPU_CASES = CASES + [
     (2, 1, 300, 14, 2, 64, True, 0, None),     # one query row
     (1, 77, 205, 4, 2, 64, True, 0, None),     # Sq, Skv off every tile
     (1, 150, 333, 16, 1, 256, True, 100, 120),  # MQA 16:1, window, offset
+    (2, 190, 190, 16, 16, 128, True, 0, None),  # MHA at D = 128: qwen2-moe
 ] + [(2, 190, 190, 4, 2, D, True, 0, None) for D in HEAD_DIMS]
 
 

@@ -50,7 +50,8 @@ def test_port_files_exist():
                 "kernels/qmatmul.py", "launch/mixed_bitwidth.py",
                 "tune/__init__.py", "tune/bench.py", "tune/cache.py",
                 "tune/dispatch.py", "tune/measurers.py",
-                "kernels/chain_scan.py"):
+                "kernels/chain_scan.py", "configs/qwen2_moe_a2_7b.py",
+                "configs/arctic_480b.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()

@@ -405,6 +405,8 @@ def test_gpu_attention_forced_splits(n_splits, window, dtype, atol, rtol):
     (14, 2, 64, 64, "bfloat16"),    # tensor cores, blocks of 64
     (32, 2, 64, 32, "bfloat16"),    # tensor cores, G = 16
     (4, 4, 64, 32, "bfloat16"),     # tensor cores, MHA
+    (16, 16, 128, 32, "bfloat16"),  # tensor cores, MHA at D = 128: qwen2-moe
+    (56, 8, 128, 32, "bfloat16"),   # tensor cores, G = 7 at D = 128: arctic
     (14, 2, 32, 32, "bfloat16"),    # CUDA cores: D = 32
     (34, 2, 64, 32, "bfloat16"),    # CUDA cores: G = 17
     (14, 2, 64, 8, "bfloat16"),     # CUDA cores: blocks of 8
