@@ -9,7 +9,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    versions, and the build of every CUDA kernel of every path from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
    together; ptxas's registers and spills printed, a spill in the chain
-   kernels fails the run);
+   kernels or ``wkv6`` fails the run);
 2. kernels: each kernel against its plain PyTorch version on the card at
    its path's shapes, and their device times beside the bound and the
    plain and library times.  The serving kernels at bf16, Hq=14, Hkv=2,
@@ -69,6 +69,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    both serving kernels gives the CPU engine's greedy tokens; the tiny
    model's ``Model.loss`` on the card is the CPU's within 1e-5 relative and
    ``ReferenceEngine`` (float and int8-PoT) gives the CPU's greedy tokens;
+   a tiny f32 rwkv6 (4 layers, d_model 64, heads of 16) likewise: its
+   loss within 1e-5 relative of the CPU's with one ``wkv6`` launch a
+   layer (hd = 16 on the card), and ``ReferenceEngine``'s greedy tokens,
+   float and int8-PoT;
 4. serving, full width: qwen2-0.5b (24 layers, d_model 896, vocab 151936)
    with random weights from a seed, int8-PoT quantized, block-paged KV,
    ``kv_gather="cuda"``, ``decode_kernel="fused"``, 16 requests; launch
@@ -202,7 +206,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    printed); the int8-PoT engine at 8 of the 24 layers (both routes, its
    serving ledger and ``quant_bytes`` printed, the f32 masters dropped
    once the engines are built); arctic-480b's full-width layer (1 of 35)
-   in bf16 on both routes, 8 of the serving cell's requests.
+   in bf16 on both routes, 8 of the serving cell's requests;
+11. the RWKV6 family, after the MoE's memory is freed: (a) the ``wkv6``
+   kernel against its plain version (the final state bit for bit, y within
+   ``WKV_Y_TOL`` of its row's max |y|) at the loss shape (8, 1024, 40,
+   64), the first ReferenceEngine prefill batch's, a decode step (4, 1)
+   from a nonzero state, hd = 16 and 128 and S = 1, 63 and 1000, and
+   timed at the first three beside the bytes bound and the plain
+   version; then rwkv6-3b at full width and depth (32 layers, d_model
+   2560, 40 heads of 64, d_ff 8960, vocab 65536; 2,863,434,240 f32
+   parameters from seed 0): (b) the f32 decode of token 2101 after
+   ``prefill(2100)`` against ``prefill(2101)``; the int8-PoT engine built
+   from the f32 masters, which are then cast to bf16 once; (c) a bf16
+   ``Model.loss`` on one 8 x 1024 ``TokenPipeline`` batch; (d)
+   ``ReferenceEngine`` (4 rows x 2048) on the hybrid phase's 8 prompts,
+   32 new tokens each; (e) the int8-PoT engine on the same prompts (its
+   serving ledger and its share of greedy tokens equal to bf16's); the
+   ``wkv6`` counter zeroed just before (c) and read after (e): 32 launches
+   a loss forward, prefill and decode step; (f) a ``torch.profiler``
+   window over one more bf16 batch.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -224,6 +246,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
+F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50 * 2**20              # H100 SXM L2 cache, NVIDIA data sheet
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
@@ -271,6 +294,24 @@ MOE_LOSS_BATCH, MOE_LOSS_SEQ = 8, 1024
 ARCTIC_ARCH = "arctic-480b"
 ARCTIC_LAYERS, ARCTIC_PARAMS = 1, 14_069_945_344
 ARCTIC_REQUESTS = 8
+# The RWKV6 path: rwkv6-3b at full width and depth (32 layers, d_model
+# 2560, 40 heads of 64, d_ff 8960, vocab 65536), random weights from seed
+# 0; the hybrid cell's ReferenceEngine batch and prompts, one 8 x 1024
+# loss.
+RWKV_ARCH = "rwkv6-3b"
+RWKV_PARAMS = 2_863_434_240        # leaves of the reference's Model.init
+RWKV_LOSS_BATCH, RWKV_LOSS_SEQ = 8, 1024
+# f32 decode of token 2101 against prefill(2101): the WKV state steps the
+# same f32 operations either way, but the projections are products of
+# other shapes (1 row against 2101: other cuBLAS kernels and summation
+# orders, ~sqrt(K) 2^-24 relative at K = 8960) through 32 layers; a lost
+# state or token shift moves the logits by a large share of their scale.
+RWKV_DECODE_PROMPT = 2100
+RWKV_DECODE_REL = 2e-3         # x max |logit|
+# wkv6's y against the plain version: the kernel adds the hd terms of
+# out_j in i order with FMAs, the plain einsum as a batched product does;
+# each is within a few ulps of the row's larger terms.
+WKV_Y_TOL = 2e-5               # x the (b, t, h) row's max |y|
 # The int8 power-of-two matmul: held bit for bit at the reference tests'
 # shapes, the kernel lane's (benchmarks/run.py) and M = 1; then at
 # qwen2-0.5b's widths at M = 8 (a decode step of 8 slots) and M = 512 (a
@@ -1135,6 +1176,51 @@ def tiny_lm_phase(torch):
               f"{quantized}): card {outs[1]} != cpu {outs[0]}")
         print(f"tiny ReferenceEngine (quantized={quantized}): card tokens == "
               f"CPU tokens ({outs[1][0]} ...)")
+
+
+def tiny_rwkv_phase(torch):
+    """A tiny f32 rwkv6 (the reduced config: 4 layers, d_model 64, heads
+    of 16): Model.loss on the card equals the CPU's within 1e-5 relative
+    through the wkv6 kernel (one launch a layer), and ReferenceEngine
+    gives the CPU's greedy tokens, float and int8-PoT."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.wkv6 import wkv6_kernel
+    from repro_torch.nn import Model, get_config
+    from repro_torch.runtime.serve import ReferenceEngine, Request
+    cfg = dataclasses.replace(get_config(RWKV_ARCH).reduced(),
+                              dtype="float32")
+    params = Model(cfg, device="cpu").init(0)
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=200,
+                          global_batch=2).batch(0)
+    losses = []
+    for dev in ("cpu", "cuda"):
+        n0 = wkv6_kernel.launches
+        losses.append(float(Model(cfg, device=dev).loss(_to(params, dev),
+                                                         batch)[0]))
+        launched = wkv6_kernel.launches - n0
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    check(rel <= 1e-5 and launched == cfg.n_layers,
+          f"tiny rwkv Model.loss: card {losses[1]!r} cpu {losses[0]!r} (rel "
+          f"{rel:.3e}), {launched} wkv6 launches")
+    print(f"tiny f32 rwkv Model.loss: card {losses[1]!r}, CPU {losses[0]!r}, "
+          f"rel diff {rel:.3e} (tolerance 1e-5), {launched} wkv6 launches")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (3, 17, 9, 22, 30)]
+    for quantized in (False, True):
+        outs = []
+        for dev in ("cpu", "cuda"):
+            eng = ReferenceEngine(cfg, params, max_batch=2, max_context=48,
+                                  eos_id=-1, quantized=quantized, device=dev)
+            reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=6)
+                    for i, p in enumerate(prompts)]
+            eng.run(reqs)
+            outs.append([r.out_tokens for r in reqs])
+        check(outs[0] == outs[1], f"tiny rwkv ReferenceEngine (quantized="
+              f"{quantized}): card {outs[1]} != cpu {outs[0]}")
+        print(f"tiny rwkv ReferenceEngine (quantized={quantized}): card "
+              f"tokens == CPU tokens ({outs[1][0]} ...)")
 
 
 # host functions of the tune call whose cumulative time the paper phase
@@ -3265,6 +3351,295 @@ def moe_phase(torch):
     return launches, readings
 
 
+def wkv_bytes(B, S, H, hd):
+    """Bytes a wkv6 call must move: r, k, v, w read and y written once
+    (f32), u read, the state read and written once."""
+    return 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
+
+
+def wkv_flops(B, S, H, hd):
+    """The least f32 operations of a wkv6 call: a step's state update
+    w_i s_ij + k_i v_j (3 a state entry) and out_j = sum_i r_i s_ij (2 a
+    state entry), plus the bonus term (sum_i r_i u_i k_i) v_j, 5 a channel
+    (the einsum's u_i kv_ij folds into it)."""
+    return B * S * H * (5 * hd * hd + 5 * hd)
+
+
+
+def wkv6_kernel_readings(torch):
+    """(a) The wkv6 kernel against its plain version on the card: the
+    final state bit for bit (int32 views), y within ``WKV_Y_TOL`` of its
+    (b, t, h) row's max |y|, from a nonzero state; timed at the loss, the
+    first prefill batch and decode shapes beside the bound and the plain
+    version.  Returns the kernel's row of the ``kernels`` line."""
+    from repro_torch.kernels.wkv6 import wkv6_kernel, wkv6_plain
+    H, hd = 40, 64
+    paths = {"Model.loss": (RWKV_LOSS_BATCH, RWKV_LOSS_SEQ, H, hd),
+             "prefill, first batch": (HYB_BATCH, hybrid_prefill_len(), H, hd),
+             "decode step": (HYB_BATCH, 1, H, hd)}
+    others = [(2, 63, 4, 16), (3, 1000, 40, 16), (1, 1, 20, 128),
+              (2, 1000, 20, 128), (3, 63, 40, 64), (1, 1000, 40, 64),
+              (2, 1, 7, 32)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(B, S, H, hd):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        w = torch.exp(-torch.exp(randn(B, S, H, hd) - 1.5))
+        return (randn(B, S, H, hd), randn(B, S, H, hd), randn(B, S, H, hd),
+                w, randn(H, hd) * 0.5, randn(B, H, hd, hd))
+
+    worst_abs, worst_rel = 0.0, 0.0
+    for shape in list(paths.values()) + others:
+        args = inputs(*shape)
+        y, sS = wkv6_kernel(*args)
+        torch.cuda.synchronize()
+        wy, ws = wkv6_plain(*args)
+        check(torch.equal(sS.view(torch.int32), ws.view(torch.int32)),
+              f"wkv6 {shape}: final state differs from the plain version's "
+              f"(max abs {(sS - ws).abs().max().item():.3e})")
+        err = (y - wy).abs()
+        rel = (err / wy.abs().amax(dim=-1, keepdim=True)).max().item()
+        worst_abs = max(worst_abs, err.max().item())
+        worst_rel = max(worst_rel, rel)
+        check(bool(torch.isfinite(y).all()) and rel <= WKV_Y_TOL,
+              f"wkv6 {shape}: y off the plain version's by {rel:.3e} of its "
+              f"row's max |y| (tolerance {WKV_Y_TOL})")
+        print(f"wkv6 {shape}: state bit-exact, y max abs err "
+              f"{err.max().item():.3e}, {rel:.3e} of the row's max |y|")
+        del args, y, sS, wy, ws
+    rows = {}
+    for label, shape in paths.items():
+        nbytes = wkv_bytes(*shape)
+        sets = [inputs(*shape)
+                for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+        ms, eager_ms = time_calls(torch, wkv6_kernel, sets, 5)
+        # the plain loop eagerly (a graph of it would hold every step's
+        # temporaries), six launches a token
+        plain_ms = event_ms(torch, lambda: wkv6_plain(*sets[0]), 2)
+        ms2, _ = time_calls(torch, wkv6_kernel, sets, 5)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = wkv_flops(*shape) / F32_FLOPS_PER_S * 1e3
+        rows[label] = {"ms": ms, "ms_again": ms2, "eager_ms": eager_ms,
+                       "plain_ms": plain_ms, "bound_ms": max(b_ms, f_ms),
+                       "bound_by": "bytes" if b_ms >= f_ms else "operations",
+                       "bytes_ms": b_ms, "flops_ms": f_ms, "shape": shape,
+                       "sets": len(sets)}
+        del sets
+    for label, r in rows.items():
+        print(f"wkv6 ({label}, {r['shape']}) [{CARD}]: {r['ms']*1e3:.2f} / "
+              f"{r['ms_again']*1e3:.2f} us on the card "
+              f"({r['eager_ms']*1e3:.2f} us per eager call, "
+              f"{r['ms']*1e3/r['shape'][1]:.3f} us a step); plain (eager) "
+              f"{r['plain_ms']*1e3:.2f} us; bound {r['bound_ms']*1e3:.2f} "
+              f"us ({r['bound_by']}: bytes {r['bytes_ms']*1e3:.2f}, "
+              f"operations {r['flops_ms']*1e3:.2f}; "
+              f"{100 * r['bound_ms'] / r['ms']:.1f} % of it); "
+              f"{r['sets']} input sets")
+    row = rows["Model.loss"]
+    return {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/nn/blocks.py:395",
+        "replaces_note": "no Pallas kernel: the lax.scan of "
+                         "rwkv_time_mix_seq",
+        "max_abs_err": worst_abs, "max_rel_row_err": worst_rel,
+        "ms": row["ms"], "eager_ms": row["eager_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes the WKV "
+                   "recurrence",
+        "shape": f"r, k, v, w ({RWKV_LOSS_BATCH}, {RWKV_LOSS_SEQ}, {H}, "
+                 f"{hd}) f32: one Model.loss time mix; timed over "
+                 f"{row['sets']} input sets",
+        "prefill": {k: rows["prefill, first batch"][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "shape")},
+        "decode": {k: rows["decode step"][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "shape")},
+    }
+
+
+def rwkv_phase(torch):
+    """rwkv6-3b at full width and depth on the card, random weights from
+    seed 0: (b) the f32 decode of token 2101 against prefill(2101); the
+    int8-PoT engine built from the f32 masters, then one cast to bf16; (c)
+    a bf16 8 x 1024 ``Model.loss``; (d) ReferenceEngine serving the hybrid
+    phase's 8 prompts; (e) the int8-PoT engine on them; (f) one more bf16
+    batch under the profiler.  The wkv6 counter is zeroed just before (c)
+    and read just after (e): the path's launches."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.wkv6 import wkv6_kernel
+    from repro_torch.nn import Model, get_config
+    from repro_torch.runtime.serve import ReferenceEngine, Request
+    cfg = get_config(RWKV_ARCH)
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n = _numel(params)
+    print(f"{RWKV_ARCH} params: {n:,} (f32 masters {n * 4 / 2**30:.2f} GiB, "
+          f"init {time.perf_counter() - t0:.2f} s); params_count() "
+          f"{cfg.params_count():,} [{CARD}]")
+    check(n == RWKV_PARAMS, f"{n} parameters, the reference has "
+                            f"{RWKV_PARAMS}")
+
+    # (b) f32 decode vs prefill
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), device="cuda")
+    S = RWKV_DECODE_PROMPT
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (1, S + 1)) \
+        .astype(np.int32)
+    n0 = wkv6_kernel.launches
+    t0 = time.perf_counter()
+    want, _ = m32.prefill(params, {"tokens": toks})
+    _, cache = m32.prefill(params, {"tokens": toks[:, :S]})
+    check(set(cache) == {"state", "tm_prev", "cm_prev"} and
+          cache["state"].dtype == torch.float32, "rwkv cache layout")
+    got, _ = m32.decode_step(params, cache, toks[:, S:], S)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched = wkv6_kernel.launches - n0
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"rwkv f32: decode of token {S + 1} after prefill({S}) against "
+          f"prefill({S + 1}): max abs diff {diff:.4e}, max |logit| "
+          f"{scale:.4e} ({diff / scale:.3e} of it; tolerance "
+          f"{RWKV_DECODE_REL} x max); {sec:.3f} s; {launched} wkv6 launches")
+    check(bool(torch.isfinite(got).all()) and diff <= RWKV_DECODE_REL * scale,
+          "rwkv f32 decode disagrees with prefill")
+    check(launched == 3 * L, f"rwkv f32 check: {launched} wkv6 launches")
+    del m32, cache, want, got
+
+    # the int8-PoT engine from the f32 masters, then bf16 once
+    prompts = hybrid_prompts(cfg.vocab)
+    kw = dict(max_batch=HYB_BATCH, max_context=HYB_CONTEXT, eos_id=-1,
+              device="cuda")
+    t0 = time.perf_counter()
+    qeng = ReferenceEngine(cfg, params, quantized=True, **kw)
+    torch.cuda.synchronize()
+    sheet = qeng.serving_sheet
+    print(f"{RWKV_ARCH} int8-PoT ReferenceEngine built in "
+          f"{time.perf_counter() - t0:.2f} s; serving ledger: {len(sheet)} "
+          f"quantized leaves, weight bytes {sheet.weight_bytes():,.0f}, "
+          f"unquantized {sheet.extra_bytes:,.0f}, total "
+          f"{sheet.total_bytes():,.0f} B, ops per token "
+          f"{sheet.ops_per_token():,.0f}, arithmetic intensity "
+          f"{sheet.arithmetic_intensity():.4f}")
+    for row in sheet.row_strs():
+        print(f"  {row}")
+    floats = sorted(k for k, v in qeng.params["layers"].items()
+                    if not isinstance(v, dict))
+    check(floats == ["cm_mu", "ln_x", "mu", "u", "w0"],
+          f"rwkv int8-PoT float leaves {floats}")
+    t0 = time.perf_counter()
+    cast_tree(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"{RWKV_ARCH}: bf16 {n * 2 / 2**30:.2f} GiB after one cast, "
+          f"{time.perf_counter() - t0:.2f} s, peak so far "
+          f"{torch.cuda.max_memory_allocated()/2**30:.3f} GiB")
+
+    # (c) Model.loss, bf16, one 8 x 1024 batch
+    m = Model(cfg, device="cuda")
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=RWKV_LOSS_SEQ,
+                          global_batch=RWKV_LOSS_BATCH, seed=0).batch(0)
+    m.loss(params, {k: v[:, :64] for k, v in batch.items()})   # warm-up
+    torch.cuda.synchronize()
+    wkv6_kernel.launches = 0
+    t0 = time.perf_counter()
+    loss, mets = m.loss(params, batch)
+    xent = float(mets["xent"])
+    loss_s = time.perf_counter() - t0
+    loss_launches = wkv6_kernel.launches
+    s2 = 0.02 ** 2 * cfg.d_model      # logits ~ N(0, s2) on unit-rms rows
+    expect = float(np.log(cfg.vocab)) + s2 / 2
+    print(f"rwkv bf16 Model.loss ({RWKV_LOSS_BATCH} x {RWKV_LOSS_SEQ}): xent "
+          f"{xent!r} (ln V = {np.log(cfg.vocab):.4f}, ln V + s2/2 = "
+          f"{expect:.4f}); {loss_s:.3f} s; {loss_launches} wkv6 launches")
+    check(np.isfinite(xent) and abs(xent - expect) <= 0.2,
+          f"rwkv loss {xent} far from {expect}")
+    check(loss_launches == L, f"rwkv loss: {loss_launches} wkv6 launches")
+
+    # (d) ReferenceEngine, bf16
+    eng = ReferenceEngine(cfg, params, **kw)
+    reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=HYB_NEW)
+            for i, p in enumerate(prompts)]
+    n_batches = -(-len(reqs) // HYB_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = wkv6_kernel.launches - loss_launches
+    peak = torch.cuda.max_memory_allocated()
+    check(all(r.status == "done" and len(r.out_tokens) == HYB_NEW
+              for r in reqs), "an rwkv request did not finish its tokens")
+    out = np.array([r.out_tokens for r in reqs])
+    check(out.min() >= 0 and out.max() < cfg.vocab, "token out of range")
+    check(served == n_batches * HYB_NEW * L,
+          f"rwkv serving: {served} wkv6 launches")
+    st = eng.stats
+    print(f"rwkv ReferenceEngine (bf16, {HYB_BATCH} rows x {HYB_CONTEXT}): "
+          f"{len(reqs)} requests in {wall:.3f} s, {n_batches} batches; "
+          f"prefill {st['prefill_tokens']} tok in {st['prefill_s']:.3f} s "
+          f"({st['prefill_tokens']/st['prefill_s']:.1f} tok/s); decode "
+          f"{st['decode_tokens']} tok in {st['decode_s']:.3f} s "
+          f"({st['decode_tokens']/st['decode_s']:.1f} tok/s, "
+          f"{1e3 * st['decode_s'] / (n_batches * (HYB_NEW - 1)):.3f} ms a "
+          f"step); peak memory {peak/2**30:.3f} GiB; {served} wkv6 launches")
+    print(f"  first tokens {out[:, 0].tolist()}")
+
+    # (e) the int8-PoT engine on the same prompts
+    qreqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=HYB_NEW)
+             for i, p in enumerate(prompts)]
+    n1 = wkv6_kernel.launches
+    t0 = time.perf_counter()
+    qeng.run(qreqs)
+    torch.cuda.synchronize()
+    qwall = time.perf_counter() - t0
+    qserved = wkv6_kernel.launches - n1
+    launches = wkv6_kernel.launches              # (c) + (d) + (e)
+    check(all(r.status == "done" and len(r.out_tokens) == HYB_NEW
+              for r in qreqs), "an int8 rwkv request did not finish")
+    check(qserved == n_batches * HYB_NEW * L,
+          f"rwkv int8 serving: {qserved} wkv6 launches")
+    qout = np.array([r.out_tokens for r in qreqs])
+    same = float((qout == out).mean())
+    qst = qeng.stats
+    print(f"rwkv int8-PoT ReferenceEngine: {len(qreqs)} requests in "
+          f"{qwall:.3f} s; prefill {qst['prefill_s']:.3f} s, decode "
+          f"{qst['decode_tokens']} tok in {qst['decode_s']:.3f} s "
+          f"({qst['decode_tokens']/qst['decode_s']:.1f} tok/s); "
+          f"{100 * same:.2f} % of greedy tokens equal to bf16's (first "
+          f"{float((qout[:, 0] == out[:, 0]).mean()) * 100:.1f} %); "
+          f"{qserved} wkv6 launches")
+    del qeng
+
+    # (f) one more bf16 batch under the profiler
+    more = [Request(rid=100 + i, prompt=p.copy(), max_new_tokens=HYB_NEW)
+            for i, p in enumerate(prompts[:HYB_BATCH])]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(more)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check(all(r.status == "done" for r in more), "a profiled request failed")
+    busy, by_name = report_profile(prof, wall_us,
+                                   "one rwkv ReferenceEngine batch", 12)
+    wkv_us = sum(t for name, (t, _) in by_name.items() if "wkv6" in name)
+    print(f"  wkv6: {wkv_us/1e3:.3f} ms, {100 * wkv_us / busy:.2f} % of the "
+          f"device's busy time")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"launches on the rwkv path: wkv6 {launches} (loss {loss_launches},"
+          f" bf16 serving {served}, int8 serving {qserved})")
+    return {"wkv6": launches}
+
+
 def main() -> int:
     global CARD
     import torch
@@ -3280,7 +3655,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
     sources = ("paged_gather", "paged_attention", "csd_matvec",
-               "flash_attention", "linear_scan", "qmatmul", "chain_scan")
+               "flash_attention", "linear_scan", "qmatmul", "chain_scan",
+               "wkv6")
     t0 = time.perf_counter()
     build.build(sources)
     print(f"build: {time.perf_counter()-t0:.2f} s "
@@ -3288,10 +3664,10 @@ def main() -> int:
     for name in sources:
         for fn, line in ptxas_lines(build.build_log(name)):
             print(f"  ptxas {name} {fn}: {line}")
-            if name == "chain_scan":
+            if name in ("chain_scan", "wkv6"):    # state lives on chip
                 check(not any(int(n) for n in re.findall(
                     r"(\d+) bytes spill", line)),
-                    f"chain_scan {fn}: ptxas spills: {line}")
+                    f"{name} {fn}: ptxas spills: {line}")
     t0 = time.perf_counter()
     kernels = kernel_phase(torch)
     kernels += csd_kernel_phase(torch)
@@ -3305,6 +3681,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tiny_reference_phase(torch)
     tiny_lm_phase(torch)
+    tiny_rwkv_phase(torch)
     print(f"tiny reference phase: {time.perf_counter()-t0:.2f} s")
     t0 = time.perf_counter()
     launches, combines, eng, spec, cfg = serving_phase(torch)
@@ -3344,13 +3721,20 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_launches, moe_readings = moe_phase(torch)
     print(f"moe phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append(wkv6_kernel_readings(torch))
+    rwkv_launches = rwkv_phase(torch)
+    print(f"rwkv phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
                "explore": explore_launches,
                "ptq": {"flash_attention": launches["flash_attention"]},
                "mixed": mixed_launches, "hybrid": hybrid_launches,
-               "moe": moe_launches, "op": {"qmatmul": qm_launches}}
+               "moe": moe_launches, "rwkv": rwkv_launches,
+               "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
     for name, n in explore_launches.items():
@@ -3360,6 +3744,7 @@ def main() -> int:
     for name, n in moe_launches.items():
         launches[name] += n
     launches["qmatmul"] = qm_launches
+    launches["wkv6"] = rwkv_launches["wkv6"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "paged_attention":

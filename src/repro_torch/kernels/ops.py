@@ -22,11 +22,12 @@ from .paged_attention import paged_attention_kernel, paged_attention_plain
 from .paged_gather import (paged_gather_kernel, paged_gather_pair_kernel,
                            paged_gather_plain)
 from .qmatmul import qmatmul_kernel, qmatmul_plain
+from .wkv6 import wkv6_kernel, wkv6_plain
 
 __all__ = ["qmatmul", "quantize_pot", "exp2_int", "paged_gather",
            "paged_gather_pair", "paged_attention", "csd_expand",
            "csd_expand_stack", "csd_matvec", "csd_qsweep", "flash_attention",
-           "linear_scan", "chain_scan", "tm_chain"]
+           "linear_scan", "chain_scan", "tm_chain", "wkv6"]
 
 
 def csd_expand(w_int, depth: int | None = None) -> np.ndarray:
@@ -210,6 +211,19 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return linear_scan_kernel(a, x)
     _plain_or_raise(a, "linear_scan")
     return linear_scan_plain(a, x)
+
+
+def wkv6(r, k, v, w, u, s0):
+    """The RWKV6 WKV recurrence over a sequence (``kernels/wkv6.py``):
+    r, k, v, w (B, S, H, hd), u (H, hd), s0 (B, H, hd, hd), all f32 ->
+    (y (B, S, H, hd), the final state).  The CUDA kernel's state is
+    bit-identical to the plain version's, y equal up to the order of the
+    hd-term sums."""
+    args = [t.to(torch.float32).contiguous() for t in (r, k, v, w, u, s0)]
+    if r.is_cuda:
+        return wkv6_kernel(*args)
+    _plain_or_raise(r, "wkv6")
+    return wkv6_plain(*args)
 
 
 def chain_scan(a, acc, w, bsh, lab, lab_safe, acts, q, k, count0,

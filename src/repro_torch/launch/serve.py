@@ -14,7 +14,9 @@ flash-attention kernel).  The MoE family (``--arch qwen2-moe-a2.7b``,
 experts' products in cuBLAS.  The hybrid family (``--arch recurrentgemma-9b``)
 always serves through ``ReferenceEngine``, as in the reference: its RG-LRU
 layers run the linear-scan kernel and its local attention the
-flash-attention kernel.  Parameters are random, from ``--seed``.
+flash-attention kernel.  So does the RWKV6 family (``--arch rwkv6-3b``,
+family ``ssm``): each layer's time mix runs the ``wkv6`` kernel once a
+prefill or decode step.  Parameters are random, from ``--seed``.
 """
 from __future__ import annotations
 

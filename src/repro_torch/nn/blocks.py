@@ -1,5 +1,5 @@
-"""Attention, dense-FFN, MoE and RG-LRU blocks, init + apply style
-(counterpart of ``repro/nn/blocks.py``; RWKV is not ported yet).
+"""Attention, dense-FFN, MoE, RWKV6 and RG-LRU blocks, init + apply style
+(counterpart of ``repro/nn/blocks.py``).
 
 Parameters are plain dicts of tensors in the reference's layouts (weights
 ``(in, out)``); ``lead`` prepends stacking dims, so a model initializes all
@@ -288,6 +288,94 @@ def moe_apply(p, x, cfg: ArchConfig):
     imp = probs.mean(dim=(0, 1))
     aux = E * torch.sum(frac * imp)
     return y.to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 ("Finch"): data-dependent decay linear attention + channel mix
+# ---------------------------------------------------------------------------
+
+def init_rwkv(gen: torch.Generator, cfg: ArchConfig, lead=()):
+    d = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    H = d // hd
+    lora = 64
+
+    def full(shape, value):
+        return torch.full((*lead, *shape), value, dtype=torch.float32,
+                          device=gen.device)
+    return {
+        "mu": full((5, d), 0.5),                  # r,k,v,g,w token-shift
+        "wr": _dense(gen, (d, d), lead), "wk": _dense(gen, (d, d), lead),
+        "wv": _dense(gen, (d, d), lead), "wg": _dense(gen, (d, d), lead),
+        "wo": _dense(gen, (d, d), lead),
+        "w0": full((d,), -6.0),                   # decay base
+        "wA": _dense(gen, (d, lora), lead), "wB": _dense(gen, (lora, d), lead),
+        "u": _zeros(gen, (H, hd), lead),          # bonus
+        "ln_x": _zeros(gen, (d,), lead),
+        "cm_mu": full((2, d), 0.5),
+        "cm_k": _dense(gen, (d, cfg.d_ff), lead),
+        "cm_v": _dense(gen, (cfg.d_ff, d), lead),
+    }
+
+
+def _token_shift(x, x_prev):
+    """x shifted one token later along S, ``x_prev`` (B, d) in front."""
+    return torch.cat([x_prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _rwkv_proj(p, x, x_prev, cfg: ArchConfig):
+    """Token-shift mixes + projections.  x: (B, S, d); x_prev: (B, d), the
+    token before x[:, 0].  Returns r, k, v, g in x.dtype and the decay
+    w = exp(-exp(w0 + tanh(mix_w @ wA) @ wB)) in f32 whatever x.dtype,
+    as the reference casts."""
+    mu = p["mu"].to(x.dtype)
+    xs = _token_shift(x, x_prev)
+    mix = [x + (xs - x) * mu[i] for i in range(5)]
+    r = mix[0] @ p["wr"].to(x.dtype)
+    k = mix[1] @ p["wk"].to(x.dtype)
+    v = mix[2] @ p["wv"].to(x.dtype)
+    g = F.silu(mix[3] @ p["wg"].to(x.dtype))
+    dd = p["w0"].float() + (torch.tanh(mix[4].float() @ p["wA"].float())
+                            @ p["wB"].float())
+    w = torch.exp(-torch.exp(dd))                              # (B, S, d)
+    return r, k, v, g, w
+
+
+def rwkv_time_mix_seq(p, x, cfg: ArchConfig, state=None, x_prev=None):
+    """The time mix over x (B, S, d) from ``state`` (B, H, hd, hd) f32 and
+    the last token before it ``x_prev`` (zeros when None): the WKV
+    recurrence (``kernels.wkv6``: the CUDA kernel on a CUDA tensor, its
+    plain version on the CPU), ``rms_norm`` over the whole d with
+    ``ln_x``, the gate g and ``wo``.  Returns (y, the new state, x[:, -1])."""
+    from repro_torch.kernels import wkv6
+    B, S, d = x.shape
+    hd = cfg.rwkv_head_dim
+    H = d // hd
+    if x_prev is None:
+        x_prev = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    if state is None:
+        state = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                            device=x.device)
+    r, k, v, g, w = _rwkv_proj(p, x, x_prev, cfg)
+    out, state = wkv6(*(t.reshape(B, S, H, hd) for t in (r, k, v, w)),
+                      p["u"], state)
+    y = out.reshape(B, S, d).to(x.dtype)
+    y = rms_norm(y, p["ln_x"].to(x.dtype), cfg.norm_eps)
+    y = (y * g) @ p["wo"].to(x.dtype)
+    return y, state, x[:, -1]
+
+
+def rwkv_channel_mix(p, x, x_prev=None):
+    """The channel mix: token shift with ``cm_mu[0]``, then
+    relu(xk @ cm_k)^2 @ cm_v.  Returns (y, x[:, -1])."""
+    B, S, d = x.shape
+    if x_prev is None:
+        x_prev = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    mu = p["cm_mu"].to(x.dtype)
+    xs = _token_shift(x, x_prev)
+    xk = x + (xs - x) * mu[0]
+    k = torch.square(F.relu(xk @ p["cm_k"].to(x.dtype)))
+    return k @ p["cm_v"].to(x.dtype), x[:, -1]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, MoE and hybrid families (counterpart of
-``repro/nn/model.py``).
+"""Model assembly for the dense, MoE, RWKV6 (``ssm``) and hybrid families
+(counterpart of ``repro/nn/model.py``).
 
 Parameters are a dict tree in the reference's layout: per-layer leaves are
 stacked on a leading layer axis (``params["layers"]["attn"]["wq"]`` is
@@ -16,6 +16,13 @@ routing capacity is counted over the positions of one call: the whole
 padded sequence in ``loss`` and ``prefill``, one chunk row in
 ``prefill_chunks`` (so chunking can change which pairs are dropped, the
 reference's chunked-prefill capacity caveat), one token in decode.
+
+The ssm family (rwkv6) is attention-free: each layer of
+``params["layers"]`` (the :func:`~repro_torch.nn.blocks.init_rwkv` leaves,
+stacked) runs a time mix and a channel mix, each on its rms-normed input.
+Its cache is fixed-size whatever the context: ``state`` (L, B, H, hd, hd)
+f32, the WKV recurrence's, and ``tm_prev`` / ``cm_prev`` (L, B, d), the
+last normed input of each mix (the token shift's previous token).
 
 The hybrid family (recurrentgemma) stacks units of (RG-LRU, RG-LRU, local
 attention), each block followed by an MLP, on ``params["layers"]`` (one
@@ -90,14 +97,14 @@ def params_from_jax(tree, device="cuda"):
 
 
 class Model:
-    """Dense, MoE or hybrid decoder LM with the reference's parameter and
+    """Dense, MoE, RWKV6 or hybrid LM with the reference's parameter and
     cache layouts."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "moe", "hybrid"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"repro_torch ports the dense, MoE and hybrid families, not "
-                f"{cfg.family!r}")
+                f"repro_torch ports the dense, MoE, ssm and hybrid families, "
+                f"not {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -129,6 +136,9 @@ class Model:
             else:
                 params["layers"]["mlp"] = blocks.init_mlp(gen, d, cfg.d_ff,
                                                           lead=(L,))
+            return params
+        if cfg.family == "ssm":
+            params["layers"] = blocks.init_rwkv(gen, cfg, lead=(L,))
             return params
         n_units, rem = divmod(L, 3)
         params["layers"] = self._init_hybrid_unit(gen, lead=(n_units,))
@@ -172,6 +182,19 @@ class Model:
         h = rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
         y, aux = self._ffn(p, h)
         return x + y, aux
+
+    def _ssm_block(self, p, x, state=None, tm_prev=None, cm_prev=None):
+        """One RWKV6 layer from its carried ``state`` / ``tm_prev`` /
+        ``cm_prev`` (zeros when None); returns (x, state, tm_prev,
+        cm_prev)."""
+        cfg = self.cfg
+        h = rms_norm(x, 0.0, cfg.norm_eps)        # the reference's 0-d zero
+        y, state, tm_prev = blocks.rwkv_time_mix_seq(p, h, cfg, state,
+                                                     tm_prev)
+        x = x + y
+        h = rms_norm(x, 0.0, cfg.norm_eps)
+        y, cm_prev = blocks.rwkv_channel_mix(p, h, cm_prev)
+        return x + y, state, tm_prev, cm_prev
 
     def _hybrid_unit(self, p, x, caches=None, collect_kv=False,
                      attend=None):
@@ -233,6 +256,9 @@ class Model:
                                            x)
                 if a is not None:
                     aux = aux + a
+        elif cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                x = self._ssm_block(layer_params(params["layers"], i), x)[0]
         else:
             for i in range(cfg.n_layers // 3):
                 x, _, _ = self._hybrid_unit(
@@ -289,11 +315,14 @@ class Model:
         reads).  Dense and MoE: {k, v} of (L, B, S, Hkv, hd) with K roped
         at positions 0..S-1.  Hybrid: the states after position S-1, and K/V
         of the last W = min(S, local_window) positions in their ring slots
-        (the :meth:`init_cache` layout at context S)."""
+        (the :meth:`init_cache` layout at context S).  Ssm: each layer's
+        state after position S-1 and its mixes' last normed inputs."""
         cfg = self.cfg
         x, _, _ = self._embed_inputs(params, batch)
         if cfg.family == "hybrid":
             return self._prefill_hybrid(params, x)
+        if cfg.family == "ssm":
+            return self._prefill_ssm(params, x)
         B, S, _ = x.shape
         cache = self._empty_cache(torch.empty, B, S)
         positions = torch.arange(S, device=self.device)[None, :]
@@ -305,6 +334,16 @@ class Model:
             cache["k"][i] = rope(k, positions, cfg.rope_theta)
             cache["v"][i] = v
             x, _ = self._decoder_block(pl, x)
+        x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+        logits = x[:, -1:] @ params["lm_head"].to(x.dtype)
+        return logits.float(), cache
+
+    def _prefill_ssm(self, params, x):
+        cfg = self.cfg
+        cache = self._empty_cache(torch.empty, x.shape[0], x.shape[1])
+        for i in range(cfg.n_layers):
+            x, cache["state"][i], cache["tm_prev"][i], cache["cm_prev"][i] = \
+                self._ssm_block(layer_params(params["layers"], i), x)
         x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
         logits = x[:, -1:] @ params["lm_head"].to(x.dtype)
         return logits.float(), cache
@@ -337,6 +376,12 @@ class Model:
         torch.empty); see :meth:`init_cache`."""
         cfg = self.cfg
         dt, dev = self.dtype, self.device
+        if cfg.family == "ssm":
+            L, d, hd = cfg.n_layers, cfg.d_model, cfg.rwkv_head_dim
+            return {"state": alloc((L, batch, d // hd, hd, hd),
+                                   dtype=torch.float32, device=dev),
+                    "tm_prev": alloc((L, batch, d), dtype=dt, device=dev),
+                    "cm_prev": alloc((L, batch, d), dtype=dt, device=dev)}
         if cfg.family != "hybrid":
             L, C = cfg.n_layers, context
         else:
@@ -356,7 +401,8 @@ class Model:
 
     def init_cache(self, batch: int, context: int) -> dict:
         """Zeroed decode cache.  Dense and MoE: {k, v} of (L, batch,
-        context, Hkv, hd).  Hybrid: the unit states, K/V rings of (n_units,
+        context, Hkv, hd).  Ssm: {state (L, batch, H, hd, hd) f32, tm_prev,
+        cm_prev (L, batch, d)}, whatever the context.  Hybrid: the unit states, K/V rings of (n_units,
         batch, min(context, local_window), Hkv, hd), and the tail's
         states."""
         return self._empty_cache(torch.zeros, batch, context)
@@ -391,8 +437,8 @@ class Model:
         positions, its padded tail and dummy rows included, as in the
         reference."""
         cfg = self.cfg
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
+        if cfg.family not in ("dense", "moe"):          # ssm too, as in the
+            raise NotImplementedError(                  # reference
                 f"chunked prefill serves the standard-KV families (dense, "
                 f"moe), not {cfg.family!r}")
         tokens = self._long(tokens)
@@ -454,16 +500,27 @@ class Model:
         ``decode_kernel`` picks its attention route (see
         :func:`repro_torch.nn.blocks.attention_step`).  The hybrid's local
         attention writes slot pos % C of its ring and attends over the
-        whole ring, which holds the window.  Updates the cache IN PLACE;
+        whole ring, which holds the window.  Ssm ignores ``pos``: each
+        layer steps its state and mixes once.  Updates the cache IN PLACE;
         returns ((B, 1, V) f32 logits, the cache)."""
         cfg = self.cfg
         tokens = self._long(tokens)
         B = tokens.shape[0]
         x = params["embed"][tokens].to(self.dtype)                 # (B, 1, d)
-        if block_table is not None and cfg.family == "hybrid":
+        if block_table is not None and cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"block-paged decode serves the standard-KV families (dense, "
                 f"moe), not {cfg.family!r}")
+        if cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                x, cache["state"][i], cache["tm_prev"][i], \
+                    cache["cm_prev"][i] = self._ssm_block(
+                        layer_params(params["layers"], i), x,
+                        cache["state"][i], cache["tm_prev"][i],
+                        cache["cm_prev"][i])
+            x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+            logits = x @ params["lm_head"].to(x.dtype)
+            return logits.float(), cache
         if block_table is not None:
             block_table = self._long(block_table)
         if torch.is_tensor(pos) or np.ndim(pos):

@@ -525,7 +525,8 @@ class ServeEngine:
 
 class ReferenceEngine:
     """The reference's continuous-batching-lite engine, kept as the parity
-    oracle and the hybrid family's only engine: fixed decode batch,
+    oracle and the only engine of the ssm (RWKV6) and hybrid families,
+    whose caches hold recurrent states: fixed decode batch,
     whole-batch left-padded prefill (``Model.prefill``), ``_pad_kv``
     re-padding the K/V leaves to ``max_context``, batch refresh only at
     prefill boundaries.  Prompts beyond ``max_context`` are
@@ -611,8 +612,8 @@ class ReferenceEngine:
         self.stats["prefill_s"] += time.time() - t0
         self.stats["prefill_tokens"] += int(B * S)
         # embed the prefill K/V into the serving context: only the "k"/"v"
-        # leaves grow; recurrent and conv states are fixed-size and pass
-        # through.  The hybrid's K/V is a ring of min(S, local_window)
+        # leaves grow; recurrent and conv states (the ssm's state, tm_prev
+        # and cm_prev among them) are fixed-size and pass through.  The hybrid's K/V is a ring of min(S, local_window)
         # slots, so padding it, as the reference does, misplaces positions
         # once a sequence passes the window with max_context > window.
         cache = {k: (self._pad_kv(v) if k in ("k", "v") else v)

@@ -249,7 +249,7 @@ def test_hybrid_needs_a_card_unless_told():
 
 def test_unported_families_and_engines_raise(hyb):
     _, tcfg, _, _, _, tp = hyb
-    for family in ("ssm", "audio", "vlm"):
+    for family in ("audio", "vlm"):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(tcfg, family=family), device="cpu")
     with pytest.raises(NotImplementedError):

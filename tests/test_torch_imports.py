@@ -51,7 +51,8 @@ def test_port_files_exist():
                 "tune/__init__.py", "tune/bench.py", "tune/cache.py",
                 "tune/dispatch.py", "tune/measurers.py",
                 "kernels/chain_scan.py", "configs/qwen2_moe_a2_7b.py",
-                "configs/arctic_480b.py"):
+                "configs/arctic_480b.py", "configs/rwkv6_3b.py",
+                "kernels/wkv6.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()
@@ -59,6 +60,7 @@ def test_port_files_exist():
     assert (ROOT / "src/repro_torch/kernels/csrc/linear_scan.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/qmatmul.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/chain_scan.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/wkv6.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES,
