@@ -207,12 +207,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    serving ledger and ``quant_bytes`` printed, the f32 masters dropped
    once the engines are built); arctic-480b's full-width layer (1 of 35)
    in bf16 on both routes, 8 of the serving cell's requests;
-11. the RWKV6 family, after the MoE's memory is freed: (a) the ``wkv6``
-   kernel against its plain version (the final state bit for bit, y within
+11. the RWKV6 family, after the MoE's memory is freed: (a) ptxas's
+   registers and spills for every hd instantiation of both ``wkv6``
+   routes (a spill fails) and the library's tiling against ``wkv6.tiling``; the kernel
+   against its plain version (the final state bit for bit, y within
    ``WKV_Y_TOL`` of its row's max |y|) at the loss shape (8, 1024, 40,
    64), the first ReferenceEngine prefill batch's, a decode step (4, 1)
-   from a nonzero state, hd = 16 and 128 and S = 1, 63 and 1000, and
-   timed at the first three beside the bytes bound and the plain
+   from a nonzero state, hd = 16 and 128 and S = 1, 63 and 1000 in f32,
+   and at the first three with bf16 r, k, v (as the bf16 path gives
+   them); timed at the first three, bf16 and f32, beside both bounds
+   (FP32 issue slots, ``wkv_slots``; bytes, ``wkv_bytes``) and the plain
    version; then rwkv6-3b at full width and depth (32 layers, d_model
    2560, 40 heads of 64, d_ff 8960, vocab 65536; 2,863,434,240 f32
    parameters from seed 0): (b) the f32 decode of token 2101 after
@@ -224,7 +228,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    serving ledger and its share of greedy tokens equal to bf16's); the
    ``wkv6`` counter zeroed just before (c) and read after (e): 32 launches
    a loss forward, prefill and decode step; (f) a ``torch.profiler``
-   window over one more bf16 batch.
+   window over one more bf16 batch (``wkv6``'s share of the busy time,
+   the direct copies' count).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -235,6 +240,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import importlib
 import json
 import os
 import re
@@ -247,6 +253,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+# FP32 instructions a second: 132 SMs x 128 lanes x 1.98 GHz, the data
+# sheet's f32 rate counting an FMA as one (an unfused multiply or add
+# takes the same slot)
+F32_SLOTS_PER_S = F32_FLOPS_PER_S / 2
 L2_BYTES = 50 * 2**20              # H100 SXM L2 cache, NVIDIA data sheet
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
@@ -308,9 +318,10 @@ RWKV_LOSS_BATCH, RWKV_LOSS_SEQ = 8, 1024
 # state or token shift moves the logits by a large share of their scale.
 RWKV_DECODE_PROMPT = 2100
 RWKV_DECODE_REL = 2e-3         # x max |logit|
-# wkv6's y against the plain version: the kernel adds the hd terms of
-# out_j in i order with FMAs, the plain einsum as a batched product does;
-# each is within a few ulps of the row's larger terms.
+# wkv6's y against the plain version: the kernel adds sum_i r_i s_ij with
+# FMAs over each lane's rows, then across lanes, then v_j a_t, the plain
+# einsum as a batched product does; each is within a few ulps of the
+# row's larger terms.
 WKV_Y_TOL = 2e-5               # x the (b, t, h) row's max |y|
 # The int8 power-of-two matmul: held bit for bit at the reference tests'
 # shapes, the kernel lane's (benchmarks/run.py) and M = 1; then at
@@ -3351,29 +3362,64 @@ def moe_phase(torch):
     return launches, readings
 
 
-def wkv_bytes(B, S, H, hd):
-    """Bytes a wkv6 call must move: r, k, v, w read and y written once
+def wkv_bytes(B, S, H, hd, es=4):
+    """Bytes a wkv6 call must move: r, k, v read once at ``es`` bytes an
+    element (the dtype the call takes them in), w read and y written once
     (f32), u read, the state read and written once."""
-    return 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
+    n = B * S * H * hd
+    return 3 * es * n + 4 * (2 * n + H * hd + 2 * B * H * hd * hd)
 
 
-def wkv_flops(B, S, H, hd):
-    """The least f32 operations of a wkv6 call: a step's state update
-    w_i s_ij + k_i v_j (3 a state entry) and out_j = sum_i r_i s_ij (2 a
-    state entry), plus the bonus term (sum_i r_i u_i k_i) v_j, 5 a channel
-    (the einsum's u_i kv_ij folds into it)."""
-    return B * S * H * (5 * hd * hd + 5 * hd)
-
+def wkv_slots(B, S, H, hd):
+    """FP32 issue slots the bit-exact recurrence needs: 4 a state entry a
+    step (the update's two products and its add, unfused to match the
+    plain version bit for bit, each a slot, and the output's FFMA), plus
+    the step's scalar a_t = sum_i r_i u_i k_i (2 a key) and its term
+    v_j a_t (1 a column)."""
+    return B * S * H * (4 * hd * hd + 3 * hd)
 
 
 def wkv6_kernel_readings(torch):
-    """(a) The wkv6 kernel against its plain version on the card: the
+    """(a) The wkv6 kernel against its plain version on the card: ptxas's
+    lines and the library's tiling for every hd (a spill fails); the
     final state bit for bit (int32 views), y within ``WKV_Y_TOL`` of its
-    (b, t, h) row's max |y|, from a nonzero state; timed at the loss, the
-    first prefill batch and decode shapes beside the bound and the plain
-    version.  Returns the kernel's row of the ``kernels`` line."""
+    (b, t, h) row's max |y|, from a nonzero state, at ten shapes in f32
+    and at the path's three with bf16 r, k, v as the bf16 path gives
+    them; timed at those three, bf16 and f32, beside both bounds (FP32
+    issue slots, bytes) and the plain version.  Returns the kernel's row
+    of the ``kernels`` line (bf16 at the loss shape)."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.wkv6 import wkv6_kernel, wkv6_plain
+    wkv6_mod = importlib.import_module("repro_torch.kernels.wkv6")
     H, hd = 40, 64
+    build.build(["wkv6"])
+    report, key = {}, None   # (route, hd, bf16) -> ptxas's lines
+    for line in build.build_log("wkv6").splitlines():
+        m = re.search(r"entry function '[^']*wkv6_(step_)?kernelILi(\d+)ELb"
+                      r"([01])E", line)
+        if m:
+            key = ("step" if m.group(1) else "ring", int(m.group(2)),
+                   int(m.group(3)))
+        elif key and ("registers" in line or "spill" in line):
+            report.setdefault(key, []).append(line.strip())
+    for d in wkv6_mod.HEAD_DIMS:
+        t = wkv6_mod.tiling(d)
+        check(wkv6_mod.library_tiling(d) == t,
+              f"wkv6 hd {d}: the library's tiling differs from tiling()")
+        print(f"wkv6 hd {d}: {t}")
+        for route in wkv6_mod.ROUTES:
+            for bf16 in (0, 1):
+                name = f"wkv6 {route} hd {d} {'bf16' if bf16 else 'f32'}"
+                check((route, d, bf16) in report,
+                      f"ptxas printed nothing for {name}")
+                smem = (t.smem_bf16 if bf16 else t.smem_f32) \
+                    if route == "ring" else 0
+                for line in report[route, d, bf16]:
+                    print(f"  ptxas {name} (dynamic shared {smem} B): "
+                          f"{line}")
+                    check(not any(int(n) for n in re.findall(
+                        r"(\d+) bytes spill", line)),
+                        f"{name} spills: {line}")
     paths = {"Model.loss": (RWKV_LOSS_BATCH, RWKV_LOSS_SEQ, H, hd),
              "prefill, first batch": (HYB_BATCH, hybrid_prefill_len(), H, hd),
              "decode step": (HYB_BATCH, 1, H, hd)}
@@ -3382,61 +3428,67 @@ def wkv6_kernel_readings(torch):
               (2, 1, 7, 32)]
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def inputs(B, S, H, hd):
+    def inputs(B, S, H, hd, dtype=torch.float32):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
+        r, k, v = (randn(B, S, H, hd).to(dtype) for _ in range(3))
         w = torch.exp(-torch.exp(randn(B, S, H, hd) - 1.5))
-        return (randn(B, S, H, hd), randn(B, S, H, hd), randn(B, S, H, hd),
-                w, randn(H, hd) * 0.5, randn(B, H, hd, hd))
+        return r, k, v, w, randn(H, hd) * 0.5, randn(B, H, hd, hd)
 
     worst_abs, worst_rel = 0.0, 0.0
-    for shape in list(paths.values()) + others:
-        args = inputs(*shape)
+    cases = [(shape, torch.float32) for shape in
+             list(paths.values()) + others]
+    cases += [(shape, torch.bfloat16) for shape in paths.values()]
+    for shape, dtype in cases:
+        args = inputs(*shape, dtype)
         y, sS = wkv6_kernel(*args)
         torch.cuda.synchronize()
         wy, ws = wkv6_plain(*args)
+        name = f"wkv6 {shape} {str(dtype)[6:]}"
         check(torch.equal(sS.view(torch.int32), ws.view(torch.int32)),
-              f"wkv6 {shape}: final state differs from the plain version's "
+              f"{name}: final state differs from the plain version's "
               f"(max abs {(sS - ws).abs().max().item():.3e})")
         err = (y - wy).abs()
         rel = (err / wy.abs().amax(dim=-1, keepdim=True)).max().item()
         worst_abs = max(worst_abs, err.max().item())
         worst_rel = max(worst_rel, rel)
         check(bool(torch.isfinite(y).all()) and rel <= WKV_Y_TOL,
-              f"wkv6 {shape}: y off the plain version's by {rel:.3e} of its "
+              f"{name}: y off the plain version's by {rel:.3e} of its "
               f"row's max |y| (tolerance {WKV_Y_TOL})")
-        print(f"wkv6 {shape}: state bit-exact, y max abs err "
+        print(f"{name}: state bit-exact, y max abs err "
               f"{err.max().item():.3e}, {rel:.3e} of the row's max |y|")
         del args, y, sS, wy, ws
     rows = {}
     for label, shape in paths.items():
-        nbytes = wkv_bytes(*shape)
-        sets = [inputs(*shape)
-                for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
-        ms, eager_ms = time_calls(torch, wkv6_kernel, sets, 5)
-        # the plain loop eagerly (a graph of it would hold every step's
-        # temporaries), six launches a token
-        plain_ms = event_ms(torch, lambda: wkv6_plain(*sets[0]), 2)
-        ms2, _ = time_calls(torch, wkv6_kernel, sets, 5)
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        f_ms = wkv_flops(*shape) / F32_FLOPS_PER_S * 1e3
-        rows[label] = {"ms": ms, "ms_again": ms2, "eager_ms": eager_ms,
-                       "plain_ms": plain_ms, "bound_ms": max(b_ms, f_ms),
-                       "bound_by": "bytes" if b_ms >= f_ms else "operations",
-                       "bytes_ms": b_ms, "flops_ms": f_ms, "shape": shape,
-                       "sets": len(sets)}
-        del sets
-    for label, r in rows.items():
-        print(f"wkv6 ({label}, {r['shape']}) [{CARD}]: {r['ms']*1e3:.2f} / "
-              f"{r['ms_again']*1e3:.2f} us on the card "
-              f"({r['eager_ms']*1e3:.2f} us per eager call, "
-              f"{r['ms']*1e3/r['shape'][1]:.3f} us a step); plain (eager) "
-              f"{r['plain_ms']*1e3:.2f} us; bound {r['bound_ms']*1e3:.2f} "
-              f"us ({r['bound_by']}: bytes {r['bytes_ms']*1e3:.2f}, "
-              f"operations {r['flops_ms']*1e3:.2f}; "
-              f"{100 * r['bound_ms'] / r['ms']:.1f} % of it); "
+        for dtype in (torch.bfloat16, torch.float32):
+            nbytes = wkv_bytes(*shape, torch.finfo(dtype).bits // 8)
+            sets = [inputs(*shape, dtype)
+                    for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+            ms, eager_ms = time_calls(torch, wkv6_kernel, sets, 5)
+            # the plain loop eagerly (a graph of it would hold every
+            # step's temporaries), six launches a token
+            plain_ms = event_ms(torch, lambda: wkv6_plain(*sets[0]), 2)
+            ms2, _ = time_calls(torch, wkv6_kernel, sets, 5)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            s_ms = wkv_slots(*shape) / F32_SLOTS_PER_S * 1e3
+            rows[label, dtype] = {
+                "ms": ms, "ms_again": ms2, "eager_ms": eager_ms,
+                "plain_ms": plain_ms, "bound_ms": max(b_ms, s_ms),
+                "bound_by": "bytes" if b_ms >= s_ms else "operations",
+                "bytes_ms": b_ms, "slots_ms": s_ms, "shape": shape,
+                "sets": len(sets)}
+            del sets
+    for (label, dtype), r in rows.items():
+        print(f"wkv6 ({label}, {r['shape']}, r, k, v {str(dtype)[6:]}) "
+              f"[{CARD}]: {r['ms']*1e3:.2f} / {r['ms_again']*1e3:.2f} us "
+              f"on the card ({r['eager_ms']*1e3:.2f} us per eager call, "
+              f"{r['ms']*1e3/r['shape'][1]:.4f} us a step); plain (eager) "
+              f"{r['plain_ms']*1e3:.2f} us; bounds: FP32 issue slots "
+              f"{r['slots_ms']*1e3:.2f} us, bytes {r['bytes_ms']*1e3:.2f} "
+              f"us; the larger ({r['bound_by']}) "
+              f"{100 * r['bound_ms'] / r['ms']:.1f} % of the time; "
               f"{r['sets']} input sets")
-    row = rows["Model.loss"]
+    row = rows["Model.loss", torch.bfloat16]
     return {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
@@ -3449,12 +3501,14 @@ def wkv6_kernel_readings(torch):
         "bound_by": row["bound_by"], "library_ms": None,
         "library": "none: no single PyTorch call computes the WKV "
                    "recurrence",
-        "shape": f"r, k, v, w ({RWKV_LOSS_BATCH}, {RWKV_LOSS_SEQ}, {H}, "
-                 f"{hd}) f32: one Model.loss time mix; timed over "
-                 f"{row['sets']} input sets",
-        "prefill": {k: rows["prefill, first batch"][k]
+        "shape": f"r, k, v bf16, w f32 ({RWKV_LOSS_BATCH}, "
+                 f"{RWKV_LOSS_SEQ}, {H}, {hd}): one bf16 Model.loss time "
+                 f"mix; timed over {row['sets']} input sets",
+        "f32": {k: rows["Model.loss", torch.float32][k]
+                for k in ("ms", "plain_ms", "bound_ms")},
+        "prefill": {k: rows["prefill, first batch", torch.bfloat16][k]
                     for k in ("ms", "plain_ms", "bound_ms", "shape")},
-        "decode": {k: rows["decode step"][k]
+        "decode": {k: rows["decode step", torch.bfloat16][k]
                    for k in ("ms", "plain_ms", "bound_ms", "shape")},
     }
 
@@ -3547,6 +3601,7 @@ def rwkv_phase(torch):
     m.loss(params, {k: v[:, :64] for k, v in batch.items()})   # warm-up
     torch.cuda.synchronize()
     wkv6_kernel.launches = 0
+    wkv6_kernel.route_launches = dict.fromkeys(wkv6_kernel.route_launches, 0)
     t0 = time.perf_counter()
     loss, mets = m.loss(params, batch)
     xent = float(mets["xent"])
@@ -3600,6 +3655,11 @@ def rwkv_phase(torch):
     qwall = time.perf_counter() - t0
     qserved = wkv6_kernel.launches - n1
     launches = wkv6_kernel.launches              # (c) + (d) + (e)
+    routes = dict(wkv6_kernel.route_launches)
+    check(routes["step"] == 2 * n_batches * (HYB_NEW - 1) * L and
+          routes["ring"] == launches - routes["step"],
+          f"rwkv path routes {routes}: a decode step on the step route, "
+          f"every longer call on the ring")
     check(all(r.status == "done" and len(r.out_tokens) == HYB_NEW
               for r in qreqs), "an int8 rwkv request did not finish")
     check(qserved == n_batches * HYB_NEW * L,
@@ -3630,14 +3690,18 @@ def rwkv_phase(torch):
     busy, by_name = report_profile(prof, wall_us,
                                    "one rwkv ReferenceEngine batch", 12)
     wkv_us = sum(t for name, (t, _) in by_name.items() if "wkv6" in name)
+    copy_us, copies = (sum(v) for v in zip(*(
+        tn for name, tn in by_name.items() if "direct_copy" in name)))
     print(f"  wkv6: {wkv_us/1e3:.3f} ms, {100 * wkv_us / busy:.2f} % of the "
-          f"device's busy time")
+          f"device's busy time; direct copies (casts): {copy_us/1e3:.3f} ms "
+          f"in {copies} calls")
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"launches on the rwkv path: wkv6 {launches} (loss {loss_launches},"
+    print(f"launches on the rwkv path: wkv6 {launches} by route {routes} "
+          f"(loss {loss_launches},"
           f" bf16 serving {served}, int8 serving {qserved})")
-    return {"wkv6": launches}
+    return {"wkv6": launches, "wkv6 routes": routes}
 
 
 def main() -> int:
@@ -3751,6 +3815,8 @@ def main() -> int:
             k["combine_launches"] = combines
         if k["name"] == "paged_gather":
             k["launch_unit"] = "one K+V pair (paged_gather_pair_kernel)"
+        if k["name"] == "wkv6":
+            k["route_launches"] = rwkv_launches["wkv6 routes"]
         k["launches_by_path"] = {p: v[k["name"]] for p, v in by_path.items()
                                  if k["name"] in v}
         if k["name"] in moe_readings:

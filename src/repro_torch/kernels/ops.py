@@ -215,15 +215,23 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def wkv6(r, k, v, w, u, s0):
     """The RWKV6 WKV recurrence over a sequence (``kernels/wkv6.py``):
-    r, k, v, w (B, S, H, hd), u (H, hd), s0 (B, H, hd, hd), all f32 ->
-    (y (B, S, H, hd), the final state).  The CUDA kernel's state is
-    bit-identical to the plain version's, y equal up to the order of the
-    hd-term sums."""
-    args = [t.to(torch.float32).contiguous() for t in (r, k, v, w, u, s0)]
+    r, k, v (B, S, H, hd) in the dtype the projections give them (f32 or
+    bf16, not cast here), w (B, S, H, hd), u (H, hd), s0 (B, H, hd, hd)
+    f32 -> (y (B, S, H, hd) f32, the final state).  The CUDA kernel's
+    state is bit-identical to the plain version's, y equal up to the
+    order of the hd-term sums."""
+    r, k, v = (t.contiguous() for t in (r, k, v))
+    w, u, s0 = (t.to(torch.float32).contiguous() for t in (w, u, s0))
     if r.is_cuda:
-        return wkv6_kernel(*args)
+        return wkv6_kernel(*(_aligned16(t) for t in (r, k, v, w)), u, s0)
     _plain_or_raise(r, "wkv6")
-    return wkv6_plain(*args)
+    return wkv6_plain(r, k, v, w, u, s0)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it starts off a 16-byte boundary (a
+    view into a larger tensor): TMA tensor maps need aligned bases."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def chain_scan(a, acc, w, bsh, lab, lab_safe, acts, q, k, count0,

@@ -7,51 +7,115 @@ on the key axis and columns j on the value axis, and each step t does::
     out_j  = sum_i r_i (s_ij + u_i kv_ij)     (from the state before t)
     s_ij  <- w_i s_ij + kv_ij
 
-r, k, v, w: (B, S, H, hd) f32; u: (H, hd) f32; s0: (B, H, hd, hd) f32 ->
+r, k, v: (B, S, H, hd), all f32 or all bf16 (as the projections give
+them); w: (B, S, H, hd) f32; u: (H, hd) f32; s0: (B, H, hd, hd) f32 ->
 y (B, S, H, hd) f32 and the final state (B, H, hd, hd) f32, for any
-B >= 1 and S >= 1 (S = 1 is a decode step from a carried state).
+B >= 1 and S >= 1 (S = 1 is a decode step from a carried state).  bf16
+to f32 is exact, so bf16 r, k, v give the state their f32 upcasts give.
 
 Source note.  :func:`wkv6_kernel` launches ``csrc/wkv6.cu``.  It replaces
 no Pallas kernel: the reference runs this recurrence as a ``lax.scan``
 over tokens (``repro/nn/blocks.py::rwkv_time_mix_seq``, its ``step``),
 its one device loop on the RWKV path, and a token-by-token Python loop
-would issue ~6 launches a token and layer.  It is bound by bytes: each
-step reads r, k, v, w and writes y (20 bytes a channel), the state is
-read and written once a launch, and the work (~5 flops a state entry a
-step) is far below the card's rate.  The kernel runs one block of hd
-threads per (h, b), thread j keeping column s[:, j] in registers for the
-whole sequence; the step's r, k, w (and u) go through shared memory,
-double-buffered so one barrier a step suffices, and the next step's
-inputs are loaded while the current one computes.  Its launch bounds
-ask for one block a multiprocessor, which leaves a thread the registers
-for its state column and several shared-memory loads in flight.  Only
-B * H chains run (160 at the serving batch), each sequential over S, so
-it sits far above its bound; a chunked form on the tensor cores is
-later work.
+would issue ~6 launches a token and layer.
 
-The state update is ``__fadd_rn(__fmul_rn(w_i, s_ij), kv_ij)`` with
-``kv_ij`` rounded once -- the plain version's two eager ops -- so the
-final state is bit-identical to :func:`wkv6_plain`.  y differs from it
-only in the order of the hd-term sum (the kernel adds in i order with
-FMAs; the plain version's ``einsum`` is a batched product).
+What bounds it: FP32 issue slots at prefill and loss shapes, bytes at
+decode.  The final state must equal :func:`wkv6_plain`'s bit for bit, so
+the update stays ``__fadd_rn(__fmul_rn(w_i, s_ij), __fmul_rn(k_i,
+v_j))``, three instructions a state entry a step, and the output one
+FFMA: four issue slots a state entry a step, 160 us at (8, 1024, 40, 64)
+and 105 us at (4, 1345, 40, 64) on an H100 SXM (132 SMs x 128 lanes x
+1.98 GHz), above the bytes (91 / 59 us with bf16 r, k, v).  At decode the
+state, read and written once, is the bound (1.6 us at (4, 1, 40, 64)).
+
+Design (:func:`tiling` gives the sizes, a function of hd alone).  A (b,
+h) chain is hd independent column chains, so the grid is (column block,
+h, b): ``ncb`` blocks of ``cb`` columns a chain.  A block's ``w``
+consumer warps hold ``c`` = 4 columns a thread, ``p`` = hd / 4 lanes
+splitting the key axis (``r`` = 4 rows each), so one 16-byte shared load
+each of r, k and w serves 16 state entries; they add a group of four
+steps' partial outputs with ``__shfl_xor_sync`` after the group, no
+barrier a step.  A producer warp keeps a ring of ``ns`` stages of ``t``
+steps filled by TMA boxes of r, k, w and the block's v columns (the part
+past S lands as zeros), computes the bonus term's scalar a_t = sum_i r_i
+u_i k_i once a step (out_j = sum_i r_i s_ij + v_j a_t), converts bf16
+inputs to f32 once a block, and stores each chunk's y as one TMA box;
+threads wait on one mbarrier a chunk.  A decode step (S = 1,
+:func:`route`) takes the step route: one block of hd threads a chain, a
+thread a state column, the state read and written a whole row at a time
+and a step's inputs shared through one barrier.  Predicted for the
+first design on an NVIDIA H100 80GB HBM3 at 700 W, before its first run:
+220-350 us at (8, 1024, 40, 64), 180-300 us at (4, 1345, 40, 64), 2.5-4.5
+us at decode (4, 1); measured in ``PERF.md`` (row 10).
+
+y differs from the plain version only in the order of its sums (the
+plain ``einsum`` is a batched product; the kernel adds rows in its own
+order, then a_t v_j).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
-__all__ = ["wkv6_plain", "wkv6_kernel", "HEAD_DIMS"]
+__all__ = ["wkv6_plain", "wkv6_kernel", "HEAD_DIMS", "ROUTES", "Tiling",
+           "tiling", "route"]
 
 HEAD_DIMS = (16, 32, 64, 128)   # the head widths the kernel is built for
+ROUTES = ("ring", "step")       # the C entry's route ids 0, 1
+
+
+class Tiling(NamedTuple):
+    """The kernel's sizes at one hd (``Tiling<HD>`` in ``csrc/wkv6.cu``)."""
+    p: int          # lanes splitting the key axis for a column group
+    c: int          # columns a consumer thread holds
+    r: int          # key rows a consumer thread holds
+    g: int          # column groups a warp
+    cb: int         # columns a block
+    w: int          # consumer warps a block
+    ncb: int        # blocks a (b, h) chain
+    t: int          # steps a ring stage
+    ns: int         # stages in the ring
+    threads: int    # the consumers and one producer warp
+    smem_f32: int   # shared bytes a block with f32 r, k, v
+    smem_bf16: int  # ... with bf16 r, k, v
+
+
+def tiling(hd: int) -> Tiling:
+    """The kernel's tiling at head width ``hd`` (in :data:`HEAD_DIMS`): a
+    pure function of hd, the same as the library's ``wkv6_tiling``."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"wkv6 takes hd in {HEAD_DIMS}, not {hd}")
+    r = 4
+    p, c = hd // r, 2 if hd == 16 else 4
+    g = 32 // p
+    cb = 16 if hd == 16 else 32
+    w = cb // (c * g)
+    t, ns = 16, 2
+    f32 = 4 * (3 * t * hd + 2 * t * cb) + 128           # f32 arrays and a
+    half = 2 * (2 * t * hd + t * cb)                     # bf16 landing boxes
+    return Tiling(p=p, c=c, r=r, g=g, cb=cb, w=w, ncb=hd // cb, t=t, ns=ns,
+                  threads=32 * (w + 1), smem_f32=128 + ns * f32,
+                  smem_bf16=128 + ns * (f32 + half))
+
+
+def route(S: int) -> str:
+    """The kernel's route for a sequence of S steps: ``step`` (each step's
+    inputs straight from device memory) for a decode step, S = 1, where
+    the ring's load, hand-off and store would be the whole time;
+    ``ring`` otherwise."""
+    return "step" if S == 1 else "ring"
 
 
 def wkv6_plain(r, k, v, w, u, s0):
-    """The reference's ``step`` in PyTorch, one token at a time: returns
-    (y (B, S, H, hd) f32, the final state (B, H, hd, hd) f32)."""
+    """The reference's ``step`` in PyTorch, one token at a time, on the f32
+    upcasts of its inputs: returns (y (B, S, H, hd) f32, the final state
+    (B, H, hd, hd) f32)."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
     B, S, H, hd = r.shape
     s = s0.float()
     uu = u.float()[None, :, :, None]                      # key axis i
@@ -67,22 +131,36 @@ def wkv6_plain(r, k, v, w, u, s0):
 def _entry():
     lib = build.load("wkv6")
     fn = lib.wkv6
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def wkv6_kernel(r, k, v, w, u, s0):
-    """The CUDA kernel: :func:`wkv6_plain`'s contract on contiguous f32
-    CUDA tensors, the final state bit-identical to it.  Raises
-    ``ValueError`` on anything else, an hd outside :data:`HEAD_DIMS`
-    among it."""
+def library_tiling(hd: int) -> Tiling:
+    """The built library's ``Tiling<hd>`` (needs the build; on the card)."""
+    lib, _ = _entry()
+    out = (ctypes.c_int * 12)()
+    if lib.wkv6_tiling(ctypes.c_int(hd), out) != 0:
+        raise ValueError(f"wkv6 takes hd in {HEAD_DIMS}, not {hd}")
+    return Tiling(*out)
+
+
+def wkv6_kernel(r, k, v, w, u, s0, _route=None):
+    """The CUDA kernel: :func:`wkv6_plain`'s contract on contiguous CUDA
+    tensors, r, k, v all f32 or all bf16, w, u, s0 f32, each 16 bytes
+    aligned; the final state bit-identical to it.  Raises ``ValueError``
+    on anything else, an hd outside :data:`HEAD_DIMS` among it.  The
+    route is :func:`route`'s unless ``_route`` (a test's) names one."""
     if not (r.is_cuda and all(t.device == r.device
                               for t in (k, v, w, u, s0))):
         raise ValueError("wkv6_kernel takes CUDA tensors on one device")
-    if any(t.dtype != torch.float32 for t in (r, k, v, w, u, s0)):
-        raise ValueError("wkv6_kernel takes float32 tensors")
+    if r.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != r.dtype for t in (k, v)):
+        raise ValueError(f"wkv6_kernel takes r, k, v all float32 or all "
+                         f"bfloat16, not {[t.dtype for t in (r, k, v)]}")
+    if any(t.dtype != torch.float32 for t in (w, u, s0)):
+        raise ValueError("wkv6_kernel takes float32 w, u and s0")
     if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, w)):
         raise ValueError(f"r, k, v, w must share one (B, S, H, hd) shape, "
                          f"not {[tuple(t.shape) for t in (r, k, v, w)]}")
@@ -97,14 +175,23 @@ def wkv6_kernel(r, k, v, w, u, s0):
                          f"{tuple(s0.shape)} for r {tuple(r.shape)}")
     if not all(t.is_contiguous() for t in (r, k, v, w, u, s0)):
         raise ValueError("wkv6_kernel needs contiguous inputs")
-    y = torch.empty_like(r)
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("wkv6_kernel needs r, k, v, w on 16-byte "
+                         "boundaries (its TMA tensor maps)")
+    how = route(S) if _route is None else _route
+    if how not in ROUTES:
+        raise ValueError(f"wkv6_kernel routes are {ROUTES}, not {how!r}")
+    y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     sS = torch.empty_like(s0)
     lib, fn = _entry()
     err = fn(*(t.data_ptr() for t in (r, k, v, w, u, s0, y, sS)),
-             B, S, H, hd, torch.cuda.current_stream(r.device).cuda_stream)
+             B, S, H, hd, int(r.dtype == torch.bfloat16), ROUTES.index(how),
+             torch.cuda.current_stream(r.device).cuda_stream)
     build.check(lib, "wkv6", err)
     wkv6_kernel.launches += 1
+    wkv6_kernel.route_launches[how] += 1
     return y, sS
 
 
 wkv6_kernel.launches = 0
+wkv6_kernel.route_launches = dict.fromkeys(ROUTES, 0)

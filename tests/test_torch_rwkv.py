@@ -7,8 +7,11 @@ reference's init with those five leaves overwritten by seeded numpy
 values, carried across with ``params_from_jax``.
 
 - ``init_rwkv``'s leaf names, shapes and dtypes equal the reference's;
-- ``wkv6_plain`` within 1e-5 of a float64 loop of the reference's step;
-  the time mix (y, state, tm_prev) and the channel mix within 1e-5;
+- ``wkv6_plain`` within 1e-5 of a float64 loop of the reference's step,
+  on bf16 r, k, v bit for bit its result on their f32 upcasts;
+  ``ops.wkv6`` hands bf16 r, k, v on uncast; the kernel's tiling a pure
+  function of hd; the time mix (y, state, tm_prev) and the channel mix
+  within 1e-5, the bf16 time mix within bf16's rounding;
 - ``Model.loss``, ``prefill`` (logits and the three cache leaves) within
   1e-5; decode steps from a prefill and decode after ``prefill(S)``
   against ``prefill(S+1)`` within 2e-4 (the reference's own bound);
@@ -19,10 +22,12 @@ values, carried across with ``params_from_jax``.
   the reference; the launcher serves ``--arch rwkv6-3b``.
 
 The ``gpu`` tests (they skip without a card) hold the ``wkv6`` kernel
-against its plain version at the chip run's shapes: the final state bit
-for bit, y within 2e-5 of its row's max |y| (the kernel adds the hd
-terms in i order, the plain ``einsum`` in a batched product's order);
-one launch a call; an unsupported hd raises."""
+against its plain version at the chip run's shapes and around a ring
+stage, f32 and bf16 r, k, v, every hd: the final state bit for bit, y
+within 2e-5 of its row's max |y| (the kernel adds the hd terms in its
+own order, then the bonus term, the plain ``einsum`` in a batched
+product's order); one launch a call; an unsupported hd, f16, f64 and
+mixed dtypes raise; the library's tiling is :func:`tiling`'s."""
 import dataclasses
 import importlib
 
@@ -171,6 +176,76 @@ def test_wkv6_plain_matches_the_reference_step(B, S, H, hd):
         ops.wkv6(*(torch.from_numpy(a).to("meta") for a in args))
 
 
+@pytest.mark.parametrize("B,S,H,hd", [(2, 13, 3, 16), (1, 17, 2, 64),
+                                      (3, 1, 1, 32)])
+def test_wkv6_plain_bf16_equals_its_f32_upcasts(B, S, H, hd):
+    """bf16 to f32 is exact, so the plain version on bf16 r, k, v equals
+    it on their f32 upcasts bit for bit (y and the state)."""
+    r, k, v, w, u, s0 = map(torch.from_numpy,
+                            _wkv_inputs(B * 10 + S, B, S, H, hd))
+    rb, kb, vb = (t.to(torch.bfloat16) for t in (r, k, v))
+    y, sS = wkv6_mod.wkv6_plain(rb, kb, vb, w, u, s0)
+    wy, ws = wkv6_mod.wkv6_plain(rb.float(), kb.float(), vb.float(), w, u,
+                                 s0)
+    assert y.dtype == sS.dtype == torch.float32
+    assert torch.equal(y.view(torch.int32), wy.view(torch.int32))
+    assert torch.equal(sS.view(torch.int32), ws.view(torch.int32))
+
+
+def test_ops_wkv6_takes_bf16_without_a_cast(monkeypatch):
+    """``ops.wkv6`` hands bf16 r, k, v to the plain version as they are
+    (the kernel takes them so on the card) and gives its result."""
+    r, k, v, w, u, s0 = map(torch.from_numpy, _wkv_inputs(5, 2, 9, 3, 32))
+    rb, kb, vb = (t.to(torch.bfloat16) for t in (r, k, v))
+    seen = []
+    plain = ops.wkv6_plain
+
+    def spy(*args):
+        seen.append([a.dtype for a in args])
+        return plain(*args)
+    monkeypatch.setattr(ops, "wkv6_plain", spy)
+    y, sS = ops.wkv6(rb, kb, vb, w, u, s0)
+    assert seen == [[torch.bfloat16] * 3 + [torch.float32] * 3]
+    wy, ws = plain(rb, kb, vb, w, u, s0)
+    assert torch.equal(y, wy) and torch.equal(sS, ws)
+
+
+@pytest.mark.parametrize("hd", wkv6_mod.HEAD_DIMS)
+def test_wkv6_tiling_is_a_function_of_hd(hd):
+    """The kernel's sizes at every head width: a pair's lanes split the
+    key axis into rows of 16-byte groups, the warps tile the block's
+    columns, the blocks the chain's, and the ring fits the blocks an SM
+    must hold (five at hd = 64: 640 blocks at the loss's batch on 132
+    SMs)."""
+    t = wkv6_mod.tiling(hd)
+    assert t == wkv6_mod.tiling(hd)
+    assert t.p * t.g == 32 and t.p * t.r == hd and t.r % 4 == 0
+    assert t.c in (2, 4) and t.p >= t.c
+    assert t.w * t.c * t.g == t.cb and t.cb * t.ncb == hd
+    assert t.threads == 32 * (t.w + 1)
+    assert t.ns >= 2 and t.smem_f32 < t.smem_bf16 <= 227 * 1024
+    sm_bytes = 228 * 1024
+    per_sm = sm_bytes // (t.smem_bf16 + 1024)
+    assert per_sm >= {16: 8, 32: 4, 64: 4, 128: 2}[hd]
+    if hd == 64:
+        assert (t.p, t.c, t.r, t.cb, t.ncb, t.w, t.t, t.ns) == (
+            16, 4, 4, 32, 2, 4, 16, 2)
+        assert (t.smem_f32, t.smem_bf16) == (33152, 43392)
+        assert -(-4 * 40 * t.ncb // 132) <= per_sm     # serving: 3 an SM
+        assert -(-8 * 40 * t.ncb // 132) <= per_sm     # the loss: 5
+    with pytest.raises(ValueError):
+        wkv6_mod.tiling(hd + 8)
+
+
+def test_wkv6_route_rule():
+    """A decode step (S = 1) takes the step route, every longer sequence
+    the ring; a pure function of S."""
+    assert wkv6_mod.ROUTES == ("ring", "step")
+    assert wkv6_mod.route(1) == "step"
+    assert {wkv6_mod.route(S) for S in (2, 15, 16, 17, 1024, 1345)} == {
+        "ring"}
+
+
 def test_time_mix_matches_jax(rwkv):
     """From a nonzero state and previous token, 9 steps: y, the state and
     tm_prev within 1e-5."""
@@ -195,6 +270,44 @@ def test_time_mix_matches_jax(rwkv):
                                    torch.from_numpy(x), tcfg)
     for g, w_ in zip(got, want):
         _close(g.numpy(), w_)
+
+
+def test_time_mix_bf16_matches_jax(rwkv, monkeypatch):
+    """The time mix in bf16 (a bf16 layer and x, as the bf16 serving path
+    runs it) hands ``wkv6`` its bf16 r, k, v uncast, and agrees with the
+    reference's bf16 time mix: the state within 1e-5 of its max (w's f32
+    products differ in order, ~1 ulp), y within 1e-2 of its max |y| (one
+    bf16 ulp near the max is 2^-8 to 2^-7 of it; the two frameworks' bf16
+    matmuls round r, k, v, g and the output in their own order), tm_prev
+    exactly."""
+    jcfg, tcfg, _, jp, _, tp = rwkv
+    rng = np.random.default_rng(3)
+    B, S, d, hd = 2, 9, tcfg.d_model, tcfg.rwkv_head_dim
+    x = rng.normal(0, 1, (B, S, d)).astype(np.float32)
+    st = rng.normal(0, 0.5, (B, d // hd, hd, hd)).astype(np.float32)
+    xp = rng.normal(0, 1, (B, d)).astype(np.float32)
+    seen = []
+    plain = ops.wkv6_plain
+
+    def spy(*args):
+        seen.append([a.dtype for a in args[:3]])
+        return plain(*args)
+    monkeypatch.setattr(ops, "wkv6_plain", spy)
+    jl = {k: v.astype(jnp.bfloat16) for k, v in _layer(jp["layers"]).items()}
+    tl = {k: v.to(torch.bfloat16) for k, v in _layer(tp["layers"]).items()}
+    want = jblocks.rwkv_time_mix_seq(jl, jnp.asarray(x, jnp.bfloat16), jcfg,
+                                     jnp.asarray(st),
+                                     jnp.asarray(xp, jnp.bfloat16))
+    got = blocks.rwkv_time_mix_seq(tl, torch.from_numpy(x).bfloat16(), tcfg,
+                                   torch.from_numpy(st),
+                                   torch.from_numpy(xp).bfloat16())
+    assert seen == [[torch.bfloat16] * 3]
+    y, state, prev = (t.float().numpy() for t in got)
+    wy, wstate, wprev = (np.asarray(t.astype(jnp.float32)) for t in want)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    assert np.abs(y - wy).max() <= 1e-2 * np.abs(wy).max()
+    assert np.abs(state - wstate).max() <= TOL * np.abs(wstate).max()
+    assert np.array_equal(prev, wprev)
 
 
 def test_channel_mix_matches_jax(rwkv):
@@ -373,36 +486,68 @@ def _needs_card():
         pytest.skip("needs an NVIDIA GPU with nvcc")
 
 
-def _card_inputs(B, S, H, hd, seed=0):
+def _card_inputs(B, S, H, hd, seed=0, dtype=torch.float32):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda")
-    r, k, v = randn(B, S, H, hd), randn(B, S, H, hd), randn(B, S, H, hd)
+    r, k, v = (randn(B, S, H, hd).to(dtype) for _ in range(3))
     w = torch.exp(-torch.exp(randn(B, S, H, hd) - 1.5))
     return r, k, v, w, randn(H, hd) * 0.5, randn(B, H, hd, hd)
 
 
-def _check_against_plain(args):
+def _check_against_plain(args, route=None):
     n0 = wkv6_mod.wkv6_kernel.launches
-    y, sS = wkv6_mod.wkv6_kernel(*args)
+    how = route or wkv6_mod.route(args[0].shape[1])
+    r0 = wkv6_mod.wkv6_kernel.route_launches[how]
+    y, sS = wkv6_mod.wkv6_kernel(*args, _route=route)
     torch.cuda.synchronize()
     assert wkv6_mod.wkv6_kernel.launches == n0 + 1
+    assert wkv6_mod.wkv6_kernel.route_launches[how] == r0 + 1
     wy, ws = wkv6_mod.wkv6_plain(*args)
+    assert y.dtype == torch.float32 and y.shape == args[0].shape
     assert torch.equal(sS.view(torch.int32), ws.view(torch.int32))
     row = wy.abs().amax(dim=-1, keepdim=True)
     assert bool(((y - wy).abs() <= Y_TOL * row).all())
 
 
+_T = wkv6_mod.tiling(64).t          # the ring's steps a stage (every hd)
+_GPU_SHAPES = [(B, S, H, hd) for n, (hd, S) in enumerate(
+    (hd, S) for hd in wkv6_mod.HEAD_DIMS
+    for S in (1, _T - 1, _T, _T + 1, 1000, 1345))
+    for B, H in [((1, 3, 8)[n % 3], (3, 5, 7)[n // 3 % 3])]]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,S,H,hd", [
     (8, 1024, 40, 64),      # Model.loss at full width
-    (4, 1536, 40, 64),      # the first ReferenceEngine prefill batch
+    (4, 1345, 40, 64),      # the first ReferenceEngine prefill batch
     (4, 1, 40, 64),         # a decode step from a nonzero state
-    (2, 63, 4, 16), (3, 1000, 2, 128), (1, 1, 3, 16), (2, 63, 5, 32)])
-def test_gpu_wkv6_matches_plain(B, S, H, hd):
+    (2, 63, 4, 16), (3, 1000, 2, 128), (1, 1, 3, 16), (2, 63, 5, 32),
+    *_GPU_SHAPES])
+def test_gpu_wkv6_matches_plain(B, S, H, hd, dtype):
+    """The state bit for bit and y within ``Y_TOL`` of its row's max |y|,
+    f32 and bf16 r, k, v, every hd, S around a ring stage (1, T - 1, T,
+    T + 1) and long, B in {1, 3, 8}, H not a multiple of the column
+    blocks a chain."""
     _needs_card()
-    _check_against_plain(_card_inputs(B, S, H, hd))
+    _check_against_plain(_card_inputs(B, S, H, hd, dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", wkv6_mod.ROUTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,hd", [(4, 1, 40, 64), (3, 2, 5, 64),
+                                      (1, 17, 3, 16), (8, 63, 7, 32),
+                                      (3, 1, 5, 128), (1, 33, 3, 128)])
+def test_gpu_wkv6_both_routes(B, S, H, hd, dtype, route):
+    """Each route forced, where the rule would not take it too: the state
+    bit for bit and y within ``Y_TOL``, the route counted."""
+    _needs_card()
+    _check_against_plain(_card_inputs(B, S, H, hd, dtype=dtype), route)
 
 
 @pytest.mark.gpu
@@ -412,10 +557,58 @@ def test_gpu_wkv6_op_launches_once_and_refuses_bad_hd():
     n0 = wkv6_mod.wkv6_kernel.launches
     ops.wkv6(*args)
     assert wkv6_mod.wkv6_kernel.launches == n0 + 1
+    bf = _card_inputs(2, 5, 2, 64, dtype=torch.bfloat16)
+    y, sS = ops.wkv6(*bf)                  # bf16 r, k, v: one launch
+    assert wkv6_mod.wkv6_kernel.launches == n0 + 2
+    wy, ws = wkv6_mod.wkv6_plain(*bf)
+    assert torch.equal(sS.view(torch.int32), ws.view(torch.int32))
     with pytest.raises(ValueError):
         ops.wkv6(*_card_inputs(2, 5, 2, 48))
     with pytest.raises(ValueError):
+        wkv6_mod.wkv6_kernel(*args, _route="chunked")
+    with pytest.raises(ValueError):
         wkv6_mod.wkv6_kernel(*(a.double() for a in args))
+    for bad in ([args[0].half(), args[1].half(), args[2].half()],
+                [args[0].double(), args[1].double(), args[2].double()],
+                [args[0], bf[1], args[2]]):          # f16, f64, mixed
+        with pytest.raises(ValueError):
+            ops.wkv6(*bad, *args[3:])
+        with pytest.raises(ValueError):
+            wkv6_mod.wkv6_kernel(*bad, *args[3:])
+    assert wkv6_mod.wkv6_kernel.launches == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gpu_wkv6_op_takes_views_off_16_bytes(dtype):
+    """r, k, v, w as contiguous views one element past a 16-byte boundary:
+    the kernel refuses them (its TMA tensor maps need aligned bases) and
+    ``ops.wkv6`` copies them first, the plain version's state bit for
+    bit."""
+    _needs_card()
+    args = _card_inputs(2, 37, 3, 64, dtype=dtype)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    views = [shifted(t) for t in args[:4]]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in views)
+    with pytest.raises(ValueError):
+        wkv6_mod.wkv6_kernel(*views, *args[4:])
+    y, sS = ops.wkv6(*views, *args[4:])
+    wy, ws = wkv6_mod.wkv6_plain(*args)
+    assert torch.equal(sS.view(torch.int32), ws.view(torch.int32))
+    assert bool(((y - wy).abs() <= Y_TOL * wy.abs().amax(-1, True)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", wkv6_mod.HEAD_DIMS)
+def test_gpu_wkv6_tiling_is_the_library_s(hd):
+    _needs_card()
+    assert wkv6_mod.library_tiling(hd) == wkv6_mod.tiling(hd)
 
 
 @pytest.mark.gpu
