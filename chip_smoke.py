@@ -229,7 +229,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``wkv6`` counter zeroed just before (c) and read after (e): 32 launches
    a loss forward, prefill and decode step; (f) a ``torch.profiler``
    window over one more bf16 batch (``wkv6``'s share of the busy time,
-   the direct copies' count).
+   the direct copies' count);
+12. the audio family, after the RWKV6's memory is freed: (a) the flash
+   kernel at whisper-base's shapes against its plain version in f32
+   (within ``FLASH_F32_TOL``) and bf16 (under ``bf16_disagreement``) --
+   the encoder's non-causal MHA (16, 1500, 8 / 8 heads of 64), the
+   cross-attention of 448 decoder tokens against 1500 frames, the
+   decoder's causal 448 -- and each timed in bf16 beside the bound, the
+   plain version and ``scaled_dot_product_attention``; then whisper-base
+   at full width and depth (6 encoder and 6 decoder layers, d_model 512,
+   vocab 51865; 109,749,248 f32 parameters from seed 0, frames (B, 1500,
+   512) from a seeded numpy generator): (b) the f32 decode of token 65
+   after ``prefill(64)`` (k and v padded to the 448-token context)
+   against ``prefill(65)``; the int8-PoT tree (``serving_quant``) from the
+   f32 masters, which are then cast to bf16 once; (c) a bf16
+   ``Model.loss`` on 16 x 448 tokens and their frames; (d) a greedy
+   serving loop through ``Model.prefill`` / ``decode_step`` (8 rows of
+   frames, 4-token prompts, 128 new tokens, context 448), bf16 and
+   int8-PoT (dequantized every dispatch, as ``ReferenceEngine`` does),
+   with the int8-PoT tokens' share equal to bf16's; the flash counter
+   zeroed just before (c) and read just after (d): 18 launches a forward
+   (6 encoder, 6 decoder self, 6 cross) and none a decode step; (e) a
+   ``torch.profiler`` window over 16 bf16 decode steps.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -318,6 +339,23 @@ RWKV_LOSS_BATCH, RWKV_LOSS_SEQ = 8, 1024
 # state or token shift moves the logits by a large share of their scale.
 RWKV_DECODE_PROMPT = 2100
 RWKV_DECODE_REL = 2e-3         # x max |logit|
+# The audio path: whisper-base at full width and depth (6 encoder and 6
+# decoder layers, d_model 512, 8 / 8 heads of 64, d_ff 2048, vocab 51865),
+# random weights from seed 0, frames (B, 1500, 512) from a seeded numpy
+# generator.  Whisper's window is 30 s of audio, 1500 frames; its decoder
+# context is 448 tokens.  Nothing is cut.
+AUD_ARCH = "whisper-base"
+AUD_PARAMS = 109_749_248           # leaves of the reference's Model.init
+AUD_LOSS_BATCH, AUD_CONTEXT = 16, 448
+AUD_SERVE_BATCH, AUD_PROMPT, AUD_NEW = 8, 4, 128
+AUD_PROFILE_STEPS = 16
+# f32 decode of token 65 against prefill(65): the same f32 operations on
+# other shapes (1 row against 65: other cuBLAS kernels and summation
+# orders; decode's softmax over the cache against the flash kernel's
+# online one) through 6 layers; a lost cross leaf, a roped cross query or
+# a wrong cache slot moves the logits by a large share of their scale.
+AUD_DECODE_PROMPT = 64
+AUD_DECODE_REL = 2e-3          # x max |logit|
 # wkv6's y against the plain version: the kernel adds sum_i r_i s_ij with
 # FMAs over each lane's rows, then across lanes, then v_j a_t, the plain
 # einsum as a batched product does; each is within a few ulps of the
@@ -974,18 +1012,18 @@ def flash_timing(torch, qkv, shape, kw, reps, dt):
         sets, 1)
     lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
                 for s in sets]
-    window = kw.get("window", 0)
+    causal, window = kw.get("causal", True), kw.get("window", 0)
     if window:                     # SDPA takes the window as a mask
         pos = torch.arange(Sq, device="cuda")[:, None] + kw["offset"]
         kpos = torch.arange(Skv, device="cuda")[None, :]
         mask = (kpos <= pos) & (kpos > pos - window)
         sdpa = dict(attn_mask=mask)
     else:
-        sdpa = dict(is_causal=True)
+        sdpa = dict(is_causal=causal)
     lib_ms, _ = time_calls(
         torch, lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, enable_gqa=True, **sdpa), lib_sets, reps)
-    pairs = visible_pairs(Sq, Skv, True, window, kw["offset"])
+    pairs = visible_pairs(Sq, Skv, causal, window, kw["offset"])
     t_ops = 4 * D * pairs * Hq * B / BF16_FLOPS
     t_bytes = one / HBM_BYTES_PER_S
     return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
@@ -3704,6 +3742,286 @@ def rwkv_phase(torch):
     return {"wkv6": launches, "wkv6 routes": routes}
 
 
+def audio_kernel_readings(torch):
+    """Flash at whisper-base's shapes, new to the card: the encoder's
+    non-causal MHA (16, 1500, 8 / 8 heads of 64: 1500 = 23 x 64 + 28, so
+    every row ends on a partial key tile, and 11 x 128 + 92, so the last
+    query block is partial), cross-attention of the decoder's 448 tokens
+    against 1500 frames (Sq != Skv, offset 0 as ``chunked_attention``
+    passes it) and the decoder's causal 448.  Each against its plain
+    version in f32 (within ``FLASH_F32_TOL``) and bf16 (under
+    ``bf16_disagreement`` at ``KEY_TILE``), then timed in bf16 beside the
+    bound, the plain version and ``scaled_dot_product_attention``."""
+    from repro_torch.kernels.flash_attention import (
+        BF16_SHARE, KEY_TILE, bf16_disagreement, flash_attention_kernel,
+        flash_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, H, D, F_, T = AUD_LOSS_BATCH, 8, 64, 1500, AUD_CONTEXT
+
+    def qkv(shape, dtype):
+        B_, Sq, Skv, Hq, Hkv, D_ = shape
+        return [torch.randn(s, generator=gen, device="cuda", dtype=dtype)
+                for s in ((B_, Sq, Hq, D_), (B_, Skv, Hkv, D_),
+                          (B_, Skv, Hkv, D_))]
+
+    out = {}
+    for name, shape, causal in (("encoder", (B, F_, F_, H, H, D), False),
+                                ("cross", (B, T, F_, H, H, D), False),
+                                ("decoder", (B, T, T, H, H, D), True)):
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(shape, dt)
+            kw = dict(causal=causal, offset=0,
+                      bk=min(512, shape[2]) if dt == torch.float32
+                      else KEY_TILE)
+            got = flash_attention_kernel(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if dt == torch.float32:
+                ok = torch.allclose(got, want, atol=FLASH_F32_TOL,
+                                    rtol=FLASH_F32_TOL)
+                tol = f"atol = rtol = {FLASH_F32_TOL}"
+            else:
+                ratio, share = bf16_disagreement(got, want)
+                ok = ratio <= 1 and share <= BF16_SHARE
+                tol = (f"largest err / limit {ratio:.3f}, share "
+                       f"{share:.3e}")
+                errs["bf16"] = (err, ratio, share)
+            errs.setdefault("f32", err)
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"flash_attention vs plain at whisper-base's {name} "
+                  f"shape {shape} {dt}: max abs err {err}, {tol}")
+            print(f"flash_attention whisper-base {name} {shape} {dt}: max "
+                  f"abs err {err:.3e} ({tol})")
+            del q, k, v, got, want
+        r = flash_timing(torch, qkv, shape,
+                         dict(causal=causal, offset=0, bk=KEY_TILE), 2,
+                         torch.bfloat16)
+        err, ratio, share = errs["bf16"]
+        r.update(max_abs_err=err, f32_max_abs_err=errs["f32"],
+                 bf16_ratio=ratio, bf16_share=share,
+                 shape=f"q ({B},{shape[1]},{H},{D}), k/v ({B},{shape[2]},"
+                       f"{H},{D}) bf16 {'causal' if causal else 'non-causal'}")
+        out[f"{AUD_ARCH} {name}"] = r
+    for shape_name, r in out.items():
+        print(f"flash_attention at {shape_name} ({r['shape']}): "
+              f"{r['ms']*1e3:.2f} us on the card ({r['eager_ms']*1e3:.2f} us "
+              f"per eager call), plain {r['plain_ms']*1e3:.2f} us, bound "
+              f"{r['bound_ms']*1e3:.3f} us ({r['bound_by']}, "
+              f"{r['visible_pairs']} visible pairs a head), "
+              f"scaled_dot_product_attention {r['library_ms']*1e3:.2f} us "
+              f"[{CARD}]")
+    return out
+
+
+def pad_kv(torch, cache, context):
+    """A prefill cache's k and v grown to ``context`` positions, as
+    ``ReferenceEngine._pad_kv`` grows them; the cross leaves keep their
+    frames."""
+    for key in ("k", "v"):
+        leaf = cache[key]
+        cache[key] = torch.nn.functional.pad(
+            leaf, (0, 0, 0, 0, 0, context - leaf.shape[2]))
+    return cache
+
+
+def audio_phase(torch):
+    """whisper-base at full width and depth on the card, random weights
+    from seed 0 and seeded frames: (b) the f32 decode of token 65 against
+    prefill(65); the int8-PoT tree from the f32 masters, then one cast to
+    bf16; (c) a bf16 16 x 448 ``Model.loss``; (d) a greedy serving loop
+    through ``prefill`` / ``decode_step``, bf16 and int8-PoT; (e) one
+    profiled window of bf16 decode steps.  The flash counter is zeroed
+    just before (c) and read just after (d): the path's launches."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.nn import Model, get_config
+    from repro_torch.quant.ptq import serving_ledger, serving_quant
+    cfg = get_config(AUD_ARCH)
+    per_forward = cfg.n_enc_layers + 2 * cfg.n_layers
+    rng = np.random.default_rng(0)
+
+    def frames(n):
+        return torch.from_numpy(rng.normal(
+            0.0, 1.0, (n, cfg.n_frames, cfg.d_model)).astype(np.float32)) \
+            .cuda()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n = _numel(params)
+    print(f"{AUD_ARCH} params: {n:,} (f32 masters {n * 4 / 2**30:.3f} GiB, "
+          f"init {time.perf_counter() - t0:.2f} s); params_count() "
+          f"{cfg.params_count():,} [{CARD}]")
+    check(n == AUD_PARAMS, f"{n} parameters, the reference has "
+                           f"{AUD_PARAMS}")
+
+    # (b) f32 decode against a longer prefill
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), device="cuda")
+    S = AUD_DECODE_PROMPT
+    toks = rng.integers(0, cfg.vocab, (2, S + 1)).astype(np.int32)
+    fr = frames(2)
+    t0 = time.perf_counter()
+    want, _ = m32.prefill(params, {"tokens": toks, "frames": fr})
+    _, cache = m32.prefill(params, {"tokens": toks[:, :S], "frames": fr})
+    xshape = (cfg.n_layers, 2, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim_)
+    check(set(cache) == {"k", "v", "cross_k", "cross_v"}
+          and tuple(cache["cross_k"].shape) == xshape
+          and cache["k"].dtype == torch.float32, "audio cache layout")
+    cross_k = cache["cross_k"].clone()
+    got, cache = m32.decode_step(params, pad_kv(torch, cache, AUD_CONTEXT),
+                                 toks[:, S:], S)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"audio f32: decode of token {S + 1} after prefill({S}) (k, v "
+          f"padded to {AUD_CONTEXT}) against prefill({S + 1}): max abs diff "
+          f"{diff:.4e}, max |logit| {scale:.4e} ({diff / scale:.3e} of it; "
+          f"tolerance {AUD_DECODE_REL} x max); {sec:.3f} s")
+    check(bool(torch.isfinite(got).all()) and diff <= AUD_DECODE_REL * scale,
+          "audio f32 decode disagrees with prefill")
+    check(torch.equal(cache["cross_k"], cross_k)
+          and cache["k"].shape[2] == AUD_CONTEXT,
+          "audio decode moved a cross leaf or resized k")
+    del m32, cache, want, got, cross_k
+
+    # the int8-PoT tree from the f32 masters, then bf16 once
+    qtree, deq, resident = serving_quant(params, bits=8,
+                                         dtype=torch.bfloat16)
+    sheet = serving_ledger(params, bits=8, act_itemsize=2.0)
+    print(f"{AUD_ARCH} int8-PoT: resident {resident:,} B; serving ledger "
+          f"{len(sheet)} quantized leaves, weight bytes "
+          f"{sheet.weight_bytes():,.0f}, unquantized "
+          f"{sheet.extra_bytes:,.0f}, ops per token "
+          f"{sheet.ops_per_token():,.0f}")
+    cast_tree(params, torch.bfloat16)
+    torch.cuda.synchronize()
+
+    m = Model(cfg, device="cuda")
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=AUD_CONTEXT,
+                          global_batch=AUD_LOSS_BATCH, seed=0).batch(0)
+    batch["frames"] = frames(AUD_LOSS_BATCH)
+    prompts = rng.integers(0, cfg.vocab, (AUD_SERVE_BATCH, AUD_PROMPT)) \
+        .astype(np.int32)
+    sfr = frames(AUD_SERVE_BATCH)
+    # warm-up at the timed shapes: cuBLAS's picks, the allocator
+    float(m.loss(params, batch)[0])
+    for tree in (params, deq(qtree)):
+        _, c = m.prefill(tree, {"tokens": prompts, "frames": sfr})
+        m.decode_step(tree, pad_kv(torch, c, AUD_CONTEXT), prompts[:, :1],
+                      AUD_PROMPT)
+    del c
+    torch.cuda.synchronize()
+
+    # (c) Model.loss, bf16, 16 x 448 tokens and 1500 frames a row
+    flash_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    loss, mets = m.loss(params, batch)
+    xent = float(mets["xent"])
+    loss_s = time.perf_counter() - t0
+    loss_launches = flash_attention_kernel.launches
+    s2 = 0.02 ** 2 * cfg.d_model      # logits ~ N(0, s2) on unit-rms rows
+    expect = float(np.log(cfg.vocab)) + s2 / 2
+    print(f"audio bf16 Model.loss ({AUD_LOSS_BATCH} x {AUD_CONTEXT}, "
+          f"{cfg.n_frames} frames a row): xent {xent!r} (ln V = "
+          f"{np.log(cfg.vocab):.4f}, ln V + s2/2 = {expect:.4f}), aux "
+          f"{float(mets['aux'])}; {loss_s:.4f} s; {loss_launches} flash "
+          f"launches")
+    check(np.isfinite(xent) and abs(xent - expect) <= 0.2,
+          f"audio loss {xent} far from {expect}")
+    check(loss_launches == per_forward,
+          f"audio loss: {loss_launches} flash launches, not {per_forward}")
+
+    # (d) the greedy serving loop, bf16 then int8-PoT
+    def serve(tree_fn, label):
+        torch.cuda.reset_peak_memory_stats()
+        n0 = flash_attention_kernel.launches
+        t0 = time.perf_counter()
+        logits, cache = m.prefill(tree_fn(), {"tokens": prompts,
+                                              "frames": sfr})
+        tok = logits[:, -1].argmax(-1)
+        out = [tok.cpu()]
+        prefill_s = time.perf_counter() - t0
+        n1 = flash_attention_kernel.launches
+        pad_kv(torch, cache, AUD_CONTEXT)
+        t0 = time.perf_counter()
+        for t in range(AUD_NEW - 1):
+            lg, cache = m.decode_step(tree_fn(), cache, tok[:, None],
+                                      AUD_PROMPT + t)
+            tok = lg[:, 0].argmax(-1)
+            out.append(tok.cpu())              # each token to the host
+        decode_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(n1 - n0 == per_forward,
+              f"audio {label} prefill: {n1 - n0} flash launches")
+        check(flash_attention_kernel.launches == n1,
+              f"audio {label} decode launched flash")
+        toks = torch.stack(out, 1).numpy()
+        check(toks.shape == (AUD_SERVE_BATCH, AUD_NEW) and toks.min() >= 0
+              and toks.max() < cfg.vocab, f"audio {label} tokens")
+        steps = AUD_NEW - 1
+        print(f"audio greedy loop ({label}, {AUD_SERVE_BATCH} rows, "
+              f"{AUD_PROMPT}-token prompts, {AUD_NEW} new, context "
+              f"{AUD_CONTEXT}): prefill {prefill_s * 1e3:.3f} ms; decode "
+              f"{AUD_SERVE_BATCH * steps} tok in {decode_s:.4f} s "
+              f"({AUD_SERVE_BATCH * steps / decode_s:.1f} tok/s, "
+              f"{1e3 * decode_s / steps:.3f} ms a step); peak memory "
+              f"{peak / 2**30:.3f} GiB")
+        return toks
+
+    out = serve(lambda: params, "bf16")
+    qout = serve(lambda: deq(qtree), "int8-PoT")
+    launches = flash_attention_kernel.launches           # (c) + (d)
+    check(launches == 3 * per_forward,
+          f"audio path: {launches} flash launches, not {3 * per_forward}")
+    same = float((qout == out).mean())
+    print(f"  first tokens {out[:, 0].tolist()}; int8-PoT greedy tokens "
+          f"equal to bf16's: {100 * same:.2f} % (first "
+          f"{100 * float((qout[:, 0] == out[:, 0]).mean()):.1f} %)")
+
+    # (e) profiled windows: one loss call, then bf16 decode steps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(m.loss(params, batch)[0])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, by_name = report_profile(prof, wall_us, f"one whisper-base bf16 "
+                                   f"Model.loss, {AUD_LOSS_BATCH} x "
+                                   f"{AUD_CONTEXT}", 10)
+    fl_us = sum(t for name, (t, _) in by_name.items() if "flash" in name)
+    print(f"  flash_attention: {fl_us / 1e3:.3f} ms, {100 * fl_us / busy:.2f}"
+          f" % of the device's busy time")
+    logits, cache = m.prefill(params, {"tokens": prompts, "frames": sfr})
+    tok = logits[:, -1].argmax(-1)
+    pad_kv(torch, cache, AUD_CONTEXT)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(AUD_PROFILE_STEPS):
+            lg, cache = m.decode_step(params, cache, tok[:, None],
+                                      AUD_PROMPT + t)
+            tok = lg[:, 0].argmax(-1)
+            tok.cpu()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, f"{AUD_PROFILE_STEPS} whisper-base bf16 "
+                                  f"decode steps, {AUD_SERVE_BATCH} rows", 10)
+    del params, qtree, cache, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"launches on the audio path: flash_attention {launches} (loss "
+          f"{loss_launches}, bf16 prefill {per_forward}, int8-PoT prefill "
+          f"{per_forward}, decode 0)")
+    return {"flash_attention": launches}
+
+
 def main() -> int:
     global CARD
     import torch
@@ -3791,6 +4109,12 @@ def main() -> int:
     kernels.append(wkv6_kernel_readings(torch))
     rwkv_launches = rwkv_phase(torch)
     print(f"rwkv phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    audio_readings = audio_kernel_readings(torch)
+    audio_launches = audio_phase(torch)
+    print(f"audio phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
@@ -3798,7 +4122,7 @@ def main() -> int:
                "ptq": {"flash_attention": launches["flash_attention"]},
                "mixed": mixed_launches, "hybrid": hybrid_launches,
                "moe": moe_launches, "rwkv": rwkv_launches,
-               "op": {"qmatmul": qm_launches}}
+               "audio": audio_launches, "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
     for name, n in explore_launches.items():
@@ -3806,6 +4130,8 @@ def main() -> int:
     for name, n in mixed_launches.items():
         launches[name] += n
     for name, n in moe_launches.items():
+        launches[name] += n
+    for name, n in audio_launches.items():
         launches[name] += n
     launches["qmatmul"] = qm_launches
     launches["wkv6"] = rwkv_launches["wkv6"]
@@ -3821,6 +4147,8 @@ def main() -> int:
                                  if k["name"] in v}
         if k["name"] in moe_readings:
             k["moe_shapes"] = moe_readings[k["name"]]
+        if k["name"] == "flash_attention":
+            k["audio_shapes"] = audio_readings
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

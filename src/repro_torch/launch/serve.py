@@ -16,7 +16,10 @@ always serves through ``ReferenceEngine``, as in the reference: its RG-LRU
 layers run the linear-scan kernel and its local attention the
 flash-attention kernel.  So does the RWKV6 family (``--arch rwkv6-3b``,
 family ``ssm``): each layer's time mix runs the ``wkv6`` kernel once a
-prefill or decode step.  Parameters are random, from ``--seed``.
+prefill or decode step.  The audio family (``--arch whisper-base``) goes
+to ``ReferenceEngine`` too and fails there with ``KeyError: 'frames'``,
+as in the reference: the engine prefills tokens only.  Parameters are
+random, from ``--seed``.
 """
 from __future__ import annotations
 

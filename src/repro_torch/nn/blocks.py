@@ -66,22 +66,52 @@ def _qkv(p, x, cfg: ArchConfig):
     return q, k, v
 
 
+def kv_proj(p, src, cfg: ArchConfig):
+    """K and V of ``src`` (B, F, d), the cross-attention's keys and values:
+    (B, F, Hkv, hd) each, with the optional bias and no rope."""
+    hd = cfg.head_dim_
+    B, F_, _ = src.shape
+    k = src @ p["wk"].to(src.dtype)
+    v = src @ p["wv"].to(src.dtype)
+    if "bk" in p:
+        k = k + p["bk"].to(src.dtype)
+        v = v + p["bv"].to(src.dtype)
+    return (k.reshape(B, F_, cfg.n_kv_heads, hd),
+            v.reshape(B, F_, cfg.n_kv_heads, hd))
+
+
 def attention_seq(p, x, cfg: ArchConfig, *, positions=None, window: int = 0,
                   causal: bool = True, kv_override=None):
-    """Full-sequence self-attention (training and prefill).  Every row sees
-    its own key, so the reference's block sizes change no result.
-    Cross-attention (``kv_override``) comes with the audio family."""
-    if kv_override is not None:
-        raise NotImplementedError("cross-attention (kv_override) is not "
-                                  "ported yet")
+    """Full-sequence attention (training and prefill).  Every row sees its
+    own key, so the reference's block sizes change no result.
+    ``kv_override`` = (k, v) makes it cross-attention: q unroped against
+    those keys and values (:func:`kv_proj`), non-causal whatever
+    ``causal`` says."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = chunked_attention(q, k, v, causal=causal, window=window)
+    if kv_override is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override     # cross-attention: no rope
+    out = chunked_attention(q, k, v, causal=causal and kv_override is None,
+                            window=window)
     return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+
+def cross_attention_step(p, x, cross_k, cross_v, cfg: ArchConfig):
+    """One decode token's cross-attention: x (B, 1, d) against every
+    frame of one layer's ``cross_k`` / ``cross_v`` (B, F, Hkv, hd), q
+    unroped.  Returns (B, 1, d_model)."""
+    B = x.shape[0]
+    q = x @ p["wq"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    q = q.reshape(B, 1, cfg.n_heads, cfg.head_dim_)
+    out = decode_attention(q, cross_k, cross_v, cross_k.shape[1])
+    return out.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
 
 
 def kv_writes(cache_k, pos, block_table=None):

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, MoE, RWKV6 (``ssm``) and hybrid families
-(counterpart of ``repro/nn/model.py``).
+"""Model assembly for the dense, MoE, RWKV6 (``ssm``), hybrid and audio
+families (counterpart of ``repro/nn/model.py``).
 
 Parameters are a dict tree in the reference's layout: per-layer leaves are
 stacked on a leading layer axis (``params["layers"]["attn"]["wq"]`` is
@@ -33,11 +33,22 @@ entry per unit), and ``n_layers % 3`` RG-LRU tail layers as the list
 ``min(context, local_window)`` slots (position p in slot p % W), and
 ``tail_h``/``tail_c`` for the tail.
 
+The audio family (whisper) is an encoder-decoder over frame embeddings
+``batch["frames"]`` (B, F, d): ``params["enc_layers"]`` are decoder
+layers run non-causally over the frames (rope at positions 0..F-1), then
+``params["enc_norm"]``; each of ``params["layers"]`` runs causal
+self-attention (``ln1``, ``attn``), cross-attention to the encoder
+output (``ln_x``, ``xattn``: q unroped against :func:`~repro_torch.nn.
+blocks.kv_proj` of it) and the MLP (``ln2``, ``mlp``).  Its cache is the
+dense {k, v} plus each layer's cross-attention K/V, ``cross_k`` /
+``cross_v`` (L, B, F, Hkv, hd), which decode reads and never writes.
+
 Public surface:
     m = Model(cfg, device="cuda")
     params = m.init(seed)
     loss, metrics = m.loss(params, batch)     # the PTQ search's metric
     logits, cache = m.prefill(params, batch)  # ReferenceEngine: the prompt
+                                              # (audio: and its frames)
     cache = m.init_cache(batch, context)
     logits, cache = m.prefill_chunks(params, cache, tokens, slots, offs, nv)
     logits, cache = m.prefill_chunk(params, cache, tokens, slot, off, nv)
@@ -97,14 +108,14 @@ def params_from_jax(tree, device="cuda"):
 
 
 class Model:
-    """Dense, MoE, RWKV6 or hybrid LM with the reference's parameter and
-    cache layouts."""
+    """Dense, MoE, RWKV6, hybrid or audio LM with the reference's parameter
+    and cache layouts."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
             raise NotImplementedError(
-                f"repro_torch ports the dense, MoE, ssm and hybrid families, "
-                f"not {cfg.family!r}")
+                f"repro_torch ports the dense, MoE, ssm, hybrid and audio "
+                f"families, not {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -125,17 +136,20 @@ class Model:
             "lm_head": torch.randn((d, V), generator=gen, device=dev) * 0.02,
         }
         if cfg.family in ("dense", "moe"):
+            params["layers"] = self._init_decoder_layers(gen, L)
+            return params
+        if cfg.family == "audio":
+            params["enc_layers"] = self._init_decoder_layers(
+                gen, cfg.n_enc_layers)
             params["layers"] = {
                 "ln1": torch.zeros((L, d), device=dev),
+                "ln_x": torch.zeros((L, d), device=dev),
                 "ln2": torch.zeros((L, d), device=dev),
                 "attn": blocks.init_attention(gen, cfg, lead=(L,)),
+                "xattn": blocks.init_attention(gen, cfg, lead=(L,)),
+                "mlp": blocks.init_mlp(gen, d, cfg.d_ff, lead=(L,)),
             }
-            if cfg.family == "moe":
-                params["layers"]["moe"] = blocks.init_moe(gen, cfg,
-                                                          lead=(L,))
-            else:
-                params["layers"]["mlp"] = blocks.init_mlp(gen, d, cfg.d_ff,
-                                                          lead=(L,))
+            params["enc_norm"] = torch.zeros((d,), device=dev)
             return params
         if cfg.family == "ssm":
             params["layers"] = blocks.init_rwkv(gen, cfg, lead=(L,))
@@ -150,6 +164,20 @@ class Model:
                  "ln2": torch.zeros((d,), device=dev)}
                 for _ in range(rem)]
         return params
+
+    def _init_decoder_layers(self, gen, n: int) -> dict:
+        """``n`` decoder layers stacked on a leading axis: ln1, ln2, attn
+        and the MoE (``moe``) or the dense MLP (``mlp``)."""
+        cfg = self.cfg
+        d = cfg.d_model
+        p = {"ln1": torch.zeros((n, d), device=gen.device),
+             "ln2": torch.zeros((n, d), device=gen.device),
+             "attn": blocks.init_attention(gen, cfg, lead=(n,))}
+        if cfg.family == "moe":
+            p["moe"] = blocks.init_moe(gen, cfg, lead=(n,))
+        else:
+            p["mlp"] = blocks.init_mlp(gen, d, cfg.d_ff, lead=(n,))
+        return p
 
     def _init_hybrid_unit(self, gen, lead=()):
         """recurrentgemma unit: 2 RG-LRU blocks then 1 local-attention
@@ -174,14 +202,40 @@ class Model:
             return blocks.moe_apply(p["moe"], h, self.cfg)
         return blocks.mlp_apply(p["mlp"], h), None
 
-    def _decoder_block(self, p, x, *, window: int = 0):
+    def _decoder_block(self, p, x, *, window: int = 0, causal: bool = True):
         """Returns (x, aux or None)."""
         cfg = self.cfg
         h = rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
-        x = x + blocks.attention_seq(p["attn"], h, cfg, window=window)
+        x = x + blocks.attention_seq(p["attn"], h, cfg, window=window,
+                                     causal=causal)
         h = rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
         y, aux = self._ffn(p, h)
         return x + y, aux
+
+    def _encode_audio(self, params, frames):
+        """The audio encoder over frame embeddings (B, F, d), cast to the
+        model dtype first: non-causal, roped self-attention and the MLP a
+        layer, then ``enc_norm``."""
+        cfg = self.cfg
+        x = torch.as_tensor(frames, device=self.device).to(self.dtype)
+        for i in range(cfg.n_enc_layers):
+            x, _ = self._decoder_block(layer_params(params["enc_layers"], i),
+                                       x, causal=False)
+        return rms_norm(x, params["enc_norm"].to(x.dtype), cfg.norm_eps)
+
+    def _cross_block(self, p, x, enc):
+        """One audio decoder layer over x (B, S, d) against the encoder
+        output ``enc`` (B, F, d): causal self-attention, cross-attention,
+        the MLP.  Returns (x, the cross-attention's K, V of ``enc``)."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
+        x = x + blocks.attention_seq(p["attn"], h, cfg)
+        h = rms_norm(x, p["ln_x"].to(x.dtype), cfg.norm_eps)
+        ck, cv = blocks.kv_proj(p["xattn"], enc, cfg)
+        x = x + blocks.attention_seq(p["xattn"], h, cfg, causal=False,
+                                     kv_override=(ck, cv))
+        h = rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
+        return x + blocks.mlp_apply(p["mlp"], h), ck, cv
 
     def _ssm_block(self, p, x, state=None, tm_prev=None, cm_prev=None):
         """One RWKV6 layer from its carried ``state`` / ``tm_prev`` /
@@ -244,13 +298,17 @@ class Model:
             tp["mlp"], rms_norm(x, tp["ln2"].to(x.dtype), cfg.norm_eps))
         return x, h, c
 
-    def _backbone(self, params, x):
-        """Full-sequence trunk (loss), x: (B, S, d).  Returns (x, the sum
-        of the layers' aux losses in layer order, 0-d f32; zero but for
-        MoE)."""
+    def _backbone(self, params, x, enc=None):
+        """Full-sequence trunk (loss), x: (B, S, d); ``enc`` is the audio
+        encoder's output.  Returns (x, the sum of the layers' aux losses in
+        layer order, 0-d f32; zero but for MoE)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if cfg.family in ("dense", "moe"):
+        if cfg.family == "audio":
+            for i in range(cfg.n_layers):
+                x = self._cross_block(layer_params(params["layers"], i), x,
+                                      enc)[0]
+        elif cfg.family in ("dense", "moe"):
             for i in range(cfg.n_layers):
                 x, a = self._decoder_block(layer_params(params["layers"], i),
                                            x)
@@ -300,11 +358,13 @@ class Model:
     @torch.no_grad()
     def loss(self, params, batch):
         """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
-        of (B, S)); returns (xent + 0.01 * aux, {"xent", "aux"}) as 0-d
-        f32 tensors, aux being the MoE layers' load-balance loss (zero for
-        the other families)."""
+        of (B, S), and audio's ``"frames"`` (B, F, d)); returns (xent +
+        0.01 * aux, {"xent", "aux"}) as 0-d f32 tensors, aux being the MoE
+        layers' load-balance loss (zero for the other families)."""
+        enc = (self._encode_audio(params, batch["frames"])
+               if self.cfg.family == "audio" else None)
         x, labels, mask = self._embed_inputs(params, batch)
-        x, aux = self._backbone(params, x)
+        x, aux = self._backbone(params, x, enc)
         xent = self._xent(params, x, labels, mask)
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
@@ -313,11 +373,16 @@ class Model:
         """Ingest whole prompts ``batch["tokens"]`` (B, S); returns
         (last-position logits (B, 1, V) f32, the cache :meth:`decode_step`
         reads).  Dense and MoE: {k, v} of (L, B, S, Hkv, hd) with K roped
-        at positions 0..S-1.  Hybrid: the states after position S-1, and K/V
-        of the last W = min(S, local_window) positions in their ring slots
-        (the :meth:`init_cache` layout at context S).  Ssm: each layer's
-        state after position S-1 and its mixes' last normed inputs."""
+        at positions 0..S-1.  Audio: the same, after encoding
+        ``batch["frames"]`` (B, F, d), and each layer's ``cross_k`` /
+        ``cross_v`` (L, B, F, Hkv, hd).  Hybrid: the states after position
+        S-1, and K/V of the last W = min(S, local_window) positions in
+        their ring slots (the :meth:`init_cache` layout at context S).
+        Ssm: each layer's state after position S-1 and its mixes' last
+        normed inputs."""
         cfg = self.cfg
+        if cfg.family == "audio":
+            return self._prefill_audio(params, batch)
         x, _, _ = self._embed_inputs(params, batch)
         if cfg.family == "hybrid":
             return self._prefill_hybrid(params, x)
@@ -334,6 +399,26 @@ class Model:
             cache["k"][i] = rope(k, positions, cfg.rope_theta)
             cache["v"][i] = v
             x, _ = self._decoder_block(pl, x)
+        x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+        logits = x[:, -1:] @ params["lm_head"].to(x.dtype)
+        return logits.float(), cache
+
+    def _prefill_audio(self, params, batch):
+        cfg = self.cfg
+        enc = self._encode_audio(params, batch["frames"])
+        x, _, _ = self._embed_inputs(params, batch)
+        B, S, _ = x.shape
+        cache = self._empty_cache(torch.empty, B, S)
+        positions = torch.arange(S, device=self.device)[None, :]
+        for i in range(cfg.n_layers):
+            pl = layer_params(params["layers"], i)
+            # the reference recomputes the layer's K/V for the cache
+            hn = rms_norm(x, pl["ln1"].to(x.dtype), cfg.norm_eps)
+            _, k, v = blocks._qkv(pl["attn"], hn, cfg)
+            cache["k"][i] = rope(k, positions, cfg.rope_theta)
+            cache["v"][i] = v
+            x, cache["cross_k"][i], cache["cross_v"][i] = self._cross_block(
+                pl, x, enc)
         x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
         logits = x[:, -1:] @ params["lm_head"].to(x.dtype)
         return logits.float(), cache
@@ -389,6 +474,10 @@ class Model:
         kv = (L, batch, C, cfg.n_kv_heads, cfg.head_dim_)
         c = {"k": alloc(kv, dtype=dt, device=dev),
              "v": alloc(kv, dtype=dt, device=dev)}
+        if cfg.family == "audio":
+            xkv = (L, batch, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim_)
+            c["cross_k"] = alloc(xkv, dtype=dt, device=dev)
+            c["cross_v"] = alloc(xkv, dtype=dt, device=dev)
         if cfg.family != "hybrid":
             return c
         w = cfg.rglru_width
@@ -401,8 +490,10 @@ class Model:
 
     def init_cache(self, batch: int, context: int) -> dict:
         """Zeroed decode cache.  Dense and MoE: {k, v} of (L, batch,
-        context, Hkv, hd).  Ssm: {state (L, batch, H, hd, hd) f32, tm_prev,
-        cm_prev (L, batch, d)}, whatever the context.  Hybrid: the unit states, K/V rings of (n_units,
+        context, Hkv, hd).  Audio: those and {cross_k, cross_v} of (L,
+        batch, n_frames, Hkv, hd), for a prefill's to be copied in.  Ssm:
+        {state (L, batch, H, hd, hd) f32, tm_prev, cm_prev (L, batch, d)},
+        whatever the context.  Hybrid: the unit states, K/V rings of (n_units,
         batch, min(context, local_window), Hkv, hd), and the tail's
         states."""
         return self._empty_cache(torch.zeros, batch, context)
@@ -500,9 +591,10 @@ class Model:
         ``decode_kernel`` picks its attention route (see
         :func:`repro_torch.nn.blocks.attention_step`).  The hybrid's local
         attention writes slot pos % C of its ring and attends over the
-        whole ring, which holds the window.  Ssm ignores ``pos``: each
-        layer steps its state and mixes once.  Updates the cache IN PLACE;
-        returns ((B, 1, V) f32 logits, the cache)."""
+        whole ring, which holds the window.  Audio attends, unroped, to
+        every frame of the cross leaves, which it leaves as they are.  Ssm
+        ignores ``pos``: each layer steps its state and mixes once.  Updates
+        the cache IN PLACE; returns ((B, 1, V) f32 logits, the cache)."""
         cfg = self.cfg
         tokens = self._long(tokens)
         B = tokens.shape[0]
@@ -532,6 +624,8 @@ class Model:
             writes = None              # one shared int position: no lookup
         if cfg.family == "hybrid":
             x = self._decode_hybrid(params, cache, x, pos, writes)
+        elif cfg.family == "audio":
+            x = self._decode_audio(params, cache, x, pos, writes)
         else:
             for i in range(cfg.n_layers):
                 pl = layer_params(params["layers"], i)
@@ -547,6 +641,22 @@ class Model:
         x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
         logits = x @ params["lm_head"].to(x.dtype)
         return logits.float(), cache
+
+    def _decode_audio(self, params, cache, x, pos, writes):
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            pl = layer_params(params["layers"], i)
+            kv = {"k": cache["k"][i], "v": cache["v"][i]}
+            hn = rms_norm(x, pl["ln1"].to(x.dtype), cfg.norm_eps)
+            x = x + blocks.attention_step(pl["attn"], hn, kv, pos, cfg,
+                                          writes=writes)[0]
+            hn = rms_norm(x, pl["ln_x"].to(x.dtype), cfg.norm_eps)
+            x = x + blocks.cross_attention_step(
+                pl["xattn"], hn, cache["cross_k"][i], cache["cross_v"][i],
+                cfg)
+            hn = rms_norm(x, pl["ln2"].to(x.dtype), cfg.norm_eps)
+            x = x + blocks.mlp_apply(pl["mlp"], hn)
+        return x
 
     def _decode_hybrid(self, params, cache, x, pos, writes):
         cfg = self.cfg

@@ -124,9 +124,22 @@ def test_attention_seq_matches_jax(lm, window):
                                torch.from_numpy(x), tcfg, window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=REL,
                                atol=REL)
-    with pytest.raises(NotImplementedError):
-        blocks.attention_seq(tp["layers"]["attn"], torch.from_numpy(x), tcfg,
-                             kv_override=(None, None))
+    # kv_override: cross-attention to 23 other positions' K and V (with
+    # qwen's QKV bias), q unroped, non-causal; at the reference's default
+    # blocks, since under the window rows past key 31 see no key and
+    # average v over the kv length padded to the key block
+    src = np.random.default_rng(4).normal(0, 1, (2, 23, 64)).astype(
+        np.float32)
+    jattn = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
+    tattn = {k: v[0] for k, v in tp["layers"]["attn"].items()}
+    jkv = jblocks.kv_proj(jattn, jnp.asarray(src), jcfg)
+    tkv = blocks.kv_proj(tattn, torch.from_numpy(src), tcfg)
+    want = jblocks.attention_seq(jattn, jnp.asarray(x), jcfg, window=window,
+                                 causal=False, kv_override=jkv)
+    got = blocks.attention_seq(tattn, torch.from_numpy(x), tcfg,
+                               window=window, kv_override=tkv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=REL,
+                               atol=REL)
 
 
 def _assert_far_from_budget(history, budget):
