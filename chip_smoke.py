@@ -250,7 +250,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    with the int8-PoT tokens' share equal to bf16's; the flash counter
    zeroed just before (c) and read just after (d): 18 launches a forward
    (6 encoder, 6 decoder self, 6 cross) and none a decode step; (e) a
-   ``torch.profiler`` window over 16 bf16 decode steps.
+   ``torch.profiler`` window over 16 bf16 decode steps;
+13. the VLM family, after the audio phase's memory is freed: (a) ptxas's
+   registers and spills of both flash routes' D = 128 instantiations (a
+   spill fails), and the flash kernel at llava-next-34b's shapes, GQA 7:1
+   (56 / 8 heads of 128), causal, against its plain version -- the loss
+   (2, 3904) and the greedy prefill (4, 2896) in bf16 under
+   ``bf16_disagreement``, each timed beside the bound, the plain version
+   and ``scaled_dot_product_attention``; the f32 check's prefill (1,
+   2945) within ``FLASH_F32_TOL``, timed on its own; then llava-next-34b
+   at full width and 16 of its 60 layers (d_model 7168, d_ff 20480,
+   vocab 64000; 9,850,559,488 f32 parameters from seed 0, patch
+   embeddings (B, 2880, 1024) from a seeded numpy generator, the vision
+   tower a stub): (b) the f32 decode of token 65 after a prefill of the
+   2880 patches and 64 tokens (k and v padded to the 3072-position
+   context) against a prefill of the patches and 65 tokens; the int8-PoT
+   tree (``serving_quant``, ``vision_proj`` quantized) from the f32
+   masters, which are then cast to bf16 once; (c) a bf16 ``Model.loss``
+   on 2 x 1024 tokens after their patches, the mask zero over the
+   patches; (d) a greedy loop through ``Model.prefill`` / ``decode_step``
+   (4 rows, 16-token prompts after the patches, 64 new tokens, context
+   3072), bf16 and int8-PoT (dequantized every dispatch), with the
+   int8-PoT tokens' share equal to bf16's and each loop's peak memory;
+   the flash counter zeroed just before (c) and read just after (d): 16
+   launches a forward and none a decode step; (e) a ``torch.profiler``
+   window over 16 bf16 decode steps.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -356,6 +380,33 @@ AUD_PROFILE_STEPS = 16
 # a wrong cache slot moves the logits by a large share of their scale.
 AUD_DECODE_PROMPT = 64
 AUD_DECODE_REL = 2e-3          # x max |logit|
+# The VLM path: llava-next-34b at full width (d_model 7168, 56 / 8 heads
+# of 128, d_ff 20480, vocab 64000), random weights from seed 0, patch
+# embeddings (B, 2880, 1024) from a seeded numpy generator (the vision
+# tower is a stub in both packages; 2880 patches are LLaVA-NeXT's anyres
+# tiling, 5 tiles x 576).  Depth is cut to 16 of 60 layers: a layer is
+# 557,856,768 parameters (2.08 GiB in f32), and the reference's init tree
+# at 60 layers is 34,396,257,280 parameters, 128.1 GiB in f32.  At 16
+# layers it is 9,850,559,488, 36.70 GiB of f32 masters; beside them fit
+# the f32 check, the int8-PoT tree quantized from them (6.98 GiB of
+# mantissas; ``wu`` stays float and shares the masters' tensor) and its
+# quantization's f32 transients (2 x 9.40 GB for an MLP leaf), and, after
+# one cast, the 18.35 GiB bf16 tree beside the int8 tree and its
+# dequantized bf16 transient a dispatch.  Deeper layers run the same code.
+VLM_ARCH = "llava-next-34b"
+VLM_LAYERS, VLM_PARAMS = 16, 9_850_559_488   # the reference's leaves
+VLM_LOSS_BATCH, VLM_LOSS_SEQ = 2, 1024
+VLM_SERVE_BATCH, VLM_PROMPT, VLM_NEW, VLM_CONTEXT = 4, 16, 64, 3072
+VLM_PROFILE_STEPS = 16
+# f32 decode of token 65 after the patches and 64 tokens against a
+# prefill of the patches and 65: the same f32 operations on other shapes
+# (1 row against 2945: other cuBLAS kernels and summation orders, ~sqrt(K)
+# 2^-24 relative at K = 20480; decode's softmax over the cache against
+# the flash kernel's online one) through 16 layers; a wrong position,
+# a patch left out of the cache or a lost K/V row moves the logits by a
+# large share of their scale.
+VLM_DECODE_PROMPT = 64
+VLM_DECODE_REL = 2e-3          # x max |logit|
 # wkv6's y against the plain version: the kernel adds sum_i r_i s_ij with
 # FMAs over each lane's rows, then across lanes, then v_j a_t, the plain
 # einsum as a batched product does; each is within a few ulps of the
@@ -1038,7 +1089,6 @@ def flash_kernel_phase(torch):
     f32 and bf16, and its time at the loss shape beside the bound, the
     plain version and scaled_dot_product_attention; the same at the hybrid
     path's shapes (D = 256, MQA 16:1, window 2048)."""
-    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         BF16_SHARE, KEY_TILE, bf16_disagreement, flash_attention_kernel,
         flash_attention_plain)
@@ -1130,16 +1180,9 @@ def flash_kernel_phase(torch):
                  torch.float32)
     # ptxas's report of the tensor-core instantiations on the main paths
     ptxas = {}
-    for fn, line in ptxas_lines(build.build_log("flash_attention")):
-        for D in (64, 256):
-            if fn == f"flash_attention_wgmma_kernelILi{D}EE":
-                ptxas.setdefault(f"D{D}", []).append(line)
     for D in (64, 256):
-        lines = ptxas.get(f"D{D}", [])
-        spills = [int(n) for line in lines for n in re.findall(
-            r"(\d+) bytes spill", line)]
-        check(len(spills) == 2 and not any(spills),
-              f"flash_attention bf16 D = {D}: ptxas spills: {lines}")
+        ptxas[f"D{D}"] = lines = flash_ptxas(
+            f"flash_attention_wgmma_kernelILi{D}EE")
         print(f"flash_attention bf16 D = {D}, key tile {KEY_TILE}: ptxas "
               f"{' / '.join(lines)}")
     keep = ("ms", "plain_ms", "bound_ms", "library_ms", "visible_pairs")
@@ -3742,21 +3785,18 @@ def rwkv_phase(torch):
     return {"wkv6": launches, "wkv6 routes": routes}
 
 
-def audio_kernel_readings(torch):
-    """Flash at whisper-base's shapes, new to the card: the encoder's
-    non-causal MHA (16, 1500, 8 / 8 heads of 64: 1500 = 23 x 64 + 28, so
-    every row ends on a partial key tile, and 11 x 128 + 92, so the last
-    query block is partial), cross-attention of the decoder's 448 tokens
-    against 1500 frames (Sq != Skv, offset 0 as ``chunked_attention``
-    passes it) and the decoder's causal 448.  Each against its plain
-    version in f32 (within ``FLASH_F32_TOL``) and bf16 (under
-    ``bf16_disagreement`` at ``KEY_TILE``), then timed in bf16 beside the
-    bound, the plain version and ``scaled_dot_product_attention``."""
+def flash_readings(torch, arch, cases):
+    """Flash at a path's shapes: each case ``(name, (B, Sq, Skv, Hq, Hkv,
+    D), causal, dtypes)`` against its plain version in each dtype (f32
+    within ``FLASH_F32_TOL`` with ``chunked_attention``'s key tile, bf16
+    under ``bf16_disagreement`` at ``KEY_TILE``), offset 0 as
+    ``chunked_attention`` passes it; then timed in the last dtype, in bf16
+    beside the bound, the plain version and
+    ``scaled_dot_product_attention``.  Returns {"arch name": reading}."""
     from repro_torch.kernels.flash_attention import (
         BF16_SHARE, KEY_TILE, bf16_disagreement, flash_attention_kernel,
         flash_attention_plain)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    B, H, D, F_, T = AUD_LOSS_BATCH, 8, 64, 1500, AUD_CONTEXT
 
     def qkv(shape, dtype):
         B_, Sq, Skv, Hq, Hkv, D_ = shape
@@ -3765,11 +3805,9 @@ def audio_kernel_readings(torch):
                           (B_, Skv, Hkv, D_))]
 
     out = {}
-    for name, shape, causal in (("encoder", (B, F_, F_, H, H, D), False),
-                                ("cross", (B, T, F_, H, H, D), False),
-                                ("decoder", (B, T, T, H, H, D), True)):
-        errs = {}
-        for dt in (torch.float32, torch.bfloat16):
+    for name, shape, causal, dtypes in cases:
+        errs, extra = {}, {}
+        for dt in dtypes:
             q, k, v = qkv(shape, dt)
             kw = dict(causal=causal, offset=0,
                       bk=min(512, shape[2]) if dt == torch.float32
@@ -3777,7 +3815,7 @@ def audio_kernel_readings(torch):
             got = flash_attention_kernel(q, k, v, **kw)
             want = flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            errs[dt] = err = (got.float() - want.float()).abs().max().item()
             if dt == torch.float32:
                 ok = torch.allclose(got, want, atol=FLASH_F32_TOL,
                                     rtol=FLASH_F32_TOL)
@@ -3787,24 +3825,30 @@ def audio_kernel_readings(torch):
                 ok = ratio <= 1 and share <= BF16_SHARE
                 tol = (f"largest err / limit {ratio:.3f}, share "
                        f"{share:.3e}")
-                errs["bf16"] = (err, ratio, share)
-            errs.setdefault("f32", err)
+                extra.update(bf16_ratio=ratio, bf16_share=share)
             check(ok and bool(torch.isfinite(got).all()),
-                  f"flash_attention vs plain at whisper-base's {name} "
-                  f"shape {shape} {dt}: max abs err {err}, {tol}")
-            print(f"flash_attention whisper-base {name} {shape} {dt}: max "
-                  f"abs err {err:.3e} ({tol})")
+                  f"flash_attention vs plain at {arch}'s {name} shape "
+                  f"{shape} {dt}: max abs err {err}, {tol}")
+            print(f"flash_attention {arch} {name} {shape} {dt}: max abs err "
+                  f"{err:.3e} ({tol})")
             del q, k, v, got, want
-        r = flash_timing(torch, qkv, shape,
-                         dict(causal=causal, offset=0, bk=KEY_TILE), 2,
-                         torch.bfloat16)
-        err, ratio, share = errs["bf16"]
-        r.update(max_abs_err=err, f32_max_abs_err=errs["f32"],
-                 bf16_ratio=ratio, bf16_share=share,
-                 shape=f"q ({B},{shape[1]},{H},{D}), k/v ({B},{shape[2]},"
-                       f"{H},{D}) bf16 {'causal' if causal else 'non-causal'}")
-        out[f"{AUD_ARCH} {name}"] = r
+        dt = dtypes[-1]
+        if dt != torch.float32 and torch.float32 in errs:
+            extra["f32_max_abs_err"] = errs[torch.float32]
+        r = flash_timing(torch, qkv, shape, kw, 2, dt)
+        B, Sq, Skv, Hq, Hkv, D = shape
+        r.update(max_abs_err=errs[dt], **extra,
+                 shape=f"q ({B},{Sq},{Hq},{D}), k/v ({B},{Skv},{Hkv},{D}) "
+                       f"{str(dt).replace('torch.', '')} "
+                       f"{'causal' if causal else 'non-causal'}")
+        out[f"{arch} {name}"] = r
     for shape_name, r in out.items():
+        if "plain_ms" not in r:
+            print(f"flash_attention at {shape_name} ({r['shape']}, the f32 "
+                  f"route on the CUDA cores): {r['ms']*1e3:.2f} us on the "
+                  f"card ({r['eager_ms']*1e3:.2f} us per eager call) "
+                  f"[{CARD}]")
+            continue
         print(f"flash_attention at {shape_name} ({r['shape']}): "
               f"{r['ms']*1e3:.2f} us on the card ({r['eager_ms']*1e3:.2f} us "
               f"per eager call), plain {r['plain_ms']*1e3:.2f} us, bound "
@@ -3813,6 +3857,66 @@ def audio_kernel_readings(torch):
               f"scaled_dot_product_attention {r['library_ms']*1e3:.2f} us "
               f"[{CARD}]")
     return out
+
+
+def audio_kernel_readings(torch):
+    """Flash at whisper-base's shapes, new to the card: the encoder's
+    non-causal MHA (16, 1500, 8 / 8 heads of 64: 1500 = 23 x 64 + 28, so
+    every row ends on a partial key tile, and 11 x 128 + 92, so the last
+    query block is partial), cross-attention of the decoder's 448 tokens
+    against 1500 frames (Sq != Skv) and the decoder's causal 448, each in
+    f32 and bf16 and timed in bf16 (``flash_readings``)."""
+    B, H, D, F_, T = AUD_LOSS_BATCH, 8, 64, 1500, AUD_CONTEXT
+    both = (torch.float32, torch.bfloat16)
+    return flash_readings(torch, AUD_ARCH, [
+        ("encoder", (B, F_, F_, H, H, D), False, both),
+        ("cross", (B, T, F_, H, H, D), False, both),
+        ("decoder", (B, T, T, H, H, D), True, both)])
+
+
+def greedy_loop(torch, m, tree_fn, inputs, start, context, new, per_forward,
+                label):
+    """A greedy loop through ``Model.prefill`` / ``decode_step``, driven
+    here, not by an engine: ``prefill`` of ``inputs`` (the prompts and the
+    family's own entry) on ``tree_fn()``, k and v padded to ``context``,
+    then ``new`` - 1 decode steps at positions ``start + t``, each token to
+    the host.  Requires ``per_forward`` flash launches in the prefill and
+    none in decode; prints the prefill's time, decode tok/s, a step's time
+    and the peak memory.  Returns the (rows, new) tokens."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    rows = inputs["tokens"].shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    n0 = flash_attention_kernel.launches
+    t0 = time.perf_counter()
+    logits, cache = m.prefill(tree_fn(), inputs)
+    tok = logits[:, -1].argmax(-1)
+    out = [tok.cpu()]
+    prefill_s = time.perf_counter() - t0
+    n1 = flash_attention_kernel.launches
+    pad_kv(torch, cache, context)
+    t0 = time.perf_counter()
+    for t in range(new - 1):
+        lg, cache = m.decode_step(tree_fn(), cache, tok[:, None], start + t)
+        tok = lg[:, 0].argmax(-1)
+        out.append(tok.cpu())                  # each token to the host
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(n1 - n0 == per_forward, f"{label} prefill: {n1 - n0} flash "
+                                  f"launches, not {per_forward}")
+    check(flash_attention_kernel.launches == n1, f"{label} decode launched "
+                                                 f"flash")
+    toks = torch.stack(out, 1).numpy()
+    check(toks.shape == (rows, new) and toks.min() >= 0
+          and toks.max() < m.cfg.vocab, f"{label} tokens")
+    steps = new - 1
+    print(f"{label} greedy loop ({rows} rows, prompts of "
+          f"{inputs['tokens'].shape[1]} tokens decoded from position "
+          f"{start}, {new} new, context {context}): prefill "
+          f"{prefill_s * 1e3:.3f} ms; decode {rows * steps} tok in "
+          f"{decode_s:.4f} s ({rows * steps / decode_s:.1f} tok/s, "
+          f"{1e3 * decode_s / steps:.3f} ms a step); peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    return toks
 
 
 def pad_kv(torch, cache, context):
@@ -3938,44 +4042,10 @@ def audio_phase(torch):
           f"audio loss: {loss_launches} flash launches, not {per_forward}")
 
     # (d) the greedy serving loop, bf16 then int8-PoT
-    def serve(tree_fn, label):
-        torch.cuda.reset_peak_memory_stats()
-        n0 = flash_attention_kernel.launches
-        t0 = time.perf_counter()
-        logits, cache = m.prefill(tree_fn(), {"tokens": prompts,
-                                              "frames": sfr})
-        tok = logits[:, -1].argmax(-1)
-        out = [tok.cpu()]
-        prefill_s = time.perf_counter() - t0
-        n1 = flash_attention_kernel.launches
-        pad_kv(torch, cache, AUD_CONTEXT)
-        t0 = time.perf_counter()
-        for t in range(AUD_NEW - 1):
-            lg, cache = m.decode_step(tree_fn(), cache, tok[:, None],
-                                      AUD_PROMPT + t)
-            tok = lg[:, 0].argmax(-1)
-            out.append(tok.cpu())              # each token to the host
-        decode_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        check(n1 - n0 == per_forward,
-              f"audio {label} prefill: {n1 - n0} flash launches")
-        check(flash_attention_kernel.launches == n1,
-              f"audio {label} decode launched flash")
-        toks = torch.stack(out, 1).numpy()
-        check(toks.shape == (AUD_SERVE_BATCH, AUD_NEW) and toks.min() >= 0
-              and toks.max() < cfg.vocab, f"audio {label} tokens")
-        steps = AUD_NEW - 1
-        print(f"audio greedy loop ({label}, {AUD_SERVE_BATCH} rows, "
-              f"{AUD_PROMPT}-token prompts, {AUD_NEW} new, context "
-              f"{AUD_CONTEXT}): prefill {prefill_s * 1e3:.3f} ms; decode "
-              f"{AUD_SERVE_BATCH * steps} tok in {decode_s:.4f} s "
-              f"({AUD_SERVE_BATCH * steps / decode_s:.1f} tok/s, "
-              f"{1e3 * decode_s / steps:.3f} ms a step); peak memory "
-              f"{peak / 2**30:.3f} GiB")
-        return toks
-
-    out = serve(lambda: params, "bf16")
-    qout = serve(lambda: deq(qtree), "int8-PoT")
+    inputs = {"tokens": prompts, "frames": sfr}
+    loop = (inputs, AUD_PROMPT, AUD_CONTEXT, AUD_NEW, per_forward)
+    out = greedy_loop(torch, m, lambda: params, *loop, "audio bf16")
+    qout = greedy_loop(torch, m, lambda: deq(qtree), *loop, "audio int8-PoT")
     launches = flash_attention_kernel.launches           # (c) + (d)
     check(launches == 3 * per_forward,
           f"audio path: {launches} flash launches, not {3 * per_forward}")
@@ -4019,6 +4089,210 @@ def audio_phase(torch):
     print(f"launches on the audio path: flash_attention {launches} (loss "
           f"{loss_launches}, bf16 prefill {per_forward}, int8-PoT prefill "
           f"{per_forward}, decode 0)")
+    return {"flash_attention": launches}
+
+
+def flash_ptxas(fn):
+    """ptxas's lines for one flash instantiation (``fn``: the mangled name
+    cut to its template arguments, as ``ptxas_lines`` gives it); a spill
+    fails the run."""
+    from repro_torch.kernels import build
+    lines = [line for f, line in ptxas_lines(build.build_log(
+        "flash_attention")) if f == fn]
+    spills = [int(n) for line in lines
+              for n in re.findall(r"(\d+) bytes spill", line)]
+    check(len(spills) == 2 and not any(spills),
+          f"flash_attention {fn}: ptxas spills: {lines}")
+    return lines
+
+
+def vlm_kernel_readings(torch):
+    """Flash at llava-next-34b's shapes, new to the card: GQA 7:1 (56 / 8
+    heads) at D = 128, causal.  The loss (2, 3904: 2880 patches and 1024
+    tokens, 30 x 128 + 64, so the last query block is half full) and the
+    greedy prefill (4, 2896) in bf16, each timed; the f32 check's prefill
+    (1, 2945: 23 x 128 + 1, the last block one row) in f32, timed on its
+    own (``flash_readings``).  ptxas's registers and spills of both D =
+    128 instantiations; a spill fails the run."""
+    ptxas = {}
+    for route, fn in (("bfloat16", "flash_attention_wgmma_kernelILi128EE"),
+                      ("float32", "flash_attention_kernelILi128EE")):
+        ptxas[route] = flash_ptxas(fn)
+        print(f"flash_attention {route} D = 128: ptxas "
+              f"{' / '.join(ptxas[route])}")
+    P, Hq, Hkv, D = 2880, 56, 8, 128
+    out = flash_readings(torch, VLM_ARCH, [
+        (name, (B, S, S, Hq, Hkv, D), True, (dt,)) for name, B, S, dt in (
+            ("loss", VLM_LOSS_BATCH, P + VLM_LOSS_SEQ, torch.bfloat16),
+            ("prefill", VLM_SERVE_BATCH, P + VLM_PROMPT, torch.bfloat16),
+            ("f32 check prefill", 1, P + VLM_DECODE_PROMPT + 1,
+             torch.float32))])
+    out["ptxas D = 128"] = ptxas
+    return out
+
+
+def vlm_phase(torch):
+    """llava-next-34b at full width and 16 of its 60 layers on the card,
+    random weights from seed 0 and seeded patch embeddings: (b) the f32
+    decode of token 65 after a prefill of the patches and 64 tokens (k
+    and v padded to the context) against a prefill of the patches and 65;
+    the int8-PoT tree from the f32 masters, then one cast to bf16; (c) a
+    bf16 2 x 1024 ``Model.loss`` after the 2880 patches of each row; (d) a
+    greedy loop through ``prefill`` / ``decode_step``, bf16 and int8-PoT;
+    (e) one profiled window of 16 bf16 decode steps.  The flash counter
+    is zeroed just before (c) and read just after (d): the path's
+    launches."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.nn import Model, get_config
+    from repro_torch.quant.ptq import serving_ledger, serving_quant
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    P = cfg.n_patches
+    rng = np.random.default_rng(0)
+
+    def patches(n):
+        return torch.from_numpy(rng.normal(
+            0.0, 1.0, (n, P, 1024)).astype(np.float32)).cuda()
+
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n = _numel(params)
+    print(f"{VLM_ARCH} params at {VLM_LAYERS} of {full.n_layers} layers: "
+          f"{n:,} (f32 masters {n * 4 / 2**30:.3f} GiB, init "
+          f"{time.perf_counter() - t0:.2f} s); params_count() at full depth "
+          f"{full.params_count():,} [{CARD}]")
+    check(n == VLM_PARAMS, f"{n} parameters, the reference has "
+                           f"{VLM_PARAMS} at {VLM_LAYERS} layers")
+    check(tuple(params["vision_proj"].shape) == (1024, cfg.d_model),
+          "vision_proj layout")
+
+    # (b) f32 decode against a longer prefill
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), device="cuda")
+    S = VLM_DECODE_PROMPT
+    toks = rng.integers(0, cfg.vocab, (1, S + 1)).astype(np.int32)
+    pe = patches(1)
+    t0 = time.perf_counter()
+    want, _ = m32.prefill(params, {"tokens": toks, "patch_embeds": pe})
+    _, cache = m32.prefill(params, {"tokens": toks[:, :S],
+                                    "patch_embeds": pe})
+    check(set(cache) == {"k", "v"} and tuple(cache["k"].shape) == (
+        VLM_LAYERS, 1, P + S, cfg.n_kv_heads, cfg.head_dim_)
+        and cache["k"].dtype == torch.float32, "vlm cache layout")
+    got, cache = m32.decode_step(params, pad_kv(torch, cache, VLM_CONTEXT),
+                                 toks[:, S:], P + S)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"vlm f32: decode of token {S + 1} after prefill of {P} patches "
+          f"and {S} tokens (k, v padded to {VLM_CONTEXT}) against prefill "
+          f"of {P} + {S + 1}: max abs diff {diff:.4e}, max |logit| "
+          f"{scale:.4e} ({diff / scale:.3e} of it; tolerance "
+          f"{VLM_DECODE_REL} x max); {sec:.3f} s")
+    check(bool(torch.isfinite(got).all()) and diff <= VLM_DECODE_REL * scale,
+          "vlm f32 decode disagrees with prefill")
+    check(cache["k"].shape[2] == VLM_CONTEXT, "vlm decode resized k")
+    del m32, cache, want, got
+
+    # the int8-PoT tree from the f32 masters, then bf16 once
+    qtree, deq, resident = serving_quant(params, bits=8,
+                                         dtype=torch.bfloat16)
+    check(isinstance(qtree["vision_proj"], dict),
+          "vision_proj left unquantized")
+    sheet = serving_ledger(params, bits=8, act_itemsize=2.0)
+    print(f"{VLM_ARCH} int8-PoT: resident {resident:,} B; serving ledger "
+          f"{len(sheet)} quantized leaves, weight bytes "
+          f"{sheet.weight_bytes():,.0f}, unquantized "
+          f"{sheet.extra_bytes:,.0f}, ops per token "
+          f"{sheet.ops_per_token():,.0f}; peak memory so far "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    cast_tree(params, torch.bfloat16)
+    torch.cuda.synchronize()
+
+    m = Model(cfg, device="cuda")
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=VLM_LOSS_SEQ,
+                          global_batch=VLM_LOSS_BATCH, seed=0).batch(0)
+    batch["patch_embeds"] = patches(VLM_LOSS_BATCH)
+    prompts = rng.integers(0, cfg.vocab, (VLM_SERVE_BATCH, VLM_PROMPT)) \
+        .astype(np.int32)
+    spe = patches(VLM_SERVE_BATCH)
+    _, labels, mask = m._embed_inputs(params, batch)
+    check(labels.shape == mask.shape == (VLM_LOSS_BATCH, P + VLM_LOSS_SEQ)
+          and float(mask[:, :P].sum()) == 0.0 and not labels[:, :P].any()
+          and float(mask.sum()) == VLM_LOSS_BATCH * VLM_LOSS_SEQ,
+          "vlm loss mask counts a patch position")
+    del labels, mask
+    # warm-up at the timed shapes: cuBLAS's picks, the allocator
+    float(m.loss(params, batch)[0])
+    for tree in (params, deq(qtree)):
+        _, c = m.prefill(tree, {"tokens": prompts, "patch_embeds": spe})
+        m.decode_step(tree, pad_kv(torch, c, VLM_CONTEXT), prompts[:, :1],
+                      P + VLM_PROMPT)
+    del c, tree
+    torch.cuda.synchronize()
+
+    # (c) Model.loss, bf16, 2 x 1024 tokens after 2880 patches a row
+    flash_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    loss, mets = m.loss(params, batch)
+    xent = float(mets["xent"])
+    loss_s = time.perf_counter() - t0
+    loss_launches = flash_attention_kernel.launches
+    s2 = 0.02 ** 2 * cfg.d_model      # logits ~ N(0, s2) on unit-rms rows
+    expect = float(np.log(cfg.vocab)) + s2 / 2
+    print(f"vlm bf16 Model.loss ({VLM_LOSS_BATCH} x {VLM_LOSS_SEQ} tokens "
+          f"after {P} patches a row): xent {xent!r} over the text "
+          f"positions (ln V = {np.log(cfg.vocab):.4f}, ln V + s2/2 = "
+          f"{expect:.4f}), aux {float(mets['aux'])}; {loss_s:.4f} s; "
+          f"{loss_launches} flash launches")
+    check(np.isfinite(xent) and abs(xent - expect) <= 0.2,
+          f"vlm loss {xent} far from {expect}")
+    check(loss_launches == VLM_LAYERS,
+          f"vlm loss: {loss_launches} flash launches, not {VLM_LAYERS}")
+
+    # (d) the greedy loop, bf16 then int8-PoT
+    inputs = {"tokens": prompts, "patch_embeds": spe}
+    loop = (inputs, P + VLM_PROMPT, VLM_CONTEXT, VLM_NEW, VLM_LAYERS)
+    out = greedy_loop(torch, m, lambda: params, *loop, "vlm bf16")
+    qout = greedy_loop(torch, m, lambda: deq(qtree), *loop, "vlm int8-PoT")
+    launches = flash_attention_kernel.launches           # (c) + (d)
+    check(launches == 3 * VLM_LAYERS,
+          f"vlm path: {launches} flash launches, not {3 * VLM_LAYERS}")
+    same = float((qout == out).mean())
+    print(f"  first tokens {out[:, 0].tolist()}; int8-PoT greedy tokens "
+          f"equal to bf16's: {100 * same:.2f} % (first "
+          f"{100 * float((qout[:, 0] == out[:, 0]).mean()):.1f} %)")
+    del qtree
+
+    # (e) a profiled window of bf16 decode steps
+    logits, cache = m.prefill(params, {"tokens": prompts,
+                                       "patch_embeds": spe})
+    tok = logits[:, -1].argmax(-1)
+    pad_kv(torch, cache, VLM_CONTEXT)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(VLM_PROFILE_STEPS):
+            lg, cache = m.decode_step(params, cache, tok[:, None],
+                                      P + VLM_PROMPT + t)
+            tok = lg[:, 0].argmax(-1)
+            tok.cpu()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, f"{VLM_PROFILE_STEPS} llava-next-34b bf16 "
+                                  f"decode steps, {VLM_SERVE_BATCH} rows, "
+                                  f"{VLM_LAYERS} layers", 10)
+    del params, cache, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"launches on the vlm path: flash_attention {launches} (loss "
+          f"{loss_launches}, bf16 prefill {VLM_LAYERS}, int8-PoT prefill "
+          f"{VLM_LAYERS}, decode 0)")
     return {"flash_attention": launches}
 
 
@@ -4115,6 +4389,12 @@ def main() -> int:
     audio_readings = audio_kernel_readings(torch)
     audio_launches = audio_phase(torch)
     print(f"audio phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vlm_readings = vlm_kernel_readings(torch)
+    vlm_launches = vlm_phase(torch)
+    print(f"vlm phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
@@ -4122,7 +4402,8 @@ def main() -> int:
                "ptq": {"flash_attention": launches["flash_attention"]},
                "mixed": mixed_launches, "hybrid": hybrid_launches,
                "moe": moe_launches, "rwkv": rwkv_launches,
-               "audio": audio_launches, "op": {"qmatmul": qm_launches}}
+               "audio": audio_launches, "vlm": vlm_launches,
+               "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
     for name, n in explore_launches.items():
@@ -4132,6 +4413,8 @@ def main() -> int:
     for name, n in moe_launches.items():
         launches[name] += n
     for name, n in audio_launches.items():
+        launches[name] += n
+    for name, n in vlm_launches.items():
         launches[name] += n
     launches["qmatmul"] = qm_launches
     launches["wkv6"] = rwkv_launches["wkv6"]
@@ -4149,6 +4432,7 @@ def main() -> int:
             k["moe_shapes"] = moe_readings[k["name"]]
         if k["name"] == "flash_attention":
             k["audio_shapes"] = audio_readings
+            k["vlm_shapes"] = vlm_readings
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

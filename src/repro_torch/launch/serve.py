@@ -18,8 +18,9 @@ flash-attention kernel.  So does the RWKV6 family (``--arch rwkv6-3b``,
 family ``ssm``): each layer's time mix runs the ``wkv6`` kernel once a
 prefill or decode step.  The audio family (``--arch whisper-base``) goes
 to ``ReferenceEngine`` too and fails there with ``KeyError: 'frames'``,
-as in the reference: the engine prefills tokens only.  Parameters are
-random, from ``--seed``.
+as in the reference: the engine prefills tokens only.  So does the VLM
+family (``--arch llava-next-34b``), with ``KeyError: 'patch_embeds'``.
+Parameters are random, from ``--seed``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, MoE, RWKV6 (``ssm``), hybrid and audio
-families (counterpart of ``repro/nn/model.py``).
+"""Model assembly for the dense, MoE, RWKV6 (``ssm``), hybrid, audio and
+VLM families (counterpart of ``repro/nn/model.py``).
 
 Parameters are a dict tree in the reference's layout: per-layer leaves are
 stacked on a leading layer axis (``params["layers"]["attn"]["wq"]`` is
@@ -43,12 +43,20 @@ blocks.kv_proj` of it) and the MLP (``ln2``, ``mlp``).  Its cache is the
 dense {k, v} plus each layer's cross-attention K/V, ``cross_k`` /
 ``cross_v`` (L, B, F, Hkv, hd), which decode reads and never writes.
 
+The VLM family (llava-next) is the dense decoder over projected patch
+embeddings followed by tokens: ``batch["patch_embeds"]`` (B, P, 1024) @
+``params["vision_proj"]`` (1024, d) goes in front of the token embeddings,
+so positions 0..P-1 are the patches.  The loss counts the text positions
+only; the cache is the dense {k, v}, filled by ``prefill`` at positions
+0..P+T-1, and decode embeds tokens only.
+
 Public surface:
     m = Model(cfg, device="cuda")
     params = m.init(seed)
     loss, metrics = m.loss(params, batch)     # the PTQ search's metric
     logits, cache = m.prefill(params, batch)  # ReferenceEngine: the prompt
-                                              # (audio: and its frames)
+                                              # (audio: and its frames; vlm:
+                                              # and its patch embeddings)
     cache = m.init_cache(batch, context)
     logits, cache = m.prefill_chunks(params, cache, tokens, slots, offs, nv)
     logits, cache = m.prefill_chunk(params, cache, tokens, slot, off, nv)
@@ -108,14 +116,15 @@ def params_from_jax(tree, device="cuda"):
 
 
 class Model:
-    """Dense, MoE, RWKV6, hybrid or audio LM with the reference's parameter
-    and cache layouts."""
+    """Dense, MoE, RWKV6, hybrid, audio or VLM LM with the reference's
+    parameter and cache layouts."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
+        if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid",
+                              "audio"):
             raise NotImplementedError(
-                f"repro_torch ports the dense, MoE, ssm, hybrid and audio "
-                f"families, not {cfg.family!r}")
+                f"repro_torch ports the dense, MoE, VLM, ssm, hybrid and "
+                f"audio families, not {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -135,8 +144,11 @@ class Model:
             "final_norm": torch.zeros((d,), device=dev),
             "lm_head": torch.randn((d, V), generator=gen, device=dev) * 0.02,
         }
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "vlm"):
             params["layers"] = self._init_decoder_layers(gen, L)
+            if cfg.family == "vlm":
+                params["vision_proj"] = torch.randn(
+                    (1024, d), generator=gen, device=dev) * 0.02
             return params
         if cfg.family == "audio":
             params["enc_layers"] = self._init_decoder_layers(
@@ -308,7 +320,7 @@ class Model:
             for i in range(cfg.n_layers):
                 x = self._cross_block(layer_params(params["layers"], i), x,
                                       enc)[0]
-        elif cfg.family in ("dense", "moe"):
+        elif cfg.family in ("dense", "moe", "vlm"):
             for i in range(cfg.n_layers):
                 x, a = self._decoder_block(layer_params(params["layers"], i),
                                            x)
@@ -327,14 +339,26 @@ class Model:
         return x, aux
 
     def _embed_inputs(self, params, batch):
-        """Token embedding; returns (x, labels, loss_mask), the last two
-        None without ``batch["labels"]``."""
+        """Token embedding, after the projected patches for VLM; returns
+        (x, labels, loss_mask), the last two None without
+        ``batch["labels"]``.  VLM's labels and mask are 0 over the
+        patches, so the loss counts the text positions only."""
         x = params["embed"][self._long(batch["tokens"])].to(self.dtype)
+        if self.cfg.family == "vlm":
+            patches = torch.as_tensor(batch["patch_embeds"],
+                                      device=self.device).to(self.dtype)
+            x = torch.cat([patches @ params["vision_proj"].to(self.dtype), x],
+                          dim=1)
         if "labels" not in batch:
             return x, None, None
         labels = self._long(batch["labels"])
-        return x, labels, torch.ones(labels.shape, dtype=torch.float32,
-                                     device=self.device)
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=self.device)
+        if self.cfg.family == "vlm":
+            P = x.shape[1] - labels.shape[1]
+            labels = torch.nn.functional.pad(labels, (P, 0))
+            mask = torch.nn.functional.pad(mask, (P, 0))
+        return x, labels, mask
 
     def _xent(self, params, x, labels, mask):
         """Chunked softmax cross-entropy: one (B, XENT_CHUNK, V) block of
@@ -358,7 +382,8 @@ class Model:
     @torch.no_grad()
     def loss(self, params, batch):
         """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
-        of (B, S), and audio's ``"frames"`` (B, F, d)); returns (xent +
+        of (B, S), audio's ``"frames"`` (B, F, d), VLM's ``"patch_embeds"``
+        (B, P, 1024), whose positions the mean leaves out); returns (xent +
         0.01 * aux, {"xent", "aux"}) as 0-d f32 tensors, aux being the MoE
         layers' load-balance loss (zero for the other families)."""
         enc = (self._encode_audio(params, batch["frames"])
@@ -373,7 +398,9 @@ class Model:
         """Ingest whole prompts ``batch["tokens"]`` (B, S); returns
         (last-position logits (B, 1, V) f32, the cache :meth:`decode_step`
         reads).  Dense and MoE: {k, v} of (L, B, S, Hkv, hd) with K roped
-        at positions 0..S-1.  Audio: the same, after encoding
+        at positions 0..S-1.  VLM: the same over the P patches of
+        ``batch["patch_embeds"]`` and the S tokens, (L, B, P + S, Hkv,
+        hd).  Audio: the same, after encoding
         ``batch["frames"]`` (B, F, d), and each layer's ``cross_k`` /
         ``cross_v`` (L, B, F, Hkv, hd).  Hybrid: the states after position
         S-1, and K/V of the last W = min(S, local_window) positions in
@@ -489,9 +516,10 @@ class Model:
         return c
 
     def init_cache(self, batch: int, context: int) -> dict:
-        """Zeroed decode cache.  Dense and MoE: {k, v} of (L, batch,
-        context, Hkv, hd).  Audio: those and {cross_k, cross_v} of (L,
-        batch, n_frames, Hkv, hd), for a prefill's to be copied in.  Ssm:
+        """Zeroed decode cache.  Dense, MoE and VLM: {k, v} of (L, batch,
+        context, Hkv, hd); VLM's context holds the patches too.  Audio:
+        those and {cross_k, cross_v} of (L, batch, n_frames, Hkv, hd), for
+        a prefill's to be copied in.  Ssm:
         {state (L, batch, H, hd, hd) f32, tm_prev, cm_prev (L, batch, d)},
         whatever the context.  Hybrid: the unit states, K/V rings of (n_units,
         batch, min(context, local_window), Hkv, hd), and the tail's
@@ -591,7 +619,8 @@ class Model:
         ``decode_kernel`` picks its attention route (see
         :func:`repro_torch.nn.blocks.attention_step`).  The hybrid's local
         attention writes slot pos % C of its ring and attends over the
-        whole ring, which holds the window.  Audio attends, unroped, to
+        whole ring, which holds the window.  VLM embeds the token only; its
+        ``pos`` counts the patches.  Audio attends, unroped, to
         every frame of the cross leaves, which it leaves as they are.  Ssm
         ignores ``pos``: each layer steps its state and mixes once.  Updates
         the cache IN PLACE; returns ((B, 1, V) f32 logits, the cache)."""

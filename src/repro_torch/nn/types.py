@@ -145,5 +145,6 @@ def list_configs() -> list:
 def _load_all():
     import importlib
     for mod in ["qwen2_0_5b", "arctic_480b", "qwen2_moe_a2_7b",
-                "recurrentgemma_9b", "rwkv6_3b", "whisper_base"]:
+                "recurrentgemma_9b", "rwkv6_3b", "whisper_base",
+                "llava_next_34b"]:
         importlib.import_module(f"repro_torch.configs.{mod}")

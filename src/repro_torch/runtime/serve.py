@@ -535,9 +535,10 @@ class ReferenceEngine:
     Prompts of a batch are left-padded with token 0 and the padding is not
     masked, as in the reference: a prompt shorter than its batch's longest
     attends to the padding.  Prefill gets ``{"tokens"}`` only, as in the
-    reference, so the audio family, which needs ``"frames"``, fails with
-    ``KeyError``.  Decode runs on the contiguous cache with one
-    shared position for the batch (``Model.decode_step`` with an int)."""
+    reference, so the audio family, which needs ``"frames"``, and the VLM
+    family, which needs ``"patch_embeds"``, fail with ``KeyError``.
+    Decode runs on the contiguous cache with one shared position for the
+    batch (``Model.decode_step`` with an int)."""
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
                  max_context: int = 512, eos_id: int = 0,

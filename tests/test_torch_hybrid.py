@@ -250,7 +250,7 @@ def test_hybrid_needs_a_card_unless_told():
 def test_unported_families_and_engines_raise(hyb):
     _, tcfg, _, _, _, tp = hyb
     with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(tcfg, family="vlm"), device="cpu")
+        Model(dataclasses.replace(tcfg, family="nope"), device="cpu")
     with pytest.raises(NotImplementedError):
         ServeEngine(tcfg, tp, device="cpu")
     m = Model(tcfg, device="cpu")

@@ -52,7 +52,8 @@ def test_port_files_exist():
                 "tune/dispatch.py", "tune/measurers.py",
                 "kernels/chain_scan.py", "configs/qwen2_moe_a2_7b.py",
                 "configs/arctic_480b.py", "configs/rwkv6_3b.py",
-                "kernels/wkv6.py", "configs/whisper_base.py"):
+                "kernels/wkv6.py", "configs/whisper_base.py",
+                "configs/llava_next_34b.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()

@@ -403,7 +403,8 @@ def test_params_counts_match_reference(name):
         assert mine.params_count() == ref.params_count()
         assert mine.active_params_count() == ref.active_params_count()
     if name in ("qwen2-0.5b", "qwen2-moe-a2.7b", "arctic-480b",
-                "recurrentgemma-9b", "rwkv6-3b", "whisper-base"):
+                "recurrentgemma-9b", "rwkv6-3b", "whisper-base",
+                "llava-next-34b"):
         assert get_config(name) == ArchConfig(**{
             f.name: getattr(jcfg, f.name)
             for f in dataclasses.fields(ArchConfig)})
