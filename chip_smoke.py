@@ -189,8 +189,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 10. the MoE family, after the hybrid's memory is freed: first the three
    attention-path kernels at its new shapes against their plain versions
    and timed (the K+V pair gather bit for bit and the split paged
-   attention at 16 / 16 and 56 / 8 heads of 128, flash at qwen2-moe's
-   loss and first ReferenceEngine prefill shapes under
+   attention, bf16 and f32, at 16 / 16 and 56 / 8 heads of 128, flash
+   at qwen2-moe's loss and first ReferenceEngine prefill shapes under
    ``bf16_disagreement``); then qwen2-moe-a2.7b at full width and depth
    (14,315,735,040 f32 parameters from seed 0, each leaf cast to bf16
    once): ``ServeEngine`` at the serving cell's settings on its 16
@@ -274,7 +274,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    int8-PoT tokens' share equal to bf16's and each loop's peak memory;
    the flash counter zeroed just before (c) and read just after (d): 16
    launches a forward and none a decode step; (e) a ``torch.profiler``
-   window over 16 bf16 decode steps.
+   window over 16 bf16 decode steps;
+14. the dense configs, after the VLM phase's memory is freed: (a) the
+   attention path's kernels at their head layouts, D = 128 -- the K+V
+   pair gather at 2, 8 and 20 KV heads bit for bit (its route printed)
+   and the split paged attention at G = 8, 2 and 1 (16 / 2, 16 / 8, 20 /
+   20) in bf16 (atol 2e-3 + rtol 1e-2) and f32 (``FLASH_F32_TOL``), its
+   split count and workspace printed, on the serving cell's 8 slots with
+   sentinel entries; flash at each config's (8, 1024) loss shape, causal,
+   under ``bf16_disagreement``; each timed beside the bound, the plain
+   version and the library call (``index_select`` x 2, SDPA); then
+   qwen2.5-3b, internlm2-1.8b and qwen1.5-4b in turn, each at full width
+   and depth (3,397,103,616, 1,889,110,016 and 3,950,369,280 f32
+   parameters from seed 0) and freed before the next: (b) ``ServeEngine``
+   in f32 on the fused and take/dense routes (8 requests, 2 new tokens:
+   equal greedy tokens, first decode logits within ``LOGIT_REL_TOL``);
+   for qwen2.5-3b the int8-PoT ``ReferenceEngine`` from the f32 masters;
+   one cast to bf16; (c) ``ServeEngine`` on the serving cell's settings and 16
+   requests: the fused route with the cuda gather, its counters zeroed
+   just before and read just after (one K+V pair a layer and prefill
+   dispatch, no one-leaf gather, one attention and one combine launch a
+   layer and decode step), then, for qwen2.5-3b, take/dense (first
+   decode logits within ``LOGIT_REL_TOL``), cuda/dense (tokens and logits
+   identical to take/dense's) and a ``torch.profiler`` window over 8
+   fused decode steps; (d) ``ReferenceEngine`` (4 rows x 2048, the
+   hybrid's 8 prompts) in bf16 (and int8-PoT for qwen2.5-3b), one flash
+   launch a layer and prefill batch, and one 8 x 1024 bf16 ``Model.loss``
+   (xent near ln V + s2/2, one flash launch a layer: 36, 24, 40); (e) the
+   serve launcher,
+   ``--quantized --kv-gather cuda --decode-kernel fused`` on the serving
+   cell's settings and 16 prompts of 256 tokens, every request done and
+   both paged kernels launched.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -286,6 +316,7 @@ import collections
 import contextlib
 import gc
 import importlib
+import io
 import json
 import os
 import re
@@ -407,6 +438,27 @@ VLM_PROFILE_STEPS = 16
 # large share of their scale.
 VLM_DECODE_PROMPT = 64
 VLM_DECODE_REL = 2e-3          # x max |logit|
+# The dense path: the reference's last three dense configs at full width
+# and depth, random weights from seed 0, each alone on the card and freed
+# before the next: qwen2.5-3b (36 layers, d_model 2048, 16 / 2 heads of
+# 128, d_ff 11008, vocab 151936, QKV bias, rope theta 1e6),
+# internlm2-1.8b (24 layers, 2048, 16 / 8 heads, d_ff 8192, vocab 92544)
+# and qwen1.5-4b (40 layers, 2560, 20 / 20 heads, d_ff 6912, vocab 151936,
+# QKV bias).  The serving cell's engine and 16 requests, the hybrid
+# cell's ReferenceEngine batch and prompts, one 8 x 1024 loss and the
+# serve launcher.  Nothing is cut: the largest, qwen1.5-4b, is 14.72 GiB
+# of f32 masters.
+DENSE_ARCHS = ("qwen2.5-3b", "internlm2-1.8b", "qwen1.5-4b")
+DENSE_PARAMS = {"qwen2.5-3b": 3_397_103_616,   # the reference's leaves
+                "internlm2-1.8b": 1_889_110_016,
+                "qwen1.5-4b": 3_950_369_280}
+DENSE_LOSS_BATCH, DENSE_LOSS_SEQ = 8, 1024
+DENSE_PROFILE_STEPS = 8
+DENSE_LAUNCHER = ["--quantized", "--kv-block-size", "32", "--kv-gather",
+                  "cuda", "--decode-kernel", "fused", "--batch", "8",
+                  "--context", "1024", "--prefill-chunk", "128",
+                  "--prefill-batch", "4", "--requests", "16", "--prompt-len",
+                  "256", "--max-new", "32"]
 # wkv6's y against the plain version: the kernel adds sum_i r_i s_ij with
 # FMAs over each lane's rows, then across lanes, then v_j a_t, the plain
 # einsum as a batched product does; each is within a few ulps of the
@@ -2836,20 +2888,21 @@ def hybrid_phase(torch):
     return launches
 
 
-def moe_kernel_readings(torch):
-    """The attention path's kernels at the MoE cells' shapes, new to the
-    card: the K+V pair gather and the split paged attention at qwen2-moe's
-    16 / 16 heads of 128 and arctic's 56 / 8 (G = 7), the serving cell's
-    8 slots of mixed lengths in 32-token blocks, and flash at qwen2-moe's
-    loss shape and first ReferenceEngine prefill batch, 16 / 16 heads of
-    128.  Each against its plain version (the gather bit for bit), then
-    timed beside the bound, the plain version and the library call."""
-    from repro_torch.kernels.flash_attention import (
-        BF16_SHARE, KEY_TILE, bf16_disagreement, flash_attention_kernel,
-        flash_attention_plain)
+def paged_readings(torch, layouts):
+    """The K+V pair gather and the split paged attention at each
+    ``(label, Hq, Hkv)`` of ``layouts``, heads of 128, on the serving
+    cell's 8 slots of mixed lengths in 32-token blocks with sentinel
+    entries: the gather bit for bit against its plain version (its route
+    printed), the attention in bf16 (atol ``ATTN_ATOL`` + rtol
+    ``ATTN_RTOL``) and f32 (``FLASH_F32_TOL``), its split count and
+    workspace printed; each timed in bf16 over 24 layers' pools beside the
+    bound, the plain version and the library call (``index_select`` x 2
+    for the gather).  Returns {"paged_gather": {label: reading},
+    "paged_attention": {label: reading}}."""
     from repro_torch.kernels.paged_attention import (paged_attention_kernel,
                                                      paged_attention_plain,
-                                                     splits)
+                                                     splits,
+                                                     workspace_bytes)
     from repro_torch.kernels.paged_gather import (paged_gather_pair_kernel,
                                                   paged_gather_plain)
     rng = np.random.default_rng(0)
@@ -2869,8 +2922,8 @@ def moe_kernel_readings(torch):
     flat = g_cl.reshape(-1)
     uniq = int(torch.unique(g_cl).numel())
     tokens = int(lens.sum())
-    out = {"paged_gather": {}, "paged_attention": {}, "flash_attention": {}}
-    for arch, Hq, Hkv in ((MOE_ARCH, 16, 16), (ARCTIC_ARCH, 56, 8)):
+    out = {"paged_gather": {}, "paged_attention": {}}
+    for label, Hq, Hkv in layouts:
         kpool = torch.randn((L, NB, bs, Hkv, D), generator=gen,
                             device="cuda", dtype=dt)
         vpool = torch.randn((L, NB, bs, Hkv, D), generator=gen,
@@ -2880,7 +2933,11 @@ def moe_kernel_readings(torch):
         gk, gv = paged_gather_pair_kernel(kpool[0], vpool[0], g_tbl)
         check(torch.equal(gk, paged_gather_plain(kpool[0], g_cl))
               and torch.equal(gv, paged_gather_plain(vpool[0], g_cl)),
-              f"paged_gather pair kernel != plain version at {arch}'s heads")
+              f"paged_gather pair kernel != plain version at {label}'s heads")
+        block_bytes = bs * Hkv * D * 2
+        route = "bulk" if block_bytes % 16 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (kpool[0], vpool[0], gk, gv)) \
+            else "vector"
         pair_sets = [(kpool[i], vpool[i], g_tbl) for i in range(L)]
         ms, eager_ms = time_calls(torch, paged_gather_pair_kernel, pair_sets,
                                   10)
@@ -2889,25 +2946,31 @@ def moe_kernel_readings(torch):
             pair_sets, 5)
         lib_ms, _ = time_calls(torch, lambda k, v, t: (
             k.index_select(0, flat), v.index_select(0, flat)), pair_sets, 10)
-        block_bytes = bs * Hkv * D * 2
         pair_bytes = 2 * (uniq + P * nb) * block_bytes + P * nb * 8
-        out["paged_gather"][arch] = {
+        out["paged_gather"][label] = {
             "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
             "bound_ms": pair_bytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": lib_ms, "max_abs_err": 0.0,
+            "route": route,
             "shape": f"pools ({NB},{bs},{Hkv},{D}) bf16, K and V, table "
-                     f"({P},{nb}) int64 with sentinels"}
+                     f"({P},{nb}) int64 with sentinels; route {route}, a "
+                     f"block pair {2 * block_bytes:,} bytes"}
 
         S, c = splits(B, Hkv, nb)
-        got = paged_attention_kernel(q, kpool[0], vpool[0], tbl_c, clen)
-        want = paged_attention_plain(q, kpool[0], vpool[0], table, clen)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        check(bool(torch.isfinite(got).all())
-              and torch.allclose(got.float(), want.float(), atol=ATTN_ATOL,
-                                 rtol=ATTN_RTOL),
-              f"paged_attention kernel vs plain at {arch}'s heads: max abs "
-              f"err {err}")
+        errs = {}
+        for adt, atol, rtol in ((dt, ATTN_ATOL, ATTN_RTOL),
+                                (torch.float32, FLASH_F32_TOL, 0.0)):
+            qa, ka, va = (t.to(adt) for t in (q, kpool[0], vpool[0]))
+            got = paged_attention_kernel(qa, ka, va, tbl_c, clen)
+            want = paged_attention_plain(qa, ka, va, table, clen)
+            torch.cuda.synchronize()
+            errs[adt] = err = (got.float() - want.float()).abs().max().item()
+            check(bool(torch.isfinite(got).all())
+                  and torch.allclose(got.float(), want.float(), atol=atol,
+                                     rtol=rtol),
+                  f"paged_attention kernel vs plain at {label}'s heads, "
+                  f"{adt}: max abs err {err}")
+            del qa, ka, va, got, want
         sets = [(q, kpool[i], vpool[i], tbl_c, clen) for i in range(L)]
         ms, eager_ms = time_calls(torch, paged_attention_kernel, sets, 10)
         plain_ms, _ = time_calls(torch, paged_attention_plain, sets, 1)
@@ -2915,54 +2978,47 @@ def moe_kernel_readings(torch):
                    + table.numel() * 4 + clen.numel() * 4)
         a_flops = 4 * Hq * D * tokens
         t_b, t_o = a_bytes / HBM_BYTES_PER_S, a_flops / BF16_FLOPS
-        out["paged_attention"][arch] = {
+        ws = workspace_bytes(B, Hq, D, S) if S > 1 else 0
+        out["paged_attention"][label] = {
             "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": None, "max_abs_err": err, "splits": [S, c],
-            "shape": f"q ({B},1,{Hq},{D}) bf16, pools ({NB},{bs},{Hkv},"
-                     f"{D}), lengths {lens.tolist()}"}
-        del kpool, vpool, pair_sets, sets
-
-    chunked = dict(causal=True, bk=KEY_TILE, offset=0)
-
-    def qkv(shape, dtype):
-        B_, Sq, Skv, Hq_, Hkv_, D_ = shape
-        return [torch.randn(s, generator=gen, device="cuda", dtype=dtype)
-                for s in ((B_, Sq, Hq_, D_), (B_, Skv, Hkv_, D_),
-                          (B_, Skv, Hkv_, D_))]
-
-    S_pre = hybrid_prefill_len()
-    for name, shape, reps in (
-            ("loss", (MOE_LOSS_BATCH, MOE_LOSS_SEQ, MOE_LOSS_SEQ, 16, 16, D),
-             3),
-            (f"prefill S={S_pre}", (HYB_BATCH, S_pre, S_pre, 16, 16, D), 2)):
-        q, k, v = qkv(shape, dt)
-        got = flash_attention_kernel(q, k, v, **chunked)
-        want = flash_attention_plain(q, k, v, **chunked)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ratio, share = bf16_disagreement(got, want)
-        check(ratio <= 1 and share <= BF16_SHARE
-              and bool(torch.isfinite(got).all()),
-              f"flash_attention vs plain at qwen2-moe's {name} shape: "
-              f"largest err / limit {ratio}, share {share}")
-        del q, k, v, got, want
-        r = flash_timing(torch, qkv, shape, chunked, reps, dt)
-        r.update(max_abs_err=err, bf16_ratio=ratio, bf16_share=share,
-                 shape=f"q ({shape[0]},{shape[1]},16,{D}), k/v "
-                       f"({shape[0]},{shape[2]},16,{D}) bf16 causal")
-        out["flash_attention"][f"{MOE_ARCH} {name}"] = r
+            "library_ms": None, "max_abs_err": errs[dt],
+            "f32_max_abs_err": errs[torch.float32], "splits": [S, c],
+            "workspace_bytes": ws,
+            "shape": f"q ({B},1,{Hq},{D}) bf16 (G = {Hq // Hkv}), pools "
+                     f"({NB},{bs},{Hkv},{D}), lengths {lens.tolist()}; "
+                     f"{S} splits of {c} blocks, workspace {ws:,} bytes"}
+        del kpool, vpool, pair_sets, sets, q, gk, gv
+        gc.collect()
+        torch.cuda.empty_cache()
     for kname, rows in out.items():
-        for shape_name, r in rows.items():
+        for label, r in rows.items():
             lib = "none" if r["library_ms"] is None \
                 else f"{r['library_ms']*1e3:.2f} us"
-            print(f"{kname} at {shape_name} ({r['shape']}): "
-                  f"{r['ms']*1e3:.2f} us on the card ({r['eager_ms']*1e3:.2f}"
-                  f" us per eager call), plain {r['plain_ms']*1e3:.2f} us, "
-                  f"bound {r['bound_ms']*1e3:.3f} us ({r['bound_by']}), "
-                  f"library {lib}; max abs err {r['max_abs_err']:.3e} "
-                  f"[{CARD}]")
+            f32 = f", f32 {r['f32_max_abs_err']:.3e}" \
+                if "f32_max_abs_err" in r else ""
+            print(f"{kname} at {label} ({r['shape']}): {r['ms']*1e3:.2f} us "
+                  f"on the card ({r['eager_ms']*1e3:.2f} us per eager call), "
+                  f"plain {r['plain_ms']*1e3:.2f} us, bound "
+                  f"{r['bound_ms']*1e3:.3f} us ({r['bound_by']}), library "
+                  f"{lib}; max abs err {r['max_abs_err']:.3e}{f32} [{CARD}]")
+    return out
+
+
+def moe_kernel_readings(torch):
+    """The attention path's kernels at the MoE cells' shapes, new to the
+    card: the K+V pair gather and the split paged attention at qwen2-moe's
+    16 / 16 heads of 128 and arctic's 56 / 8 (G = 7) (``paged_readings``),
+    and flash at qwen2-moe's loss shape and first ReferenceEngine prefill
+    batch, 16 / 16 heads of 128 (``flash_readings``)."""
+    out = paged_readings(torch, ((MOE_ARCH, 16, 16), (ARCTIC_ARCH, 56, 8)))
+    S_pre = hybrid_prefill_len()
+    out["flash_attention"] = flash_readings(torch, MOE_ARCH, [
+        ("loss", (MOE_LOSS_BATCH, MOE_LOSS_SEQ, MOE_LOSS_SEQ, 16, 16, 128),
+         True, (torch.bfloat16,)),
+        (f"prefill S={S_pre}", (HYB_BATCH, S_pre, S_pre, 16, 16, 128), True,
+         (torch.bfloat16,))])
     return out
 
 
@@ -2974,6 +3030,14 @@ def cast_tree(tree, dtype):
             cast_tree(val, dtype)
         else:
             tree[key] = val.to(dtype)
+
+
+def step_to_decode(eng):
+    """Step ``eng`` until every submitted request is admitted and past its
+    prefill, so that the steps after it are decode steps only."""
+    while eng.queue or any(st.phase == "prefill"
+                           for st in eng.slots.values()):
+        eng.step()
 
 
 def paged_counters():
@@ -3055,9 +3119,9 @@ def moe_routes_f32(torch, cfg, params, spec, label, *, quantized=False):
     """The fused and the take/dense route of ``ServeEngine`` in f32 on
     the f32 masters (dequantized to f32 with ``quantized``), on ``spec``'s
     first 8 requests cut to 2 new tokens: their first decode logits within
-    ``LOGIT_REL_TOL`` x max |logit|.  In f32 the two routes' attention
-    outputs differ by ~1e-7 and no expert choice flips; in bf16 the
-    routes' one-ulp differences at layer 0 grow through the layers
+    ``LOGIT_REL_TOL`` x max |logit| and their greedy tokens equal.  In f32 the two routes' attention outputs differ by
+    ~1e-7 and no expert choice flips; in bf16 the routes' one-ulp
+    differences at layer 0 grow through the layers
     (``experiments/moe_route_divergence.py``), so this is the check that
     the routes compute the same function at full width."""
     import dataclasses
@@ -3087,6 +3151,7 @@ def moe_routes_f32(torch, cfg, params, spec, label, *, quantized=False):
           f"max); greedy tokens {'identical' if t_f == t_d else 'differ'}")
     check(diff <= LOGIT_REL_TOL * scale,
           f"{label} f32: fused and dense first-decode logits disagree")
+    check(t_f == t_d, f"{label} f32: fused and dense greedy tokens differ")
 
 
 def moe_routes(torch, cfg, params, spec, label, *, quantized=False,
@@ -3299,8 +3364,7 @@ def moe_phase(torch):
     profile_phase(torch, eng, spec)
     for i, (p, _) in enumerate(spec[:8]):       # the host's share of a step
         eng.submit(Request(rid=200 + i, prompt=p.copy(), max_new_tokens=16))
-    while any(st.phase == "prefill" for st in eng.slots.values()):
-        eng.step()
+    step_to_decode(eng)
     host_top(torch, lambda: [eng.step() for _ in range(4)], 15)
     while eng.queue or eng.slots:
         eng.step()
@@ -4296,6 +4360,322 @@ def vlm_phase(torch):
     return {"flash_attention": launches}
 
 
+def dense_kernel_readings(torch):
+    """The attention path's kernels at the dense configs' head layouts,
+    new to the card at D = 128: the K+V pair gather at 2, 8 and 20 KV
+    heads and the split paged attention at G = 8, 2 and 1 (16 / 2, 16 /
+    8, 20 / 20; ``paged_readings``), and flash at each config's (8, 1024)
+    loss shape, causal (``flash_readings``)."""
+    from repro_torch.nn import get_config
+    cfgs = [get_config(arch) for arch in DENSE_ARCHS]
+    for cfg in cfgs:
+        check(cfg.head_dim_ == 128, f"{cfg.name}: head_dim {cfg.head_dim_}")
+    out = paged_readings(torch, [(c.name, c.n_heads, c.n_kv_heads)
+                                 for c in cfgs])
+    out["flash_attention"] = {}
+    for c in cfgs:
+        out["flash_attention"].update(flash_readings(torch, c.name, [
+            ("loss", (DENSE_LOSS_BATCH, DENSE_LOSS_SEQ, DENSE_LOSS_SEQ,
+                      c.n_heads, c.n_kv_heads, 128), True,
+             (torch.bfloat16,))]))
+    return out
+
+
+def dense_routes(torch, cfg, params, spec, label, *, compare=True,
+                 profile_steps=0):
+    """The serving cell's ``ServeEngine`` on bf16 weights: the fused route
+    (``kv_gather="cuda"``, ``decode_kernel="fused"``) with the paged
+    counters zeroed just before and read just after (``check_fused_run``),
+    with ``profile_steps`` a ``torch.profiler`` window over that many
+    decode steps of a fresh batch on its engine; then, with ``compare``,
+    take/dense (first decode logits within ``LOGIT_REL_TOL`` x max |logit|
+    of the fused route's) and cuda/dense (tokens and logits identical to
+    take/dense's).  Returns the fused run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.serve import Request, ServeEngine
+    routes = {"fused": dict(kv_gather="cuda", decode_kernel="fused"),
+              "take/dense": dict(kv_gather="take", decode_kernel="dense"),
+              "cuda/dense": dict(kv_gather="cuda", decode_kernel="dense")}
+    if not compare:
+        del routes["take/dense"], routes["cuda/dense"]
+
+    def build(name):
+        return ServeEngine(cfg, params, eos_id=-1, device="cuda",
+                           **MOE_SERVE, **routes[name])
+
+    run_engine(torch, build("fused"), [(p, 2) for p, _ in spec[:2]], False)
+    weight_bytes = 2 * _numel(params)
+    runs = {}
+    for name in routes:
+        eng = build(name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "fused":
+            zero_paged_counters()
+        reqs, summ, wall, lg = run_engine(torch, eng, spec, True)
+        if name == "fused":
+            launches = check_fused_run(torch, label, cfg, eng, reqs, lg)
+        peak = torch.cuda.max_memory_allocated()
+        s = eng.stats
+        step_ms = 1e3 * s["decode_s"] / max(1, s["decode_steps"])
+        runs[name] = (reqs, lg)
+        print(f"{label} {name}: {len(reqs)} requests in {wall:.3f} s; "
+              f"prefill {s['prefill_tokens']} tok in {s['prefill_s']:.3f} s "
+              f"({s['prefill_dispatches']} dispatches); decode "
+              f"{s['decode_tokens']} tok in {s['decode_s']:.3f} s "
+              f"({s['decode_steps']} steps, {summ['decode_tok_s']:.1f} tok/s, "
+              f"{step_ms:.3f} ms a step against {weight_bytes / 1e9:.2f} GB "
+              f"of bf16 weights, "
+              f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the memory "
+              f"rate); first token p50 {summ['p50_first_token_s']*1e3:.1f} "
+              f"ms p99 {summ['p99_first_token_s']*1e3:.1f} ms; total p50 "
+              f"{summ['p50_total_s']*1e3:.1f} ms p99 "
+              f"{summ['p99_total_s']*1e3:.1f} ms; peak memory "
+              f"{peak/2**30:.3f} GiB [{CARD}]")
+        if name == "fused":
+            print(f"{label} launches on the fused run: {launches}; combine "
+                  f"{paged_counters()['combine']}")
+        if name == "fused" and profile_steps:
+            for i, (p, _) in enumerate(spec[:8]):
+                eng.submit(Request(rid=200 + i, prompt=p.copy(),
+                                   max_new_tokens=profile_steps + 4))
+            step_to_decode(eng)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(profile_steps):
+                    eng.step()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy, by_name = report_profile(
+                prof, wall_us, f"{label}: {profile_steps} fused decode steps "
+                               f"of 8 slots", 10)
+            t = sum(v[0] for k, v in by_name.items()
+                    if "paged_attention" in k)
+            step_us = wall_us / profile_steps
+            print(f"  paged_attention: {t/1e3:.3f} ms of {busy/1e3:.3f} ms "
+                  f"busy ({100*t/busy:.2f} %); a step {step_us/1e3:.3f} ms "
+                  f"under the profiler, {busy/1e3/profile_steps:.3f} ms busy "
+                  f"[{CARD}]")
+            while eng.queue or eng.slots:
+                eng.step()
+        del eng
+    if not compare:
+        return launches
+    (f_reqs, lg_f), (d_reqs, lg_d) = runs["fused"], runs["take/dense"]
+    same = np.mean([a == b for r, q in zip(f_reqs, d_reqs)
+                    for a, b in zip(r.out_tokens, q.out_tokens)])
+    diff = (lg_f - lg_d).abs().max().item()
+    scale = lg_d.abs().max().item()
+    print(f"{label}: take/dense against fused: identical greedy tokens "
+          f"{same*100:.2f} %; first decode logits max abs diff {diff:.4e}, "
+          f"{diff / scale:.4f} x max |logit| ({scale:.4e}; tolerance "
+          f"{LOGIT_REL_TOL})")
+    check(diff <= LOGIT_REL_TOL * scale,
+          f"{label}: fused and dense first-decode logits disagree")
+    c_reqs, lg_c = runs["cuda/dense"]
+    check(all(r.out_tokens == q.out_tokens for r, q in zip(c_reqs, d_reqs))
+          and torch.equal(lg_c, lg_d),
+          f"{label}: the cuda gather changed the dense route's tokens or "
+          f"logits")
+    print(f"{label}: cuda/dense tokens and first decode logits identical to "
+          f"take/dense")
+    return launches
+
+
+def dense_reference(torch, cfg, params, qeng, label):
+    """``ReferenceEngine`` (4 rows x 2048, the hybrid cell's 8 prompts, 32
+    new tokens) on the bf16 weights, then the int8-PoT engine ``qeng``
+    (unless None) on the same prompts; one flash launch a layer and
+    prefill batch each.  Returns the flash launches."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.runtime.serve import ReferenceEngine, Request
+    prompts = hybrid_prompts(cfg.vocab)
+    n_batches = -(-len(prompts) // HYB_BATCH)
+    eng = ReferenceEngine(cfg, params, max_batch=HYB_BATCH,
+                          max_context=HYB_CONTEXT, eos_id=-1, device="cuda")
+    outs, total = {}, 0
+    for name, e in (("bf16", eng), ("int8-PoT", qeng)):
+        if e is None:
+            continue
+        reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=HYB_NEW)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_kernel.launches = 0
+        t0 = time.perf_counter()
+        e.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_flash = flash_attention_kernel.launches
+        total += n_flash
+        check(all(r.status == "done" and len(r.out_tokens) == HYB_NEW
+                  for r in reqs), f"{label} {name} ReferenceEngine: a "
+              f"request did not finish its tokens")
+        out = outs[name] = np.array([r.out_tokens for r in reqs])
+        check(out.min() >= 0 and out.max() < cfg.vocab, "token out of range")
+        check(n_flash == n_batches * cfg.n_layers,
+              f"{label} {name} ReferenceEngine: {n_flash} flash launches for "
+              f"{n_batches} prefill calls x {cfg.n_layers} layers")
+        s = e.stats
+        same = "" if name == "bf16" else (
+            f"; {100 * float((out == outs['bf16']).mean()):.2f} % of greedy "
+            f"tokens equal to bf16's")
+        print(f"{label} {name} ReferenceEngine ({HYB_BATCH} rows x "
+              f"{HYB_CONTEXT}): {len(reqs)} requests in {wall:.3f} s, "
+              f"{n_batches} batches; prefill {s['prefill_tokens']} tok in "
+              f"{s['prefill_s']:.3f} s; decode {s['decode_tokens']} tok in "
+              f"{s['decode_s']:.3f} s ({s['decode_tokens']/s['decode_s']:.1f}"
+              f" tok/s); peak memory "
+              f"{torch.cuda.max_memory_allocated()/2**30:.3f} GiB; flash "
+              f"launches {n_flash}{same} [{CARD}]")
+    return total
+
+
+def dense_loss(torch, cfg, params, label):
+    """One bf16 ``Model.loss`` on an 8 x 1024 ``TokenPipeline`` batch:
+    xent within 0.2 of ln V + s2/2 and one flash launch a layer.  Returns
+    the flash launches."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.nn import Model
+    m = Model(cfg, device="cuda")
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=DENSE_LOSS_SEQ,
+                          global_batch=DENSE_LOSS_BATCH, seed=0).batch(0)
+    m.loss(params, {k: v[:, :64] for k, v in batch.items()})   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    loss, mets = m.loss(params, batch)
+    xent = float(mets["xent"])
+    loss_s = time.perf_counter() - t0
+    n_flash = flash_attention_kernel.launches
+    # lm_head ~ N(0, 0.02^2) on unit-rms rows: logits ~ N(0, s2) and the
+    # expected cross-entropy is ln V + s2 / 2
+    s2 = 0.02 ** 2 * cfg.d_model
+    expect = float(np.log(cfg.vocab)) + s2 / 2
+    print(f"{label} bf16 Model.loss ({DENSE_LOSS_BATCH} x {DENSE_LOSS_SEQ}): "
+          f"xent {xent!r} (expected ln V + s2/2 = {expect:.4f}); "
+          f"{loss_s:.3f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated()/2**30:.3f} GiB; flash "
+          f"launches {n_flash} [{CARD}]")
+    check(np.isfinite(float(loss)) and abs(xent - expect) <= 0.2,
+          f"{label} loss: xent {xent} far from {expect}")
+    check(n_flash == cfg.n_layers,
+          f"{label} loss: {n_flash} flash launches, not one a layer")
+    return n_flash
+
+
+def dense_launcher(torch, arch):
+    """``repro_torch.launch.serve.main`` at ``--arch <arch>`` with the
+    serving cell's settings, int8-PoT, fused decode and the cuda gather:
+    its summary lines printed, every request done, both paged kernels
+    launched.  Returns their launches."""
+    from repro_torch.launch import serve as launch_serve
+    zero_paged_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        launch_serve.main(["--arch", arch] + DENSE_LAUNCHER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    n = paged_counters()
+    for line in text.splitlines():
+        print(f"  launcher {arch}: {line}")
+    print(f"  launcher {arch}: {wall:.2f} s with init and quantization; "
+          f"launches {n} [{CARD}]")
+    check("served 16 requests" in text and "done=16 rejected=0 expired=0"
+          in text, f"the launcher did not serve every {arch} request")
+    check(n["pairs"] > 0 and n["one_leaf"] == 0 and n["attention"] > 0
+          and n["combine"] == n["attention"],
+          f"the {arch} launcher's paged launches: {n}")
+    return {"paged_gather": n["pairs"], "paged_attention": n["attention"]}
+
+
+def dense_phase(torch):
+    """The dense configs on the card, each at full width and depth with
+    random weights from seed 0, alone and freed before the next: (b) init
+    (the reference's leaf count), ``ServeEngine`` in f32 on the fused and
+    take/dense routes (equal greedy tokens), the int8-PoT
+    ``ReferenceEngine`` from the f32 masters, one cast to bf16; (c)
+    ``ServeEngine`` in bf16 on three routes (``dense_routes``); (d)
+    ``ReferenceEngine`` bf16 and int8-PoT and one ``Model.loss``; (e) the
+    serve launcher.  The bf16 route comparisons, the profiled window and
+    the int8-PoT ``ReferenceEngine`` run on qwen2.5-3b alone (G = 8, the
+    layout new to the tensor-core route), to keep the run's time; the
+    other two run the fused route with its counts, ``ReferenceEngine``,
+    the loss and the launcher.  Returns the path's launches."""
+    from repro_torch.nn import Model, get_config
+    from repro_torch.runtime.serve import ReferenceEngine
+    launches = {"paged_gather": 0, "paged_attention": 0,
+                "flash_attention": 0}
+
+    def add(n):
+        for k, v in n.items():
+            launches[k] += v
+
+    for i, arch in enumerate(DENSE_ARCHS):
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = Model(cfg, device="cuda").init(0)
+        torch.cuda.synchronize()
+        n = _numel(params)
+        print(f"{arch} params: {n:,} (f32 masters {n * 4 / 2**30:.2f} GiB, "
+              f"init {time.perf_counter() - t0:.2f} s); params_count() "
+              f"{cfg.params_count():,}; {cfg.n_layers} layers, heads "
+              f"{cfg.n_heads} / {cfg.n_kv_heads} of {cfg.head_dim_}, "
+              f"rope theta {cfg.rope_theta:g}, QKV bias {cfg.qkv_bias} "
+              f"[{CARD}]")
+        check(n == DENSE_PARAMS[arch],
+              f"{arch}: {n} parameters, the reference has "
+              f"{DENSE_PARAMS[arch]}")
+        spec = serving_spec(cfg.vocab)
+        moe_routes_f32(torch, cfg, params, spec, arch)
+        qeng = None
+        if i == 0:
+            t0 = time.perf_counter()
+            qeng = ReferenceEngine(cfg, params, quantized=True,
+                                   max_batch=HYB_BATCH,
+                                   max_context=HYB_CONTEXT, eos_id=-1,
+                                   device="cuda")
+            torch.cuda.synchronize()
+            sheet = qeng.serving_sheet
+            print(f"{arch} int8-PoT ReferenceEngine built from the f32 "
+                  f"masters in {time.perf_counter() - t0:.2f} s; serving "
+                  f"ledger: {len(sheet)} quantized leaves, weight bytes "
+                  f"{sheet.weight_bytes():,.0f}, unquantized "
+                  f"{sheet.extra_bytes:,.0f}, total "
+                  f"{sheet.total_bytes():,.0f} B")
+        t0 = time.perf_counter()
+        cast_tree(params, torch.bfloat16)
+        torch.cuda.synchronize()
+        print(f"{arch}: bf16 {n * 2 / 2**30:.2f} GiB after one cast, "
+              f"{time.perf_counter() - t0:.2f} s, peak so far "
+              f"{torch.cuda.max_memory_allocated()/2**30:.3f} GiB")
+        add(dense_routes(torch, cfg, params, spec, f"{arch} bf16",
+                         compare=i == 0,
+                         profile_steps=DENSE_PROFILE_STEPS if i == 0 else 0))
+        launches["flash_attention"] += dense_reference(torch, cfg, params,
+                                                       qeng, arch)
+        launches["flash_attention"] += dense_loss(torch, cfg, params, arch)
+        del qeng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        add(dense_launcher(torch, arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{arch}: {time.perf_counter() - t_arch:.2f} s")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the dense path was not launched: {launches}")
+    print(f"launches on the dense path: {launches}")
+    return launches
+
+
 def main() -> int:
     global CARD
     import torch
@@ -4395,6 +4775,12 @@ def main() -> int:
     vlm_readings = vlm_kernel_readings(torch)
     vlm_launches = vlm_phase(torch)
     print(f"vlm phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dense_readings = dense_kernel_readings(torch)
+    dense_launches = dense_phase(torch)
+    print(f"dense phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
@@ -4403,7 +4789,7 @@ def main() -> int:
                "mixed": mixed_launches, "hybrid": hybrid_launches,
                "moe": moe_launches, "rwkv": rwkv_launches,
                "audio": audio_launches, "vlm": vlm_launches,
-               "op": {"qmatmul": qm_launches}}
+               "dense": dense_launches, "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
     for name, n in explore_launches.items():
@@ -4415,6 +4801,8 @@ def main() -> int:
     for name, n in audio_launches.items():
         launches[name] += n
     for name, n in vlm_launches.items():
+        launches[name] += n
+    for name, n in dense_launches.items():
         launches[name] += n
     launches["qmatmul"] = qm_launches
     launches["wkv6"] = rwkv_launches["wkv6"]
@@ -4430,6 +4818,8 @@ def main() -> int:
                                  if k["name"] in v}
         if k["name"] in moe_readings:
             k["moe_shapes"] = moe_readings[k["name"]]
+        if k["name"] in dense_readings:
+            k["dense_shapes"] = dense_readings[k["name"]]
         if k["name"] == "flash_attention":
             k["audio_shapes"] = audio_readings
             k["vlm_shapes"] = vlm_readings

@@ -1,0 +1,1 @@
+from . import pendigits  # noqa: F401

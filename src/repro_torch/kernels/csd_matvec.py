@@ -52,6 +52,8 @@ from . import build
 __all__ = ["csd_matvec_plain", "csd_qsweep_plain", "csd_matvec_kernel",
            "csd_qsweep_kernel", "route", "ROUTES", "route_matvec",
            "MATVEC_ROUTES"]
+# ``csd_matvec``, the reference's module-level name, is the dispatching op
+# of ``ops.py``, which binds it into this module.
 
 _MASK32 = 0xFFFFFFFF
 _MAX_DEPTH = 64      # int64 weights have at most 62 CSD digits

@@ -61,6 +61,8 @@ from . import build
 
 __all__ = ["NEG_INF", "KEY_TILE", "flash_attention_plain",
            "flash_attention_kernel", "bf16_disagreement"]
+# ``flash_attention``, the reference's module-level name, is the dispatching op
+# of ``ops.py``, which binds it into this module.
 
 NEG_INF = -1e30
 KEY_TILE = 64      # keys per online-softmax step of the bf16 kernel (kKT),

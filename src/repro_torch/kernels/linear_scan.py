@@ -42,8 +42,10 @@ import torch
 
 from . import build
 
-__all__ = ["linear_scan_plain", "linear_scan_kernel", "route",
-           "bulk_aligned", "ROUTES", "STEP_MAX_S"]
+__all__ = ["linear_scan_plain", "linear_scan_ref", "linear_scan_kernel",
+           "route", "bulk_aligned", "ROUTES", "STEP_MAX_S"]
+# ``linear_scan``, the reference's module-level name, is the dispatching op
+# of ``ops.py``, which binds it into this module.
 
 ROUTES = ("ring", "step", "tiled")   # the C entry's route ids
 STEP_MAX_S = 16          # the longest scan the step route walks
@@ -58,6 +60,21 @@ def linear_scan_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     h = torch.zeros((B, W), dtype=torch.float32, device=a.device)
     for t in range(S):
         h = a32[:, t] * h + x32[:, t]
+        out[:, t] = h
+    return out
+
+
+def linear_scan_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The reference's oracle: its ``lax.scan`` step ``a_t * h + x_t``,
+    which XLA's CPU compiler fuses into one multiply-add.  The product of
+    two f32 values is exact in f64, so the step is the f64 sum rounded to
+    f32 (bit for bit the reference's at its tests' shapes)."""
+    a64, x64 = a.double(), x.double()
+    B, S, W = a64.shape
+    out = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
+    h = torch.zeros((B, W), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = (a64[:, t] * h.double() + x64[:, t]).float()
         out[:, t] = h
     return out
 

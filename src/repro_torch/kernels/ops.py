@@ -7,6 +7,8 @@ the kernel's plain PyTorch version only for tensors on the CPU.
 """
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -75,25 +77,34 @@ def _plain_or_raise(t: torch.Tensor, what: str) -> None:
         raise RuntimeError(f"{what}: no kernel for device {t.device}")
 
 
-def qmatmul(x_i8: torch.Tensor, w_i8: torch.Tensor,
-            exp_i32: torch.Tensor) -> torch.Tensor:
-    """int8 power-of-two matmul: y = (x @ w) * 2^-exp, (M, N) f32, with an
-    int32 accumulator and the exact scale ``exp2_int(-exp)``.  x (M, K)
-    and w (K, N) int8 (``quantize_pot(w, axis=0)``), exp (N,) int32.  The
-    kernel takes any M, K and N, so nothing is padded."""
+def qmatmul(x_i8: torch.Tensor, w_i8: torch.Tensor, exp_i32: torch.Tensor,
+            *, out_dtype: torch.dtype = torch.float32, bm=None, bn=None,
+            bk=None, interpret=None) -> torch.Tensor:
+    """int8 power-of-two matmul: y = (x @ w) * 2^-exp, (M, N)
+    ``out_dtype`` (f32 or bf16), with an int32 accumulator and the exact
+    scale ``exp2_int(-exp)``.  x (M, K) and w (K, N) int8
+    (``quantize_pot(w, axis=0)``), exp (N,) int32.  The kernel takes any
+    M, K and N, so nothing is padded.  ``bm``, ``bn``, ``bk`` and
+    ``interpret``, the reference's TPU tiling and interpret switch, are
+    accepted and ignored."""
     x = x_i8.contiguous()
     w = w_i8.contiguous()
     e = exp_i32.to(torch.int32).contiguous()
     if x.is_cuda:
-        return qmatmul_kernel(x, w, e)
+        return qmatmul_kernel(x, w, e, out_dtype=out_dtype)
     _plain_or_raise(x, "qmatmul")
-    return qmatmul_plain(x, w, e)
+    return qmatmul_plain(x, w, e, out_dtype)
 
 
-def csd_matvec(x_int: torch.Tensor, w_int=None, planes=None) -> torch.Tensor:
+def csd_matvec(x_int: torch.Tensor, w_int=None, planes=None, *, bm=None,
+               bn=None, interpret=None) -> torch.Tensor:
     """Bit-exact shift-add CAVM: y = x @ W via CSD digit planes, (M, N)
-    int32.  ``planes`` (D, K, N), or ``w_int`` (K, N) to expand here.  The
-    kernel takes any M, N and K, so nothing is padded."""
+    int32.  ``planes`` (D, K, N), or ``w_int`` (K, N) to expand here: the
+    second positional argument is ``w_int``, as in the reference's
+    ``repro.kernels.csd_matvec``, so pass the planes by name.  The kernel
+    takes any M, N and K, so nothing is padded.  ``bm``, ``bn`` and
+    ``interpret``, the reference's TPU tiling and interpret switch, are
+    accepted and ignored."""
     if planes is None:
         planes = csd_expand(w_int)
     planes = torch.as_tensor(planes, device=x_int.device).to(
@@ -184,12 +195,14 @@ def paged_attention(q, k_pool, v_pool, table, cache_len, *, window: int = 0):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    bk: int = 256, offset=None):
+                    bk: int = 256, offset=None, bq=None, interpret=None):
     """Flash attention for any Sq / Skv: q (B, Sq, Hq, D), k/v
     (B, Skv, Hkv, D), every key real, query row i at position
     ``i + offset`` (default ``Skv - Sq``).  ``bk`` is the key tile; it
     only matters to a row that sees no key (see
-    ``kernels/flash_attention.py``)."""
+    ``kernels/flash_attention.py``).  ``bq`` and ``interpret``, the
+    reference's TPU query tile and interpret switch, are accepted and
+    ignored."""
     Sq, Skv = q.shape[1], k.shape[1]
     kw = dict(causal=causal, window=window, kv_len=Skv,
               offset=Skv - Sq if offset is None else offset, bk=bk)
@@ -200,11 +213,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return flash_attention_plain(q, k, v, **kw)
 
 
-def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def linear_scan(a: torch.Tensor, x: torch.Tensor, *, bt=None, bw=None,
+                interpret=None) -> torch.Tensor:
     """First-order linear recurrence ``h_t = a_t * h_{t-1} + x_t`` with
     ``h_{-1} = 0``: a, x (B, S, W) -> h (B, S, W) f32, for any B, S, W
     (nothing is padded).  The CUDA kernel is bit-identical to the plain
-    version."""
+    version.  ``bt``, ``bw`` and ``interpret``, the reference's TPU tiling
+    and interpret switch, are accepted and ignored."""
     a = a.to(torch.float32).contiguous()
     x = x.to(torch.float32).contiguous()
     if a.is_cuda:
@@ -260,3 +275,12 @@ def tm_chain(a, acc, w, bsh, lab, lab_safe, acts, q, k, count0, dbsh,
         return tm_chain_kernel(*args)
     _plain_or_raise(a[k], "tm_chain")
     return tm_chain_plain(*args)
+
+
+# The reference's kernel modules also export their ops under the module's
+# name (``from repro.kernels.flash_attention import flash_attention``).
+# Those modules cannot import this one, which imports them, so the names
+# are bound into them here, when the package is first imported.
+for _op in (flash_attention, linear_scan, qmatmul, csd_matvec):
+    setattr(sys.modules[f"{__package__}.{_op.__name__}"], _op.__name__, _op)
+del _op

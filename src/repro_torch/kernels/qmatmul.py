@@ -59,6 +59,8 @@ from . import build
 
 __all__ = ["qmatmul_plain", "qmatmul_kernel", "route", "tiling",
            "Tiling"]
+# ``qmatmul``, the reference's module-level name, is the dispatching op
+# of ``ops.py``, which binds it into this module.
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("tma", "mma")

@@ -1,2 +1,3 @@
 from .model import Model, params_from_jax  # noqa: F401
-from .types import ArchConfig, get_config, list_configs, register  # noqa: F401
+from .types import (SHAPES, ArchConfig, ShapeSpec,  # noqa: F401
+                    applicable_shapes, get_config, list_configs, register)

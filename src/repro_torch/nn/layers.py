@@ -16,6 +16,12 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def cast(x, dtype: str):
+    """``x`` in the dtype the reference names by string (``"bfloat16"``,
+    ``"float32"``)."""
+    return x.to(getattr(torch, dtype))
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     # variance in f32, but the normalization multiply stays in x.dtype,
     # with (1 + scale) -- the reference's cast order
@@ -161,3 +167,8 @@ def paged_decode_attention_ref(q, k_pool, v_pool, table, cache_len, *,
 def swiglu(x, w_gate, w_up, w_down):
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out

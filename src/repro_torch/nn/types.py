@@ -9,7 +9,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-__all__ = ["ArchConfig", "register", "get_config", "list_configs"]
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "register", "get_config",
+           "list_configs", "applicable_shapes"]
 
 
 @dataclass(frozen=True)
@@ -122,6 +123,21 @@ class ArchConfig:
             - self.n_layers * (routed_all - routed_active)
 
 
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
 _REGISTRY: dict = {}
 
 
@@ -144,7 +160,14 @@ def list_configs() -> list:
 
 def _load_all():
     import importlib
-    for mod in ["qwen2_0_5b", "arctic_480b", "qwen2_moe_a2_7b",
-                "recurrentgemma_9b", "rwkv6_3b", "whisper_base",
-                "llava_next_34b"]:
+    for mod in ["qwen2_5_3b", "internlm2_1_8b", "qwen1_5_4b", "qwen2_0_5b",
+                "arctic_480b", "qwen2_moe_a2_7b", "llava_next_34b",
+                "rwkv6_3b", "whisper_base", "recurrentgemma_9b"]:
         importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def applicable_shapes(cfg: ArchConfig) -> list:
+    """The shape grid's skip rule: ``long_500k`` only for subquadratic
+    attention (full attention is O(L^2) at 512k positions)."""
+    return [s for s in SHAPES.values()
+            if s.name != "long_500k" or cfg.subquadratic]

@@ -1,0 +1,1 @@
+from .zaal import TrainConfig, train  # noqa: F401

@@ -53,7 +53,9 @@ def test_port_files_exist():
                 "kernels/chain_scan.py", "configs/qwen2_moe_a2_7b.py",
                 "configs/arctic_480b.py", "configs/rwkv6_3b.py",
                 "kernels/wkv6.py", "configs/whisper_base.py",
-                "configs/llava_next_34b.py"):
+                "configs/llava_next_34b.py", "configs/qwen2_5_3b.py",
+                "configs/internlm2_1_8b.py", "configs/qwen1_5_4b.py",
+                "kernels/ref.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()

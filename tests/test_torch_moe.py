@@ -394,20 +394,18 @@ def test_quantized_moe_tree_matches_reference(arch):
 
 @pytest.mark.parametrize("name", sorted(jlist_configs()) if jax else [])
 def test_params_counts_match_reference(name):
-    """Every reference config, rebuilt as the port's ArchConfig (and the
-    port's registered one where it has it), at full size and reduced."""
+    """Every reference config, rebuilt as the port's ArchConfig, at full
+    size and reduced, and the port's registered config of that name equal
+    to it (every reference config is ported)."""
     jcfg = jget_config(name)
     for ref in (jcfg, jcfg.reduced()):
         mine = ArchConfig(**{f.name: getattr(ref, f.name)
                              for f in dataclasses.fields(ArchConfig)})
         assert mine.params_count() == ref.params_count()
         assert mine.active_params_count() == ref.active_params_count()
-    if name in ("qwen2-0.5b", "qwen2-moe-a2.7b", "arctic-480b",
-                "recurrentgemma-9b", "rwkv6-3b", "whisper-base",
-                "llava-next-34b"):
-        assert get_config(name) == ArchConfig(**{
-            f.name: getattr(jcfg, f.name)
-            for f in dataclasses.fields(ArchConfig)})
+    assert get_config(name) == ArchConfig(**{
+        f.name: getattr(jcfg, f.name)
+        for f in dataclasses.fields(ArchConfig)})
     if name == "qwen2-moe-a2.7b":
         assert get_config(name).params_count() == 14_004_422_656
         assert get_config(name).active_params_count() == 2_377_811_968
