@@ -304,7 +304,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    serve launcher,
    ``--quantized --kv-gather cuda --decode-kernel fused`` on the serving
    cell's settings and 16 prompts of 256 tokens, every request done and
-   both paged kernels launched.
+   both paged kernels launched;
+15. training, after the dense phase's memory is freed: (a) ptxas's
+   registers and spills of every instantiation of the flash backward
+   (``flash_attention_bwd.cu``: delta, dk/dv and dq, f32 on the CUDA cores
+   and bf16 on the tensor cores; a spill fails the run), then the
+   backward through ``FlashAttention`` against autograd through the plain
+   version at qwen2-0.5b's loss shape (8, 1024, 14 / 2 heads of 64) and at
+   D = 128, GQA 8:1 (qwen2.5-3b's 16 / 2), causal, f32 within
+   ``BWD_F32_TOL`` of each gradient's largest magnitude and bf16 under
+   ``bf16_grad_disagreement``, two runs bit-identical in each dtype, and
+   in bf16 timed beside its bound (five products), autograd's backward
+   through the plain version and ``scaled_dot_product_attention``'s
+   backward, each of its three kernels' device time printed; the forward
+   at the loss shape timed with and without its lse; (b) the f32
+   ``Model.loss`` gradient of qwen2-0.5b at full width and 2 layers
+   (norms and biases seeded), 2 x 256, on the card against the same call
+   on the CPU, each leaf within ``TRAIN_GRAD_TOL`` of its largest
+   magnitude; (c) ``launch/train.py`` at qwen2-0.5b's full width and
+   depth, 8 x 1024 bf16 batches on f32 masters and f32 AdamW moments, 6
+   steps, the flash counters zeroed just before and read just after (48
+   forward launches a step, 24 of them remat's recompute, and 24 backward
+   calls), the first loss near ln V + s2/2, every loss and grad norm
+   finite, the step's time, tokens/s, the 6 N D share of the bf16 peak and
+   the peak memory, the checkpoint written to a temporary directory and
+   removed; (d) ``TrainLoop`` at full width, 2 layers, vocab 4096, with
+   deterministic algorithms on (``CUBLAS_WORKSPACE_CONFIG`` is set before
+   the first cuBLAS call): a failure injected at step 6 of 8, a checkpoint
+   every 4 steps, every final leaf equal to an uninterrupted run's; (e)
+   the tiny-train mirror on the card (60 steps, vocab 64): the loss drops
+   by more than 0.5.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -459,6 +488,21 @@ DENSE_LAUNCHER = ["--quantized", "--kv-block-size", "32", "--kv-gather",
                   "--context", "1024", "--prefill-chunk", "128",
                   "--prefill-batch", "4", "--requests", "16", "--prompt-len",
                   "256", "--max-new", "32"]
+# The training path: qwen2-0.5b at full width and depth through the train
+# launcher, bf16 activations on f32 masters and f32 AdamW moments, remat a
+# layer; one 8 x 1024 TokenPipeline batch a step.  630,167,424 f32 leaves
+# (params_count() 494,005,120, which counts V x d once, the 6 N D
+# convention's N).
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_LEAVES = 630_167_424
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6
+# (b): the f32 gradient at full width and 2 layers, B = 2, S = 256, card
+# against CPU: each leaf within TRAIN_GRAD_TOL of its largest magnitude
+# (cuBLAS and the CPU's BLAS add in other orders; TF32 is off).
+TRAIN_GRAD_TOL = 1e-4
+# (d): the restart check at full width, 2 layers, vocab 4096, 4 x 256
+# batches, 8 steps, a checkpoint every 4, a failure injected at step 6.
+RESTART_VOCAB, RESTART_STEPS, RESTART_FAIL = 4096, 8, 6
 # wkv6's y against the plain version: the kernel adds sum_i r_i s_ij with
 # FMAs over each lane's rows, then across lanes, then v_j a_t, the plain
 # einsum as a batched product does; each is within a few ulps of the
@@ -4676,8 +4720,515 @@ def dense_phase(torch):
     return launches
 
 
+def flash_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, offset,
+                       es):
+    """The backward's bound: five products of 2 * D flops a visible pair
+    and head (S, dO V^T, dV, dK, dQ) at the bf16 peak, against reading q,
+    k, v, out, dout and lse and writing dq, dk, dv once.  Returns (ms,
+    "operations" or "bytes")."""
+    pairs = visible_pairs(Sq, Skv, causal, window, offset)
+    t_ops = 10 * D * pairs * Hq * B / BF16_FLOPS
+    t_bytes = (es * (4 * B * Sq * Hq * D + 4 * B * Skv * Hkv * D)
+               + 4 * B * Hq * Sq) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def train_kernel_readings(torch):
+    """Phase 15 (a): the flash backward kernels at qwen2-0.5b's loss shape
+    (8, 1024, 14 / 2 heads of 64) and at D = 128 GQA 8:1 (qwen2.5-3b's 16
+    / 2), causal: ptxas's registers and spills of every backward
+    instantiation (a spill fails the run); through ``FlashAttention``
+    against autograd through the plain version, f32 within
+    ``BWD_F32_TOL`` of each gradient's largest magnitude and bf16 under
+    ``bf16_grad_disagreement``; two backward calls bit-identical in each
+    dtype; in bf16 the backward timed (CUDA-graph replays over input sets
+    twice the L2) beside its bound, autograd's backward through the plain
+    version and ``scaled_dot_product_attention``'s backward, each
+    kernel's share from ``torch.profiler``; the forward at the loss shape
+    timed with and without its lse.  Returns the ``flash_attention_bwd``
+    row (without launches) and the forward's lse reading."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_attention import (
+        BWD_BF16_MAX, BWD_BF16_MEAN, BWD_F32_TOL, KEY_TILE,
+        bf16_grad_disagreement, flash_attention_kernel,
+        flash_attention_plain)
+    ptxas = {}
+    for fn, line in ptxas_lines(build.build_log("flash_attention_bwd")):
+        ptxas.setdefault(fn, []).append(line)
+    for fn, lines in ptxas.items():
+        spills = [int(n) for line in lines
+                  for n in re.findall(r"(\d+) bytes spill", line)]
+        print(f"flash_attention_bwd {fn}: ptxas {' / '.join(lines)}")
+        check(not any(spills), f"flash_attention_bwd {fn} spills: {lines}")
+    check(len(ptxas) == 18, f"flash_attention_bwd: {len(ptxas)} "
+                            f"instantiations in ptxas's log, not 18")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(shape, dt):
+        B, S, Hq, Hkv, D = shape
+        return [torch.randn(s, generator=gen, device="cuda", dtype=dt)
+                for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                          (B, S, Hq, D))]
+
+    def kernel_grads(q, k, v, dout):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = ops.flash_attention(q, k, v, bk=512, offset=0)
+        return torch.autograd.grad(out, (q, k, v), dout)
+
+    shapes = {"qwen2-0.5b loss": (8, 1024, 14, 2, 64),
+              "D = 128 GQA 8:1 loss": (8, 1024, 16, 2, 128)}
+    row = {"shapes": {}}
+    for name, shape in shapes.items():
+        reading = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, dout = inputs(shape, dt)
+            got = kernel_grads(q, k, v, dout)
+            again = kernel_grads(q, k, v, dout)
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            out = flash_attention_plain(
+                qq, kk, vv, offset=0, bk=512 if dt == torch.float32
+                else KEY_TILE)
+            want = torch.autograd.grad(out, (qq, kk, vv), dout)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            errs = [(g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want)]
+            if dt == torch.float32:
+                rel = [e / w.abs().max().item() for e, w in zip(errs, want)]
+                ok = max(rel) <= BWD_F32_TOL
+                tol = (f"largest err / largest |grad| {max(rel):.3e} (<= "
+                       f"{BWD_F32_TOL})")
+            else:
+                dis = [bf16_grad_disagreement(g, w)
+                       for g, w in zip(got, want)]
+                mx, mean = max(d[0] for d in dis), max(d[1] for d in dis)
+                ok = mx <= BWD_BF16_MAX and mean <= BWD_BF16_MEAN
+                tol = (f"largest / mean err over largest / mean |grad| "
+                       f"{mx:.3e} / {mean:.3e} (<= {BWD_BF16_MAX} / "
+                       f"{BWD_BF16_MEAN})")
+                reading.update(bf16_max_ratio=mx, bf16_mean_ratio=mean)
+            key = str(dt).replace("torch.", "")
+            reading[f"{key}_max_abs_err"] = max(errs)
+            reading[f"{key}_deterministic"] = same
+            print(f"flash_attention_bwd {name} {shape} {key}: max abs err "
+                  f"dq / dk / dv {errs[0]:.3e} / {errs[1]:.3e} / "
+                  f"{errs[2]:.3e} against autograd through the plain "
+                  f"version ({tol}); two runs bit-identical: {same}")
+            check(ok and finite and same,
+                  f"flash_attention_bwd {name} {key}: {tol}, finite "
+                  f"{finite}, deterministic {same}")
+            del q, k, v, dout, got, again, qq, kk, vv, out, want
+        reading.update(flash_bwd_timing(torch, inputs, shape))
+        row["shapes"][name] = reading
+    # the forward at the loss shape with and without its lse
+    B, S, Hq, Hkv, D = shapes["qwen2-0.5b loss"]
+    one = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    sets = [inputs(shapes["qwen2-0.5b loss"], torch.bfloat16)[:3]
+            for _ in range(max(2, -(-2 * L2_BYTES // one)))]
+    fwd = {}
+    for lse in (False, True, True, False):
+        ms, _ = time_calls(torch, lambda q, k, v: flash_attention_kernel(
+            q, k, v, offset=0, bk=512, lse=lse), sets, 3)
+        fwd.setdefault("with_lse_ms" if lse else "no_lse_ms", []).append(ms)
+    print(f"flash_attention forward at the loss shape, bf16: "
+          f"{' / '.join(f'{t*1e3:.2f}' for t in fwd['no_lse_ms'])} us "
+          f"without lse, {' / '.join(f'{t*1e3:.2f}' for t in fwd['with_lse_ms'])}"
+          f" us with it (order: without, with, with, without) [{CARD}]")
+    loss = row["shapes"]["qwen2-0.5b loss"]
+    row.update({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "routes": {"bfloat16": "tensor cores: mma.sync m16n8k16, cp.async "
+                               "ring of 2 stages",
+                   "float32": "CUDA cores"},
+        "kernels": ["delta", "dk/dv", "dq"],
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "none: src/repro/nn/layers.py:67 (chunked_attention, "
+                    "differentiated by XLA's autodiff; no Pallas backward)",
+        "max_abs_err": loss["bfloat16_max_abs_err"],
+        "ms": loss["ms"], "plain_ms": loss["plain_ms"],
+        "bound_ms": loss["bound_ms"], "bound_by": loss["bound_by"],
+        "library_ms": loss["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "(is_causal, enable_gqa), backward only",
+        "shape": "q (8,1024,14,64), k/v (8,1024,2,64) bf16 causal: one "
+                 "Model.loss layer's gradient",
+        "forward_lse": fwd,
+    })
+    return row
+
+
+def flash_bwd_timing(torch, inputs, shape):
+    """The backward's time in bf16 at ``shape`` (B, S, Hq, Hkv, D), causal:
+    the kernels over input sets together twice the L2, each kernel's
+    device time (``torch.profiler`` on the first set), autograd's backward
+    through the plain version and ``scaled_dot_product_attention``'s
+    backward (eager, CUDA events)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel,
+        flash_attention_plain)
+    B, S, Hq, Hkv, D = shape
+    kw = dict(causal=True, window=0, kv_len=S, offset=0)
+    one = 2 * (4 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
+    sets = []
+    for _ in range(max(2, -(-2 * L2_BYTES // one))):
+        q, k, v, dout = inputs(shape, torch.bfloat16)
+        out, lse = flash_attention_kernel(q, k, v, lse=True, **kw)
+        sets.append((q, k, v, out, dout, lse))
+
+    def bwd(q, k, v, out, dout, lse):
+        return flash_attention_bwd_kernel(q, k, v, out, dout, lse, **kw)
+
+    ms, eager_ms = time_calls(torch, bwd, sets, 3)
+    parts = {part: kernel_device_ms(torch, lambda: bwd(*sets[0]),
+                                    f"flash_bwd_{part}", 3)
+             for part in ("delta", "dkdv", "dq")}
+    q, k, v, _, dout, _ = sets[0]
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = flash_attention_plain(qq, kk, vv, offset=0, bk=64)
+    plain_ms = event_ms(torch, lambda: torch.autograd.grad(
+        out, (qq, kk, vv), dout, retain_graph=True), 1)
+    del out
+    lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                          enable_gqa=True)
+    ldo = dout.transpose(1, 2).contiguous()
+    lib_ms = event_ms(torch, lambda: torch.autograd.grad(
+        lout, (lq, lk, lv), ldo, retain_graph=True), 3)
+    bound_ms, bound_by = flash_bwd_bound_ms(B, S, S, Hq, Hkv, D, True, 0,
+                                            0, 2)
+    print(f"flash_attention_bwd {shape} bf16: {ms*1e3:.2f} us on the card "
+          f"({eager_ms*1e3:.2f} us per eager call; delta / dk,dv / dq "
+          f"{parts['delta']*1e3:.2f} / {parts['dkdv']*1e3:.2f} / "
+          f"{parts['dq']*1e3:.2f} us), bound {bound_ms*1e3:.2f} us "
+          f"({bound_by}), plain autograd {plain_ms*1e3:.2f} us, "
+          f"scaled_dot_product_attention backward {lib_ms*1e3:.2f} us over "
+          f"{len(sets)} input sets [{CARD}]")
+    return {"ms": ms, "eager_ms": eager_ms, "kernel_ms": parts,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "sets": len(sets)}
+
+
+def train_grad_check(torch):
+    """Phase 15 (b): the f32 ``Model.loss`` gradient of qwen2-0.5b at full
+    width and 2 layers (norms and biases seeded), B = 2, S = 256: the
+    card's route (the flash kernels, forward and backward) against the
+    same call on the CPU (the plain version under autograd), each leaf
+    within ``TRAIN_GRAD_TOL`` of its largest magnitude."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.nn import Model, get_config
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2,
+                              dtype="float32")
+    params = Model(cfg, device="cpu").init(0)
+    rng = np.random.default_rng(0)
+    for path, leaf in flatten_with_path(params):
+        if path[-1].startswith("ln") or path[-1].endswith("norm") \
+                or path[-1] in ("bq", "bk", "bv"):
+            leaf.copy_(torch.from_numpy(
+                rng.normal(0, 0.3, tuple(leaf.shape)).astype(np.float32)))
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=256, global_batch=2,
+                          seed=0).batch(0)
+    grads, losses, secs = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        live = tree_map(lambda p: p.detach().to(dev).requires_grad_(),
+                        params)
+        f0 = flash_attention_kernel.launches
+        b0 = flash_attention_bwd_kernel.launches
+        t0 = time.perf_counter()
+        loss, _ = Model(cfg, device=dev).loss(live, batch)
+        grads[dev] = torch.autograd.grad(loss, leaves(live))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = (flash_attention_kernel.launches - f0,
+                 flash_attention_bwd_kernel.launches - b0)
+        secs[dev] = time.perf_counter() - t0
+        losses[dev] = float(loss.detach())
+    worst = 0.0
+    for (path, _), c, g in zip(flatten_with_path(params), grads["cpu"],
+                               grads["cuda"]):
+        rel = (g.cpu() - c).abs().max().item() / max(c.abs().max().item(),
+                                                     1e-30)
+        worst = max(worst, rel)
+        check(rel <= TRAIN_GRAD_TOL, f"train gradient {'/'.join(path)}: "
+              f"card vs CPU {rel:.3e} of the largest magnitude")
+    rel_loss = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"train (b): f32 Model.loss gradient, {TRAIN_ARCH} full width, 2 "
+          f"layers, 2 x 256: loss card {losses['cuda']!r} CPU "
+          f"{losses['cpu']!r} (rel {rel_loss:.3e}); every leaf within "
+          f"{worst:.3e} of its largest magnitude (<= {TRAIN_GRAD_TOL}); "
+          f"flash launches forward / backward {n[0]} / {n[1]} (remat: 2 a "
+          f"layer forward); {secs['cpu']:.2f} s CPU, {secs['cuda']:.2f} s "
+          f"card [{CARD}]")
+    check(rel_loss <= 1e-5 and n == (2 * cfg.n_layers, cfg.n_layers),
+          f"train (b): loss rel {rel_loss}, flash launches {n}")
+    return {"worst_leaf_rel": worst, "loss_rel": rel_loss}
+
+
+def train_launcher_run(torch):
+    """Phase 15 (c): ``repro_torch.launch.train.main`` at qwen2-0.5b's full
+    width and depth, 8 x 1024 bf16 batches, ``TRAIN_STEPS`` steps, the
+    checkpoint into a temporary directory, removed after.  The flash
+    counters zeroed just before and read just after: 48 forward launches
+    a step (24 and 24 for remat) and 24 backward calls (each of its three
+    kernels once); the first loss near ln V + s2/2; every loss and grad
+    norm finite; the step's time (its median past the first), tokens/s,
+    the 6 N D share of the bf16 peak and the peak memory.  Returns the
+    launches."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.nn import get_config
+    cfg = get_config(TRAIN_ARCH)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = 0
+    flash_attention_bwd_kernel.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            loop = launch_train.main([
+                "--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--ckpt-dir",
+                ckpt, "--ckpt-every", "100", "--log-every", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fwd = flash_attention_kernel.launches
+        n_bwd = flash_attention_bwd_kernel.launches
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(ckpt) for f in fs)
+        saved = os.listdir(ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = [r for r in loop.metrics_log if "loss" in r]
+    for r in recs:
+        print(f"  train {r}")
+    steady = sorted(r["dt"] for r in recs[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * cfg.params_count() * tokens / step_s / BF16_FLOPS
+    s2 = 0.02 ** 2 * cfg.d_model
+    expect = float(np.log(cfg.vocab)) + s2 / 2
+    print(f"train (c): {TRAIN_ARCH} full width and depth through the "
+          f"launcher, {TRAIN_BATCH} x {TRAIN_SEQ} bf16, {TRAIN_STEPS} "
+          f"steps: step {step_s*1e3:.2f} ms (median of steps 1-"
+          f"{TRAIN_STEPS - 1}; step 0 {recs[0]['dt']*1e3:.2f} ms), "
+          f"{tokens / step_s:,.0f} tokens/s, 6 N D {100 * mfu:.2f} % of "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s (N = {cfg.params_count():,}); "
+          f"loss {recs[0]['loss']:.4f} -> {recs[-1]['loss']:.4f} (step 0 "
+          f"expected ln V + s2/2 = {expect:.4f}); peak memory {peak:.3f} "
+          f"GiB; flash launches forward {n_fwd}, backward {n_bwd}; "
+          f"checkpoint {saved} {ckpt_bytes / 2**30:.3f} GiB, removed; "
+          f"{wall:.2f} s with init and the checkpoint [{CARD}]")
+    check(len(recs) == TRAIN_STEPS and all(
+        np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+        for r in recs), f"train (c): records {recs}")
+    check(abs(recs[0]["loss"] - expect) <= 0.2,
+          f"train (c): first loss {recs[0]['loss']} far from {expect}")
+    check(n_fwd == 2 * cfg.n_layers * TRAIN_STEPS
+          and n_bwd == cfg.n_layers * TRAIN_STEPS,
+          f"train (c): flash launches forward {n_fwd}, backward {n_bwd}")
+    check(saved == [f"step_{TRAIN_STEPS - 1}"],
+          f"train (c): checkpoint directory held {saved}")
+    return {"flash_attention": n_fwd, "flash_attention_bwd": n_bwd}, {
+        "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu_6nd": mfu, "peak_gib": peak}
+
+
+def train_profile(torch):
+    """Phase 15 (c'): one more full-width train step (qwen2-0.5b, 8 x 1024
+    bf16, the launcher's optimizer) under ``torch.profiler``, after one
+    untimed step: the device's busy share of the step and its top kernels,
+    and the host's time in the step's parts (forward, backward, optimizer)
+    from synchronized host clocks."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.nn import Model, get_config
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime.step import make_train_step
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(TRAIN_ARCH)
+    m = Model(cfg, device="cuda")
+    params = m.init(0)
+    opt = AdamW(lr=3e-4, schedule=cosine_schedule(3e-4, 20, 100))
+    state = opt.init(params)
+    step = make_train_step(m, opt)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in pipe.batch(0).items()}
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    # the step's parts on synchronized host clocks
+    parts = {}
+    t0 = time.perf_counter()
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = m.loss(live, batch)
+    torch.cuda.synchronize()
+    parts["forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(loss, leaves(live))
+    torch.cuda.synchronize()
+    parts["backward (remat's forward in it)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    it = iter(grads)
+    opt.apply(params, state, tree_map(lambda _: next(it), params))
+    torch.cuda.synchronize()
+    parts["AdamW"] = time.perf_counter() - t0
+    del live, loss, grads
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, _ = report_profile(prof, wall * 1e6, "one train step", 14)
+    print(f"train (c'): the step's parts on synchronized host clocks: "
+          + ", ".join(f"{k} {v*1e3:.1f} ms" for k, v in parts.items())
+          + f"; profiled step {wall*1e3:.1f} ms, device busy "
+            f"{busy/1e3:.1f} ms [{CARD}]")
+    return {"parts_ms": {k: v * 1e3 for k, v in parts.items()},
+            "profiled_step_ms": wall * 1e3, "busy_ms": busy / 1e3}
+
+
+def train_restart_check(torch):
+    """Phase 15 (d): ``TrainLoop`` restart at full width, 2 layers, vocab
+    4096 (bf16 on f32 masters), with ``torch.use_deterministic_algorithms``
+    on (``CUBLAS_WORKSPACE_CONFIG`` was set before the first cuBLAS call):
+    ``RESTART_STEPS`` steps, a checkpoint every 4, a failure injected at
+    step ``RESTART_FAIL``; every final leaf, params and optimizer state,
+    ``torch.equal`` to an uninterrupted run's."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.nn import Model, get_config
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.step import make_train_step
+    from repro_torch.runtime.train import TrainConfig, TrainLoop
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2,
+                              vocab=RESTART_VOCAB)
+    m = Model(cfg, device="cuda")
+    params = m.init(0)
+    opt = AdamW(lr=1e-3)
+    state = opt.init(params)
+    step = make_train_step(m, opt)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=256, global_batch=4)
+    boom = {"armed": True}
+
+    def failure_hook(s):
+        if s == RESTART_FAIL and boom["armed"]:
+            boom["armed"] = False
+            raise RuntimeError("simulated node failure")
+
+    def runs():
+        out, restarts = [], None
+        for hook in (None, failure_hook):
+            d = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+            try:
+                loop = TrainLoop(TrainConfig(
+                    total_steps=RESTART_STEPS, ckpt_every=4, ckpt_dir=d,
+                    log_every=100), step, pipe, failure_hook=hook)
+                p, o = loop.run(tree_map(torch.clone, params),
+                                tree_map(torch.clone, state))
+                out.append(leaves({"p": p, "o": o}))
+                restarts = loop.restarts
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+            boom["armed"] = True
+        return out, restarts
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        ends, restarts = runs()
+        mode = "deterministic algorithms on"
+    except RuntimeError as e:      # an op with no deterministic CUDA route
+        if "deterministic" not in str(e):
+            raise
+        mode = f"deterministic algorithms refused: {str(e)[:300]}"
+        ends = None
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if ends is None:
+        print(f"train (d): {mode}; again without them, leaves held to rtol "
+              f"1e-6")
+        ends, restarts = runs()
+        equal = [torch.allclose(a.float(), b.float(), rtol=1e-6, atol=0)
+                 for a, b in zip(*ends)]
+    else:
+        equal = [torch.equal(a, b) for a, b in zip(*ends)]
+    print(f"train (d): TrainLoop restart, {TRAIN_ARCH} full width, 2 "
+          f"layers, vocab {RESTART_VOCAB}, {RESTART_STEPS} steps, failure "
+          f"at step {RESTART_FAIL}, {mode}: {restarts} restart, "
+          f"{sum(equal)} of {len(equal)} final leaves equal to the "
+          f"uninterrupted run's [{CARD}]")
+    check(restarts == 1 and all(equal),
+          f"train (d): restarts {restarts}, leaves equal {equal}")
+
+
+def train_tiny_check(torch):
+    """Phase 15 (e): the tiny-train mirror on the card: 60 AdamW (3e-3)
+    steps of the reduced qwen2-0.5b, vocab 64, on 8 x 32 batches (flash
+    forward and backward at D = 16): the loss drops by more than 0.5."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.nn import Model, get_config
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.step import make_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(), vocab=64)
+    m = Model(cfg, device="cuda")
+    params = m.init(0)
+    opt = AdamW(lr=3e-3)
+    state = opt.init(params)
+    step = make_train_step(m, opt)
+    pipe = TokenPipeline(vocab=64, seq_len=32, global_batch=8)
+    losses = []
+    for i in range(60):
+        params, state, mets = step(params, state, pipe.batch(i))
+        losses.append(float(mets["loss"]))
+    print(f"train (e): tiny train on the card, 60 steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (every 10th: "
+          f"{[round(x, 4) for x in losses[::10]]})")
+    check(losses[-1] < losses[0] - 0.5, f"train (e): losses {losses[::10]}")
+
+
+def train_phase(torch):
+    """Phase 15, training: (b)-(e) above, (c') after (c).  Returns the
+    launches of (c), the main path, and (c)'s figures."""
+    t0 = time.perf_counter()
+    train_grad_check(torch)
+    print(f"train (b): {time.perf_counter() - t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, figures = train_launcher_run(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    figures["profile"] = train_profile(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_restart_check(torch)
+    train_tiny_check(torch)
+    print(f"train (d), (e): {time.perf_counter() - t0:.2f} s")
+    return launches, figures
+
+
 def main() -> int:
     global CARD
+    # phase 15 (d) runs with deterministic algorithms, which for cuBLAS
+    # needs this set before its first call in the process
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4691,8 +5242,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
     sources = ("paged_gather", "paged_attention", "csd_matvec",
-               "flash_attention", "linear_scan", "qmatmul", "chain_scan",
-               "wkv6")
+               "flash_attention", "flash_attention_bwd", "linear_scan",
+               "qmatmul", "chain_scan", "wkv6")
     t0 = time.perf_counter()
     build.build(sources)
     print(f"build: {time.perf_counter()-t0:.2f} s "
@@ -4700,7 +5251,7 @@ def main() -> int:
     for name in sources:
         for fn, line in ptxas_lines(build.build_log(name)):
             print(f"  ptxas {name} {fn}: {line}")
-            if name in ("chain_scan", "wkv6"):    # state lives on chip
+            if name in ("chain_scan", "wkv6", "flash_attention_bwd"):
                 check(not any(int(n) for n in re.findall(
                     r"(\d+) bytes spill", line)),
                     f"{name} {fn}: ptxas spills: {line}")
@@ -4781,6 +5332,13 @@ def main() -> int:
     dense_readings = dense_kernel_readings(torch)
     dense_launches = dense_phase(torch)
     print(f"dense phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bwd_row = train_kernel_readings(torch)
+    kernels.append(bwd_row)
+    train_launches, train_figures = train_phase(torch)
+    print(f"train phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
@@ -4789,7 +5347,8 @@ def main() -> int:
                "mixed": mixed_launches, "hybrid": hybrid_launches,
                "moe": moe_launches, "rwkv": rwkv_launches,
                "audio": audio_launches, "vlm": vlm_launches,
-               "dense": dense_launches, "op": {"qmatmul": qm_launches}}
+               "dense": dense_launches, "train": train_launches,
+               "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
     for name, n in explore_launches.items():
@@ -4804,6 +5363,8 @@ def main() -> int:
         launches[name] += n
     for name, n in dense_launches.items():
         launches[name] += n
+    for name, n in train_launches.items():
+        launches[name] = launches.get(name, 0) + n
     launches["qmatmul"] = qm_launches
     launches["wkv6"] = rwkv_launches["wkv6"]
     for k in kernels:
@@ -4823,6 +5384,9 @@ def main() -> int:
         if k["name"] == "flash_attention":
             k["audio_shapes"] = audio_readings
             k["vlm_shapes"] = vlm_readings
+            k["forward_lse"] = bwd_row.pop("forward_lse")
+        if k["name"] == "flash_attention_bwd":
+            k["train_step"] = train_figures
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

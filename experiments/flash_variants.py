@@ -217,7 +217,7 @@ def main():
                 print(f"  {name} {fn}: {line}")
         lib = ctypes.CDLL(str(build.library_path(f"fa_{name}")))
         f = lib.flash_attention
-        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
+        f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         f.restype = ctypes.c_int
         fns[name] = f
@@ -227,7 +227,8 @@ def main():
         Skv, Hkv = k.shape[1], k.shape[2]
         out = torch.empty_like(q)
         err = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, Sq, Skv, Hq, Hkv, D, Skv, 0, 1,
+                        out.data_ptr(), None, B, Sq, Skv, Hq, Hkv, D, Skv,
+                        0, 1,
                         window, -(-Skv // bk) * bk, 1.0 / math.sqrt(D), 1,
                         torch.cuda.current_stream().cuda_stream)
         if err:

@@ -64,6 +64,11 @@
 // (skipping the K/V copies saves only 2-4 %); overlapping the next tile's Q K^T
 // with this tile's softmax inside a warpgroup is the next step.
 //
+// Both routes write the rows' log-sum-exp, lse = m + ln l in natural-log
+// units (B, Hq, Sq) f32, when given a non-null `lse` (the backward kernels of
+// flash_attention_bwd.cu read it); the bf16 route keeps m in log2 units and
+// converts.  A launch given a null `lse` writes nothing more.
+//
 // float32 -- CUDA cores (flash_attention_kernel), the first version, kept
 // for the checks that hold f32 results tightly (TF32 would break them):
 // one block per (64 query rows, query head, batch row), each row held by
@@ -111,7 +116,7 @@ __global__ void __launch_bounds__(Shape<D>::THREADS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int Sq,
+                       float* __restrict__ lse, int Sq,
                        int Skv, int Hq, int Hkv, int kv_len, int offset,
                        int causal, int window, int kv_pad, float scale) {
   using S = Shape<D>;
@@ -233,6 +238,8 @@ flash_attention_kernel(const float* __restrict__ q,
     m = m_new;
   }
   if (!live) return;
+  if (lse != nullptr && part == 0)
+    lse[((long long)b * Hq + h) * Sq + r] = m + logf(l);
   const float denom = fmaxf(l, 1e-20f);
   float* dst = out + (((long long)b * Sq + r) * Hq + h) * D + part * DPT;
 #pragma unroll
@@ -246,8 +253,8 @@ flash_attention_kernel(const float* __restrict__ q,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int Hq, int Hkv, int kv_len,
-                   int offset, int causal, int window, int kv_pad,
+                   float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                   int kv_len, int offset, int causal, int window, int kv_pad,
                    float scale, cudaStream_t stream) {
   using S = Shape<D>;
   const size_t smem = sizeof(float) * 2 * kBK * S::ROW;
@@ -260,19 +267,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_attention_kernel<D><<<grid, S::THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, Hq,
-      Hkv, kv_len, offset, causal, window, kv_pad, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv,
+      Hq, Hkv, kv_len, offset, causal, window, kv_pad, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* out, int B, int Sq, int Skv, int Hq, int Hkv,
-                     int kv_len, int offset, int causal, int window,
+                     void* out, float* lse, int B, int Sq, int Skv, int Hq,
+                     int Hkv, int kv_len, int offset, int causal, int window,
                      int kv_pad, float scale, cudaStream_t s) {
 #define FLASH_CASE(DD)                                                      \
   case DD:                                                                  \
-    return launch<DD>(q, k, v, out, B, Sq, Skv, Hq, Hkv, kv_len, offset,    \
-                      causal, window, kv_pad, scale, s);
+    return launch<DD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, kv_len,       \
+                      offset, causal, window, kv_pad, scale, s);
   switch (D) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -291,6 +298,7 @@ constexpr int kWG = 2;               // consumer warpgroups per block
 constexpr int kRows = 64 * kWG;      // query rows per block
 constexpr int kStages = 2;           // depth of the K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kKT = 64;              // keys per online-softmax step
 
@@ -518,7 +526,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap to, int Sq,
                              int Hq, int Hkv, int kv_len, int offset,
                              int causal, int window, int kv_pad,
-                             float scale_log2) {
+                             float scale_log2, float* __restrict__ lse) {
   using T = Tile<D>;
   constexpr int KT = T::KT, DW = T::DW, W = T::W, SLABS = T::SLABS;
   constexpr int LAYOUT = T::LAYOUT;
@@ -716,6 +724,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     t += __shfl_xor_sync(0xffffffffu, t, 1);
     t += __shfl_xor_sync(0xffffffffu, t, 2);
     den[rr] = fmaxf(t, 1e-20f);
+    // lse in natural-log units: m is in log2 units here
+    const int row = r_a + 8 * rr;
+    if (lse != nullptr && (lane & 3) == 0 && row < Sq)
+      lse[((long long)b * Hq + h) * Sq + row] = (m[rr] + log2f(t)) * kLn2;
   }
   uint8_t* o_s = q_s + wg * T::Q_BYTES;
 #pragma unroll
@@ -791,9 +803,10 @@ bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, int B, int Sq, int Skv, int Hq, int Hkv,
-                         int kv_len, int offset, int causal, int window,
-                         int kv_pad, float scale, cudaStream_t stream) {
+                         void* out, float* lse, int B, int Sq, int Skv,
+                         int Hq, int Hkv, int kv_len, int offset, int causal,
+                         int window, int kv_pad, float scale,
+                         cudaStream_t stream) {
   using T = Tile<D>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
@@ -810,17 +823,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid(Hq, B, (Sq + kRows - 1) / kRows);
   flash_attention_wgmma_kernel<D><<<grid, kWG * 128, T::SMEM, stream>>>(
       tq, tk, tv, to, Sq, Hq, Hkv, kv_len, offset, causal, window, kv_pad,
-      scale * kLog2e);
+      scale * kLog2e, lse);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_wgmma(int D, const void* q, const void* k, const void* v,
-                           void* out, int B, int Sq, int Skv, int Hq, int Hkv,
-                           int kv_len, int offset, int causal, int window,
-                           int kv_pad, float scale, cudaStream_t s) {
+                           void* out, float* lse, int B, int Sq, int Skv,
+                           int Hq, int Hkv, int kv_len, int offset, int causal,
+                           int window, int kv_pad, float scale,
+                           cudaStream_t s) {
 #define FLASH_CASE(DD)                                                      \
   case DD:                                                                  \
-    return launch_wgmma<DD>(q, k, v, out, B, Sq, Skv, Hq, Hkv, kv_len,      \
+    return launch_wgmma<DD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, kv_len, \
                             offset, causal, window, kv_pad, scale, s);
   switch (D) {
     FLASH_CASE(16)
@@ -840,11 +854,11 @@ cudaError_t dispatch_wgmma(int D, const void* q, const void* k, const void* v,
 // 16-byte aligned, one dtype (0 float32: CUDA cores, 1 bfloat16: tensor
 // cores); D in {16, 32, 64, 128, 256}; Hq % Hkv == 0.  kv_len <= Skv keys
 // are real; row i sits at i + offset.  kv_pad >= Skv: the keys a row that
-// sees none walks (see the note at the top).  Returns cudaGetLastError()
-// after the launch.
+// sees none walks (see the note at the top).  lse: (B, Hq, Sq) f32 or null
+// (then not written).  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int Sq, int Skv, int Hq,
-                               int Hkv, int D, int kv_len, int offset,
+                               void* out, float* lse, int B, int Sq, int Skv,
+                               int Hq, int Hkv, int D, int kv_len, int offset,
                                int causal, int window, int kv_pad,
                                float scale, int dtype, void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
@@ -853,12 +867,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     if (Skv == 0)        // no key to walk: acc = l = 0, the output 0
       return static_cast<int>(cudaMemsetAsync(
           out, 0, (size_t)B * Sq * Hq * D * sizeof(__nv_bfloat16), s));
-    return dispatch_wgmma(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, kv_len,
+    return dispatch_wgmma(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, kv_len,
                           offset, causal, window, kv_pad, scale, s);
   }
   if (dtype == 0)
-    return dispatch(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, kv_len, offset,
-                    causal, window, kv_pad, scale, s);
+    return dispatch(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, kv_len,
+                    offset, causal, window, kv_pad, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

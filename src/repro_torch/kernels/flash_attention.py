@@ -47,6 +47,23 @@ blocked online softmax of ``chunked_attention``; the CPU path and the
 kernel's on-card check use it.  In bf16 the two round p against the
 running max of their own key tiles, so :func:`bf16_disagreement` holds
 them to each other with the plain version at ``bk=KEY_TILE``.
+
+The gradient.  Given ``lse=True`` both routes also write each row's
+log-sum-exp (B, Hq, Sq) f32, which :func:`flash_attention_bwd_kernel`
+reads: ``csrc/flash_attention_bwd.cu``, replacing no TPU kernel (the
+reference differentiates ``chunked_attention`` by XLA's autodiff).  Three
+launches -- delta = rowsum(dO * O), a dK/dV kernel (a block per 64-key
+tile, KV head and batch row, looping over the G query heads and the query
+tiles that see the tile) and a dQ kernel (a block per query tile) -- each
+output written once, no atomics, so a run is deterministic; bf16 on the
+tensor cores (``mma.sync``), f32 on the CUDA cores; head dims
+``BWD_HEAD_DIMS``.  :class:`FlashAttention` is the ``torch.autograd.
+Function`` pairing the two; :func:`flash_attention_bwd_plain` is the
+backward kernels' arithmetic in plain PyTorch (the CPU tests' check of the
+formulas), and autograd through :func:`flash_attention_plain` the check of
+both.  Rows that see no key (``Model.loss`` never makes them) are outside
+the backward's contract: it gives them zero gradients, where the forward
+gave them the mean of v.
 """
 from __future__ import annotations
 
@@ -59,8 +76,10 @@ import torch.nn.functional as F
 
 from . import build
 
-__all__ = ["NEG_INF", "KEY_TILE", "flash_attention_plain",
-           "flash_attention_kernel", "bf16_disagreement"]
+__all__ = ["NEG_INF", "KEY_TILE", "BWD_HEAD_DIMS", "flash_attention_plain",
+           "flash_attention_kernel", "flash_attention_bwd_plain",
+           "flash_attention_bwd_kernel", "FlashAttention",
+           "bf16_disagreement", "bf16_grad_disagreement"]
 # ``flash_attention``, the reference's module-level name, is the dispatching op
 # of ``ops.py``, which binds it into this module.
 
@@ -76,14 +95,16 @@ def _resolve(Sq: int, Skv: int, kv_len, offset):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          kv_len=None, offset=None, bk: int = 256):
+                          kv_len=None, offset=None, bk: int = 256,
+                          return_lse: bool = False):
     """Blocked online-softmax attention over tiles of ``bk`` keys.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); ``kv_len`` (default Skv)
     real keys; ``offset`` (default ``kv_len - Sq``) the position of query
     row 0.  GQA is a grouped contraction; the repeated K/V never
     materializes.  One step per kv tile for all query rows at once.
-    Returns (B, Sq, Hq, D) in q.dtype."""
+    Returns (B, Sq, Hq, D) in q.dtype, and with ``return_lse`` also each
+    row's m + ln l, (B, Hq, Sq) f32."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -119,18 +140,23 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
             "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vb.float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]         # (B,Hkv,G,Sq,D)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, Hq, Sq)
+    return out
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)   # the backward's; D = 256 (the hybrid
+                                    # family) waits for its training
 
 
 @functools.cache
 def _entry():
     lib = build.load("flash_attention")
     fn = lib.flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     tile = lib.flash_attention_key_tile
@@ -143,23 +169,29 @@ def _entry():
     return lib, fn
 
 
+def _check_inputs(tensors, what):
+    if not all(t.is_cuda and t.device == tensors[0].device for t in tensors):
+        raise ValueError(f"{what} takes CUDA tensors on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} needs contiguous inputs")
+    if tensors[0].dtype not in _DTYPE_CODE or any(
+            t.dtype != tensors[0].dtype for t in tensors):
+        raise ValueError(f"{what}: unsupported dtypes "
+                         f"{[t.dtype for t in tensors]}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what} needs 16-byte aligned tensors")
+
+
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
-                           kv_len=None, offset=None, bk: int = 256):
+                           kv_len=None, offset=None, bk: int = 256,
+                           lse: bool = False):
     """The CUDA kernel: the contract of :func:`flash_attention_plain` on
     contiguous CUDA tensors of one dtype, float32 (CUDA cores) or bfloat16
     (tensor cores), with head dim D in ``HEAD_DIMS``.  ``bk`` only pads the
     kv length a row that sees no key walks; in bf16 the kernel steps over
-    ``KEY_TILE`` keys at a time (32 in f32)."""
-    tensors = (q, k, v)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("flash_attention_kernel takes CUDA tensors on one "
-                         "device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_attention_kernel needs contiguous inputs")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"unsupported dtypes {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
+    ``KEY_TILE`` keys at a time (32 in f32).  With ``lse`` returns (out,
+    each row's m + ln l as (B, Hq, Sq) f32), the backward's input."""
+    _check_inputs((q, k, v), "flash_attention_kernel")
     B, Sq, Hq, D = q.shape
     Bk, Skv, Hkv, Dk = k.shape
     if Bk != B or Dk != D or v.shape != k.shape or Hkv == 0 or Hq % Hkv:
@@ -167,26 +199,146 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} is not one of {HEAD_DIMS}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("flash_attention_kernel needs 16-byte aligned "
-                         "tensors")
     kv_len, offset = _resolve(Sq, Skv, kv_len, offset)
     if not 0 <= kv_len <= Skv or bk < 1 or window < 0:
         raise ValueError(f"bad kv_len {kv_len}, tile {bk} or window "
                          f"{window}")
     out = torch.empty_like(q)
+    rows = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                       device=q.device) if lse else None
     lib, fn = _entry()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if rows is None else rows.data_ptr(),
              B, Sq, Skv, Hq, Hkv, D, kv_len, offset, int(causal),
              int(window), -(-Skv // bk) * bk,
              1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention", err)
     flash_attention_kernel.launches += 1
-    return out
+    return (out, rows) if lse else out
 
 
 flash_attention_kernel.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = True,
+                              window: int = 0, kv_len=None, offset=None):
+    """The backward kernels' arithmetic in plain PyTorch: (dq, dk, dv) in
+    the inputs' dtypes, from the forward's ``out`` and ``lse`` (B, Hq, Sq)
+    and the output's gradient ``dout``.  P = exp(scale q.k - lse) where the
+    row sees the key, delta = rowsum(dout * out), dS = P (dout.v - delta);
+    dv = P^T dout with P rounded to v's dtype, dk = scale dS^T q and dq =
+    scale dS k with dS rounded to q's dtype (the tensor-core operands), in
+    f32.  Rows that see no key get zero gradients."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kv_len, offset = _resolve(Sq, Skv, kv_len, offset)
+    dev = q.device
+    scale = 1.0 / math.sqrt(D)
+    q_pos = torch.arange(Sq, device=dev)[:, None] + offset
+    kv_pos = torch.arange(Skv, device=dev)[None, :]
+    mask = kv_pos < kv_len
+    if causal:
+        mask = mask & (kv_pos <= q_pos)
+    if window:
+        mask = mask & (kv_pos > q_pos - window)
+    qg = q.float().reshape(B, Sq, Hkv, G, D)
+    dog = dout.float().reshape(B, Sq, Hkv, G, D)
+    delta = (dout.float() * out.float()).sum(-1)             # (B, Sq, Hq)
+    delta = delta.reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)[..., None]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, Hkv, G, Sq, 1)), 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(v.dtype).float(), dog)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@functools.cache
+def _bwd_entry():
+    lib = build.load("flash_attention_bwd")
+    delta = lib.flash_attention_bwd_delta
+    delta.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    delta.restype = ctypes.c_int
+    grads = lib.flash_attention_bwd
+    grads.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    grads.restype = ctypes.c_int
+    return lib, delta, grads
+
+
+def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal: bool = True,
+                               window: int = 0, kv_len=None, offset=None):
+    """The backward kernels: (dq, dk, dv) of the forward's contract on
+    contiguous CUDA tensors of one dtype (f32 on the CUDA cores, bf16 on
+    the tensor cores), head dim D in ``BWD_HEAD_DIMS``, ``lse`` (B, Hq, Sq)
+    f32 from ``flash_attention_kernel(..., lse=True)``.  One call, one
+    count: three launches (delta, dk and dv, dq), deterministic."""
+    _check_inputs((q, k, v, out, dout), "flash_attention_bwd_kernel")
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape \
+            or out.shape != q.shape or dout.shape != q.shape \
+            or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"bad shapes: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}")
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"head_dim {D} is not one of {BWD_HEAD_DIMS}")
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be (B, Hq, Sq) contiguous f32 on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype}")
+    kv_len, offset = _resolve(Sq, Skv, kv_len, offset)
+    if not 0 <= kv_len <= Skv or window < 0:
+        raise ValueError(f"bad kv_len {kv_len} or window {window}")
+    dt = _DTYPE_CODE[q.dtype]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lib, fn_delta, fn = _bwd_entry()
+    build.check(lib, "flash_attention_bwd", fn_delta(
+        out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, Sq, Hq, D, dt,
+        stream))
+    tail = (B, Sq, Skv, Hq, Hkv, D, kv_len, offset, int(causal), int(window),
+            1.0 / math.sqrt(D), dt, stream)
+    for which in (1, 2):
+        build.check(lib, "flash_attention_bwd", fn(
+            which, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *tail))
+    flash_attention_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel pair under autograd: the forward kernel writing its rows'
+    lse, the backward kernels reading it.  ``kw``: the forward's keywords
+    (``causal``, ``window``, ``kv_len``, ``offset``, ``bk``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out, lse = flash_attention_kernel(q, k, v, lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = {key: kw[key] for key in ("causal", "window", "kv_len",
+                                           "offset")}
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, out,
+                                                dout.contiguous(), lse,
+                                                **ctx.kw)
+        return dq, dk, dv, None
 
 
 # bf16 check of the kernel against flash_attention_plain(..., bk=KEY_TILE):
@@ -213,3 +365,25 @@ def bf16_disagreement(got, want):
     off = g != w
     ratio = torch.where(off, (g - w).abs() / limit, 0.0).max().item()
     return ratio, off.float().mean().item()
+
+
+# The backward's checks.  f32: each of dq, dk, dv within BWD_F32_TOL of its
+# largest magnitude (the same sums in another order).  bf16 (the kernels'
+# operands P and dS rounded, against autograd through the bf16 plain
+# version, which rounds other intermediates): the largest difference within
+# BWD_BF16_MAX of the largest magnitude and the mean within BWD_BF16_MEAN of
+# the mean magnitude; both are about 5e-3 / 3e-3 at the shapes of the tests,
+# and a wrong mask moves them by orders of magnitude.
+BWD_F32_TOL = 2e-5
+BWD_BF16_MAX = 2 ** -6
+BWD_BF16_MEAN = 2 ** -7
+
+
+def bf16_grad_disagreement(got, want):
+    """(max |got - want| / max |want|, mean |got - want| / mean |want|) of
+    two gradients, in f32."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    return ((err.max() / w.abs().max()).item(),
+            (err.mean() / w.abs().mean()).item())
+

@@ -18,7 +18,8 @@ from .chain_scan import (chain_scan_kernel, chain_scan_plain, tm_chain_kernel,
                          tm_chain_plain)
 from .csd_matvec import (csd_matvec_kernel, csd_matvec_plain,
                          csd_qsweep_kernel, csd_qsweep_plain)
-from .flash_attention import flash_attention_kernel, flash_attention_plain
+from .flash_attention import (BWD_HEAD_DIMS, FlashAttention,
+                              flash_attention_kernel, flash_attention_plain)
 from .linear_scan import linear_scan_kernel, linear_scan_plain
 from .paged_attention import paged_attention_kernel, paged_attention_plain
 from .paged_gather import (paged_gather_kernel, paged_gather_pair_kernel,
@@ -75,6 +76,16 @@ def quantize_pot(w: torch.Tensor, *, bits: int = 8, axis=0):
 def _plain_or_raise(t: torch.Tensor, what: str) -> None:
     if t.device.type != "cpu":
         raise RuntimeError(f"{what}: no kernel for device {t.device}")
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _no_backward(what: str, family: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} has no backward kernel on the card: the {family} family's "
+        f"training waits in ROADMAP.md, queue 1, item 11")
 
 
 def qmatmul(x_i8: torch.Tensor, w_i8: torch.Tensor, exp_i32: torch.Tensor,
@@ -202,13 +213,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     only matters to a row that sees no key (see
     ``kernels/flash_attention.py``).  ``bq`` and ``interpret``, the
     reference's TPU query tile and interpret switch, are accepted and
-    ignored."""
+    ignored.
+
+    On CUDA tensors that need a gradient (grad mode on, an input requiring
+    it) the call goes through :class:`~repro_torch.kernels.flash_attention.
+    FlashAttention`, the forward kernel writing its rows' lse and the
+    backward kernels reading it (head dims below 256); otherwise it is one
+    forward launch with no lse.  On the CPU autograd differentiates the
+    plain version, as XLA differentiates the reference's scan."""
     Sq, Skv = q.shape[1], k.shape[1]
     kw = dict(causal=causal, window=window, kv_len=Skv,
               offset=Skv - Sq if offset is None else offset, bk=bk)
     if q.is_cuda:
-        return flash_attention_kernel(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), **kw)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if not _needs_grad(q, k, v):
+            return flash_attention_kernel(q, k, v, **kw)
+        if q.shape[-1] not in BWD_HEAD_DIMS:
+            raise _no_backward(f"flash attention at head dim {q.shape[-1]}",
+                               "hybrid")
+        return FlashAttention.apply(q, k, v, kw)
     _plain_or_raise(q, "flash_attention")
     return flash_attention_plain(q, k, v, **kw)
 
@@ -220,6 +243,8 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor, *, bt=None, bw=None,
     (nothing is padded).  The CUDA kernel is bit-identical to the plain
     version.  ``bt``, ``bw`` and ``interpret``, the reference's TPU tiling
     and interpret switch, are accepted and ignored."""
+    if a.is_cuda and _needs_grad(a, x):
+        raise _no_backward("linear_scan", "hybrid")
     a = a.to(torch.float32).contiguous()
     x = x.to(torch.float32).contiguous()
     if a.is_cuda:
@@ -235,6 +260,8 @@ def wkv6(r, k, v, w, u, s0):
     f32 -> (y (B, S, H, hd) f32, the final state).  The CUDA kernel's
     state is bit-identical to the plain version's, y equal up to the
     order of the hd-term sums."""
+    if r.is_cuda and _needs_grad(r, k, v, w, u, s0):
+        raise _no_backward("wkv6", "RWKV6")
     r, k, v = (t.contiguous() for t in (r, k, v))
     w, u, s0 = (t.to(torch.float32).contiguous() for t in (w, u, s0))
     if r.is_cuda:

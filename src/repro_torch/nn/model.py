@@ -62,13 +62,23 @@ Public surface:
     logits, cache = m.prefill_chunk(params, cache, tokens, slot, off, nv)
     logits, cache = m.decode_step(params, cache, tokens, pos)
 
-Nothing here takes a gradient: every entry point runs under
-``torch.no_grad``, and the backbone has no rematerialization.
+``loss`` takes a gradient (``runtime/step.py``): on the card every
+attention call goes through the flash kernel, whose gradient is the flash
+backward kernel.  With ``cfg.remat`` each layer of the trunk runs under
+``torch.utils.checkpoint`` (non-reentrant), which recomputes it in the
+backward pass, as the reference wraps its scanned layer in
+``jax.checkpoint``.  Callers that only score (the PTQ searches,
+``serving_ledger``) pass parameters that require no gradient, so no graph
+is built.  The serving entry points (``prefill``, ``prefill_chunks``,
+``decode_step``) run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import blocks
 from .layers import _gather_kv_rows, chunk_cache_attention, rms_norm, rope
@@ -93,6 +103,19 @@ def layer_params(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i] if torch.is_tensor(tree) and tree.ndim else tree
+
+
+def unstack_layers(tree, n: int) -> list:
+    """The ``n`` per-layer slices of a stacked tree, by one ``unbind`` a
+    leaf: the same views as ``layer_params``, but the gradient of a stacked
+    leaf is then one stack of its layers' gradients, not one leaf-sized
+    sum a layer."""
+    if isinstance(tree, dict):
+        per = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    if torch.is_tensor(tree) and tree.ndim:
+        return list(torch.unbind(tree, 0))
+    return [tree] * n
 
 
 def params_from_jax(tree, device="cuda"):
@@ -207,6 +230,15 @@ class Model:
         }
 
     # ------------------------------------------------------------- forward
+    def _remat(self, fn, *args):
+        """``fn(*args)``; with ``cfg.remat`` while a graph may be built,
+        under ``torch.utils.checkpoint`` (recomputed in the backward pass,
+        the reference's ``jax.checkpoint`` of a layer)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+
     def _ffn(self, p, h):
         """A decoder layer's FFN on its normed input: (y, the MoE's aux
         loss, or None for the dense MLP)."""
@@ -230,9 +262,9 @@ class Model:
         layer, then ``enc_norm``."""
         cfg = self.cfg
         x = torch.as_tensor(frames, device=self.device).to(self.dtype)
-        for i in range(cfg.n_enc_layers):
-            x, _ = self._decoder_block(layer_params(params["enc_layers"], i),
-                                       x, causal=False)
+        block = functools.partial(self._decoder_block, causal=False)
+        for p in unstack_layers(params["enc_layers"], cfg.n_enc_layers):
+            x, _ = self._remat(block, p, x)
         return rms_norm(x, params["enc_norm"].to(x.dtype), cfg.norm_eps)
 
     def _cross_block(self, p, x, enc):
@@ -316,23 +348,17 @@ class Model:
         layer order, 0-d f32; zero but for MoE)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if cfg.family == "audio":
-            for i in range(cfg.n_layers):
-                x = self._cross_block(layer_params(params["layers"], i), x,
-                                      enc)[0]
-        elif cfg.family in ("dense", "moe", "vlm"):
-            for i in range(cfg.n_layers):
-                x, a = self._decoder_block(layer_params(params["layers"], i),
-                                           x)
-                if a is not None:
-                    aux = aux + a
-        elif cfg.family == "ssm":
-            for i in range(cfg.n_layers):
-                x = self._ssm_block(layer_params(params["layers"], i), x)[0]
-        else:
-            for i in range(cfg.n_layers // 3):
-                x, _, _ = self._hybrid_unit(
-                    layer_params(params["layers"], i), x)
+        n = cfg.n_layers // 3 if cfg.family == "hybrid" else cfg.n_layers
+        block = {"audio": self._cross_block, "ssm": self._ssm_block,
+                 "hybrid": self._hybrid_unit}.get(cfg.family,
+                                                   self._decoder_block)
+        extra = (enc,) if cfg.family == "audio" else ()
+        for p in unstack_layers(params["layers"], n):
+            out = self._remat(block, p, x, *extra)
+            x = out[0]
+            if cfg.family in ("dense", "moe", "vlm") and out[1] is not None:
+                aux = aux + out[1]
+        if cfg.family == "hybrid":
             for tp in params.get("tail", []):
                 x, _, _ = self._tail_layer(tp, x)
         x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
@@ -379,7 +405,6 @@ class Model:
             cnt = cnt + mc.sum()
         return tot / torch.clamp(cnt, min=1.0)
 
-    @torch.no_grad()
     def loss(self, params, batch):
         """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
         of (B, S), audio's ``"frames"`` (B, F, d), VLM's ``"patch_embeds"``

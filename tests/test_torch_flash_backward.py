@@ -1,0 +1,275 @@
+"""The gradient of repro_torch's flash attention.
+
+On the CPU: autograd through the plain route (``ops.flash_attention``)
+against ``jax.grad`` of the reference's ``chunked_attention`` within 2e-5
+(causal GQA, a window with an offset, non-causal, cross-length); the
+backward kernels' arithmetic in plain PyTorch (``flash_attention_bwd_plain``)
+against autograd through the plain forward, f32 within 2e-5 of each
+gradient's largest magnitude and bf16 under ``bf16_grad_disagreement``; the
+plain version's lse against a dense log-sum-exp.
+
+On the card (``gpu`` marker): the backward kernels through
+``FlashAttention`` against autograd through the plain version -- f32 (the
+CUDA cores) within ``BWD_F32_TOL`` of each gradient's largest magnitude,
+bf16 (the tensor cores) under ``bf16_grad_disagreement`` -- at causal GQA
+7:1 and 8:1, a window with an offset, non-causal, MHA and cross-length
+shapes at every head dim the backward takes; two runs bit-identical; the
+forward's lse; the refusals under grad (``linear_scan``, ``wkv6``, flash at
+D = 256)."""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+try:    # the JAX package is the oracle; without JAX only -m gpu runs here
+    import jax
+    import jax.numpy as jnp
+    from repro.nn.layers import chunked_attention as jchunked
+except ImportError:
+    jax = None
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (
+    BWD_BF16_MAX, BWD_BF16_MEAN, BWD_F32_TOL, BWD_HEAD_DIMS, KEY_TILE,
+    bf16_grad_disagreement, flash_attention_bwd_kernel,
+    flash_attention_bwd_plain, flash_attention_kernel, flash_attention_plain)
+
+TOL = 2e-5          # f32: the same sums in another order
+
+# (B, Sq, Skv, Hq, Hkv, D, causal, window, offset); offset None is
+# Skv - Sq, as Model.loss and prefill pass it
+CASES = [
+    (2, 96, 96, 14, 2, 64, True, 0, None),      # causal GQA 7:1
+    (1, 100, 300, 4, 1, 32, True, 40, 200),     # window + offset, cross-len
+    (2, 64, 150, 4, 4, 16, False, 0, None),     # non-causal, cross-length
+    (1, 80, 80, 8, 1, 16, True, 0, None),       # GQA 8:1
+]
+
+
+def _inputs(seed, B, Sq, Skv, Hq, Hkv, D):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(0, 1, s).astype(np.float32)
+            for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D),
+                      (B, Sq, Hq, D))]
+
+
+def _kw(case):
+    B, Sq, Skv, Hq, Hkv, D, causal, window, offset = case
+    return dict(causal=causal, window=window,
+                offset=Skv - Sq if offset is None else offset)
+
+
+def _plain_grads(q, k, v, dout, kw, bk=256):
+    """Autograd through the plain forward: (out, dq, dk, dv)."""
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = flash_attention_plain(q, k, v, kv_len=k.shape[1], bk=bk, **kw)
+    return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
+
+
+def _assert_rel(got, want, tol):
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item()
+        assert err <= tol * w.abs().max().item(), (err, w.abs().max())
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_plain_gradient_matches_jax_grad(case):
+    """ops.flash_attention on the CPU differentiates the plain version:
+    dq, dk, dv within 2e-5 of jax.grad of the reference's
+    chunked_attention on the same inputs and output gradient."""
+    B, Sq, Skv, Hq, Hkv, D = case[:6]
+    kw = _kw(case)
+    x = _inputs(1, B, Sq, Skv, Hq, Hkv, D)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in x[:3])
+    out = ops.flash_attention(q, k, v, bk=64, **kw)
+    got = torch.autograd.grad(out, (q, k, v), torch.from_numpy(x[3]))
+
+    def f(q, k, v):
+        o = jchunked(q, k, v, causal=kw["causal"], window=kw["window"],
+                     block_q=32, block_kv=64, q_offset=kw["offset"])
+        return jnp.sum(o * jnp.asarray(x[3]))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in x[:3]))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_backward_arithmetic_matches_autograd_f32(case):
+    """The backward kernels' formulas (lse, delta, P, dS) in plain PyTorch
+    give autograd's dq, dk, dv within 2e-5 of each one's largest
+    magnitude."""
+    B, Sq, Skv, Hq, Hkv, D = case[:6]
+    kw = _kw(case)
+    q, k, v, dout = (torch.from_numpy(a)
+                     for a in _inputs(2, B, Sq, Skv, Hq, Hkv, D))
+    out, lse = flash_attention_plain(q, k, v, kv_len=Skv, return_lse=True,
+                                     **kw)
+    want = _plain_grads(q, k, v, dout, kw)[1:]
+    got = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    _assert_rel(got, want, TOL)
+
+
+def test_backward_arithmetic_bf16_rule():
+    """In bf16 the backward's arithmetic (P rounded for dv, dS for dq and
+    dk) and autograd through the bf16 plain forward agree under
+    ``bf16_grad_disagreement``'s limits; a wrong mask breaks them."""
+    case = (2, 128, 128, 14, 2, 64, True, 0, None)
+    kw = _kw(case)
+    q, k, v, dout = (torch.from_numpy(a).bfloat16()
+                     for a in _inputs(3, *case[:6]))
+    out, lse = flash_attention_plain(q, k, v, kv_len=128, bk=KEY_TILE,
+                                     return_lse=True, **kw)
+    want = _plain_grads(q, k, v, dout, kw, bk=KEY_TILE)[1:]
+    got = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    for g, w in zip(got, want):
+        mx, mean = bf16_grad_disagreement(g, w)
+        assert mx <= BWD_BF16_MAX and mean <= BWD_BF16_MEAN, (mx, mean)
+    wrong = flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                      **dict(kw, causal=False))
+    assert any(bf16_grad_disagreement(g, w)[1] > BWD_BF16_MEAN
+               for g, w in zip(wrong, want))
+
+
+def test_plain_lse_is_the_rows_log_sum_exp():
+    """return_lse gives m + ln l, the log-sum-exp of each row's visible
+    scores, (B, Hq, Sq)."""
+    B, Sq, Skv, Hq, Hkv, D = 1, 50, 120, 4, 2, 32
+    q, k, v, _ = (torch.from_numpy(a)
+                  for a in _inputs(4, B, Sq, Skv, Hq, Hkv, D))
+    _, lse = flash_attention_plain(q, k, v, window=30, bk=32,
+                                   return_lse=True)
+    s = torch.einsum("bqhd,bkhd->bhqk", q,
+                     k.repeat_interleave(Hq // Hkv, dim=2)) / math.sqrt(D)
+    qp = torch.arange(Sq)[:, None] + Skv - Sq
+    kp = torch.arange(Skv)[None, :]
+    s = torch.where((kp <= qp) & (kp > qp - 30), s, -torch.inf)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_cpu_grad_takes_the_plain_route():
+    """On the CPU a call that needs a gradient launches no kernel."""
+    q, k, v, dout = (torch.from_numpy(a).requires_grad_()
+                     for a in _inputs(5, 1, 40, 40, 4, 2, 16))
+    n0 = flash_attention_kernel.launches
+    b0 = flash_attention_bwd_kernel.launches
+    ops.flash_attention(q, k, v).backward(dout.detach())
+    assert q.grad is not None and k.grad is not None and v.grad is not None
+    assert flash_attention_kernel.launches == n0
+    assert flash_attention_bwd_kernel.launches == b0
+
+
+# ----------------------------------------------------------------- the card
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+
+
+GPU_CASES = [
+    (2, 200, 200, 14, 2, 64, True, 0, None),     # causal GQA 7:1 (qwen2)
+    (1, 190, 190, 16, 2, 128, True, 0, None),    # GQA 8:1 at D = 128
+    (1, 150, 333, 4, 1, 64, True, 100, 120),     # window + offset, cross
+    (2, 64, 200, 4, 4, 32, False, 0, None),      # non-causal, cross-length
+    (1, 129, 129, 8, 8, 128, True, 0, None),     # MHA, a ragged tile
+    (2, 100, 300, 4, 1, 64, True, 0, None),      # causal cross-length
+] + [(2, 77, 77, 4, 2, D, True, 0, None) for D in BWD_HEAD_DIMS]
+
+
+def _card_inputs(case, dt, seed=6):
+    return [torch.from_numpy(a).to("cuda", dt)
+            for a in _inputs(seed, *case[:6])]
+
+
+def _kernel_grads(q, k, v, dout, kw):
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(q, k, v, **kw)
+    return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GPU_CASES, ids=str)
+def test_gpu_backward_vs_plain_autograd(dtype, case):
+    """The backward kernels through FlashAttention against autograd
+    through the plain version: f32 within BWD_F32_TOL of each gradient's
+    largest magnitude, bf16 under bf16_grad_disagreement (the plain
+    version at the kernel's key tile).  One forward launch and one backward
+    call are counted."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    q, k, v, dout = _card_inputs(case, dt)
+    kw = _kw(case)
+    n0 = flash_attention_kernel.launches
+    b0 = flash_attention_bwd_kernel.launches
+    got = _kernel_grads(q, k, v, dout, kw)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == n0 + 1
+    assert flash_attention_bwd_kernel.launches == b0 + 1
+    want = _plain_grads(q, k, v, dout, kw,
+                        bk=256 if dtype == "float32" else KEY_TILE)
+    for g in got:
+        assert g.dtype == dt and bool(torch.isfinite(g).all())
+    if dtype == "float32":
+        _assert_rel(got[1:], want[1:], BWD_F32_TOL)
+    else:
+        for g, w in zip(got[1:], want[1:]):
+            mx, mean = bf16_grad_disagreement(g, w)
+            assert mx <= BWD_BF16_MAX and mean <= BWD_BF16_MEAN, (mx, mean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_backward_is_deterministic(dtype):
+    """Two backward calls on the same inputs give bit-identical dq, dk,
+    dv (no atomics: each output is written once)."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    case = (2, 300, 300, 14, 2, 64, True, 0, None)
+    q, k, v, dout = _card_inputs(case, dt, seed=7)
+    out, lse = flash_attention_kernel(q, k, v, lse=True)
+    kw = dict(causal=True, window=0, kv_len=300, offset=0)
+    a = flash_attention_bwd_kernel(q, k, v, out, dout, lse, **kw)
+    b = flash_attention_bwd_kernel(q, k, v, out, dout, lse, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_forward_lse(dtype):
+    """The forward's lse against the plain version's, and the output with
+    lse written equal to the output without."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    case = (2, 150, 333, 14, 2, 64, True, 100, 120)
+    q, k, v, _ = _card_inputs(case, dt, seed=8)
+    kw = dict(causal=True, window=100, offset=120)
+    out, lse = flash_attention_kernel(q, k, v, lse=True, **kw)
+    assert torch.equal(out, flash_attention_kernel(q, k, v, **kw))
+    _, want = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want, atol=2e-5 if dtype == "float32"
+                               else 1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_kernels_without_a_backward_raise_under_grad():
+    """Under grad on the card linear_scan, wkv6 and flash at D = 256 raise
+    NotImplementedError; without grad they launch."""
+    _needs_card()
+    a = torch.rand(1, 8, 16, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ops.linear_scan(a, torch.rand(1, 8, 16, device="cuda"))
+    r = torch.rand(1, 4, 2, 16, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ops.wkv6(r, r.detach(), r.detach(), r.detach(),
+                 torch.rand(2, 16, device="cuda"),
+                 torch.zeros(1, 2, 16, 16, device="cuda"))
+    q = torch.rand(1, 8, 2, 256, device="cuda", dtype=torch.bfloat16,
+                   requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ops.flash_attention(q, q.detach(), q.detach())
+    with torch.no_grad():
+        assert ops.flash_attention(q, q, q).shape == q.shape
