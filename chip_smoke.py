@@ -308,7 +308,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 15. training, after the dense phase's memory is freed: (a) ptxas's
    registers and spills of every instantiation of the flash backward
    (``flash_attention_bwd.cu``: delta, dk/dv and dq, f32 on the CUDA cores
-   and bf16 on the tensor cores; a spill fails the run), then the
+   and bf16 on the tensor cores, 20; a spill fails the run), then the
    backward through ``FlashAttention`` against autograd through the plain
    version at qwen2-0.5b's loss shape (8, 1024, 14 / 2 heads of 64) and at
    D = 128, GQA 8:1 (qwen2.5-3b's 16 / 2), causal, f32 within
@@ -316,7 +316,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``bf16_grad_disagreement``, two runs bit-identical in each dtype, and
    in bf16 timed beside its bound (five products), autograd's backward
    through the plain version and ``scaled_dot_product_attention``'s
-   backward, each of its three kernels' device time printed; the forward
+   backward (the device time of its kernels, and eager), the device time
+   of each of its two bf16 kernels (dq, which writes delta, and dk/dv, on
+   the cluster size ``bwd_cluster`` picks) printed; the forward
    at the loss shape timed with and without its lse; (b) the f32
    ``Model.loss`` gradient of qwen2-0.5b at full width and 2 layers
    (norms and biases seeded), 2 x 256, on the card against the same call
@@ -1676,6 +1678,30 @@ def event_ms(torch, fn, reps):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_time_ms(torch, fn, reps):
+    """Device milliseconds a call of ``fn``: ``reps`` calls enqueued behind
+    a ``torch.cuda._sleep`` longer than the host takes to enqueue them,
+    between two CUDA events, so the host's own time (Python, autograd,
+    launch gaps) stays out of the reading; after one untimed call, and one
+    timed on the host that sizes the sleep."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 2_000_000)  # > host_s at 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -4761,8 +4787,8 @@ def train_kernel_readings(torch):
                   for n in re.findall(r"(\d+) bytes spill", line)]
         print(f"flash_attention_bwd {fn}: ptxas {' / '.join(lines)}")
         check(not any(spills), f"flash_attention_bwd {fn} spills: {lines}")
-    check(len(ptxas) == 18, f"flash_attention_bwd: {len(ptxas)} "
-                            f"instantiations in ptxas's log, not 18")
+    check(len(ptxas) == 20, f"flash_attention_bwd: {len(ptxas)} "
+                            f"instantiations in ptxas's log, not 20")
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(shape, dt):
@@ -4839,10 +4865,14 @@ def train_kernel_readings(torch):
     loss = row["shapes"]["qwen2-0.5b loss"]
     row.update({
         "name": "flash_attention_bwd", "route": "cuda",
-        "routes": {"bfloat16": "tensor cores: mma.sync m16n8k16, cp.async "
-                               "ring of 2 stages",
+        "routes": {"bfloat16": "tensor cores: wgmma, a producer warp's "
+                               "TMA ring of 3 stages, warp-specialised "
+                               "consumers (setmaxnreg); dK/dV a block per "
+                               "(key tile, query head, batch row), GQA's "
+                               "head sum over a thread-block cluster",
                    "float32": "CUDA cores"},
-        "kernels": ["delta", "dk/dv", "dq"],
+        "kernels": {"bfloat16": ["dq (and delta)", "dk/dv"],
+                    "float32": ["delta", "dk/dv", "dq"]},
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "none: src/repro/nn/layers.py:67 (chunked_attention, "
                     "differentiated by XLA's autodiff; no Pallas backward)",
@@ -4851,7 +4881,10 @@ def train_kernel_readings(torch):
         "bound_ms": loss["bound_ms"], "bound_by": loss["bound_by"],
         "library_ms": loss["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention "
-                   "(is_causal, enable_gqa), backward only",
+                   "(is_causal, enable_gqa), backward only: the device "
+                   "time of every kernel it launches (torch.profiler)",
+        "library_eager_ms": loss["library_eager_ms"],
+        "library_backend": loss["library_backend"],
         "shape": "q (8,1024,14,64), k/v (8,1024,2,64) bf16 causal: one "
                  "Model.loss layer's gradient",
         "forward_lse": fwd,
@@ -4859,16 +4892,59 @@ def train_kernel_readings(torch):
     return row
 
 
+# the backward's bf16 kernels, by the names torch.profiler records (the dq
+# kernel also writes delta)
+FLASH_BWD_KERNELS = {"dq": "flash_bwd_dq_wgmma_kernel",
+                     "dkdv": "flash_bwd_dkdv_wgmma_kernel"}
+
+
+def sdpa_bwd_device_ms(torch, sets, reps):
+    """``scaled_dot_product_attention``'s backward (is_causal, enable_gqa)
+    as device time: ``reps`` rounds of ``torch.autograd.grad`` over the
+    input sets (q, k, v, out, dout, lse), every kernel it launches (GQA's
+    expand and sum included) timed by ``device_time_ms``; also the same
+    calls timed eagerly with CUDA events (autograd's host time inside),
+    the backend the dispatcher picks, and the kernels a profiled round
+    shows.  Returns (device ms, eager ms, backend, kernel names)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from torch.profiler import ProfilerActivity, profile
+    calls = []
+    for q, k, v, _, dout, _ in sets:
+        lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                              enable_gqa=True)
+        ldo = dout.transpose(1, 2).contiguous()
+        calls.append(lambda lout=lout, xs=(lq, lk, lv), ldo=ldo:
+                     torch.autograd.grad(lout, xs, ldo, retain_graph=True))
+    backend = SDPBackend(torch._fused_sdp_choice(
+        lq, lk, lv, is_causal=True, enable_gqa=True)).name
+
+    def round_():
+        for c in calls:
+            c()
+
+    device_ms = device_time_ms(torch, round_, reps) / len(calls)
+    eager_ms = event_ms(torch, round_, reps) / len(calls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        round_()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in device_events(prof)})
+    return device_ms, eager_ms, backend, names
+
+
 def flash_bwd_timing(torch, inputs, shape):
     """The backward's time in bf16 at ``shape`` (B, S, Hq, Hkv, D), causal:
     the kernels over input sets together twice the L2, each kernel's
-    device time (``torch.profiler`` on the first set), autograd's backward
-    through the plain version and ``scaled_dot_product_attention``'s
-    backward (eager, CUDA events)."""
-    import torch.nn.functional as F
+    device time (``device_time_ms`` of its launches through the C entry
+    point on the first set), autograd's backward through the plain version
+    and ``scaled_dot_product_attention``'s backward (device time of its
+    kernels over the same sets, and eager)."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_kernel, flash_attention_kernel,
-        flash_attention_plain)
+        _bwd_entry, bwd_cluster, flash_attention_bwd_kernel,
+        flash_attention_kernel, flash_attention_plain)
     B, S, Hq, Hkv, D = shape
     kw = dict(causal=True, window=0, kv_len=S, offset=0)
     one = 2 * (4 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
@@ -4882,33 +4958,49 @@ def flash_bwd_timing(torch, inputs, shape):
         return flash_attention_bwd_kernel(q, k, v, out, dout, lse, **kw)
 
     ms, eager_ms = time_calls(torch, bwd, sets, 3)
-    parts = {part: kernel_device_ms(torch, lambda: bwd(*sets[0]),
-                                    f"flash_bwd_{part}", 3)
-             for part in ("delta", "dkdv", "dq")}
-    q, k, v, _, dout, _ = sets[0]
+    cluster = bwd_cluster(
+        B, S, S, Hq, Hkv, D, sms=torch.cuda.get_device_properties(0)
+        .multi_processor_count, **kw)
+    # each kernel alone, launched as the wrapper launches it: dq (which
+    # writes delta) first, then dk/dv
+    lib, _, fn = _bwd_entry()
+    q, k, v, out, dout, lse = sets[0]
+    delta = torch.empty_like(lse)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(which):
+        build.check(lib, "flash_attention_bwd", fn(
+            which, *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta)),
+            *(g.data_ptr() for g in grads), B, S, S, Hq, Hkv, D, S, 0, 1, 0,
+            D ** -0.5, 1, cluster, stream))
+
+    parts = {"dq": device_time_ms(torch, lambda: launch(2), 10),
+             "dkdv": device_time_ms(torch, lambda: launch(1), 10)}
+    del delta, grads
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
     out = flash_attention_plain(qq, kk, vv, offset=0, bk=64)
     plain_ms = event_ms(torch, lambda: torch.autograd.grad(
         out, (qq, kk, vv), dout, retain_graph=True), 1)
-    del out
-    lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
-                                          enable_gqa=True)
-    ldo = dout.transpose(1, 2).contiguous()
-    lib_ms = event_ms(torch, lambda: torch.autograd.grad(
-        lout, (lq, lk, lv), ldo, retain_graph=True), 3)
+    del out, qq, kk, vv
+    lib_ms, lib_eager_ms, backend, lib_names = sdpa_bwd_device_ms(
+        torch, sets, 3)
     bound_ms, bound_by = flash_bwd_bound_ms(B, S, S, Hq, Hkv, D, True, 0,
                                             0, 2)
     print(f"flash_attention_bwd {shape} bf16: {ms*1e3:.2f} us on the card "
-          f"({eager_ms*1e3:.2f} us per eager call; delta / dk,dv / dq "
-          f"{parts['delta']*1e3:.2f} / {parts['dkdv']*1e3:.2f} / "
-          f"{parts['dq']*1e3:.2f} us), bound {bound_ms*1e3:.2f} us "
-          f"({bound_by}), plain autograd {plain_ms*1e3:.2f} us, "
-          f"scaled_dot_product_attention backward {lib_ms*1e3:.2f} us over "
-          f"{len(sets)} input sets [{CARD}]")
+          f"({eager_ms*1e3:.2f} us per eager call; dq with delta / dk,dv "
+          f"{parts['dq']*1e3:.2f} / {parts['dkdv']*1e3:.2f} us, clusters of "
+          f"{cluster}), bound {bound_ms*1e3:.2f} us "
+          f"({bound_by}, {100 * bound_ms / ms:.1f} %), plain autograd "
+          f"{plain_ms*1e3:.2f} us; scaled_dot_product_attention backward "
+          f"({backend}) {lib_ms*1e3:.2f} us of device time a call "
+          f"({lib_eager_ms*1e3:.2f} us per eager call; kernels "
+          f"{', '.join(n[:60] for n in lib_names)}) over {len(sets)} input "
+          f"sets [{CARD}]")
     return {"ms": ms, "eager_ms": eager_ms, "kernel_ms": parts,
             "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_eager_ms": lib_eager_ms, "library_backend": backend,
+            "cluster": cluster,
             "bound_ms": bound_ms, "bound_by": bound_by, "sets": len(sets)}
 
 
@@ -4976,8 +5068,8 @@ def train_launcher_run(torch):
     width and depth, 8 x 1024 bf16 batches, ``TRAIN_STEPS`` steps, the
     checkpoint into a temporary directory, removed after.  The flash
     counters zeroed just before and read just after: 48 forward launches
-    a step (24 and 24 for remat) and 24 backward calls (each of its three
-    kernels once); the first loss near ln V + s2/2; every loss and grad
+    a step (24 and 24 for remat) and 24 backward calls (each of its two
+    bf16 kernels once); the first loss near ln V + s2/2; every loss and grad
     norm finite; the step's time (its median past the first), tokens/s,
     the 6 N D share of the bf16 peak and the peak memory.  Returns the
     launches."""
@@ -5092,13 +5184,23 @@ def train_profile(torch):
         params, state, _ = step(params, state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, _ = report_profile(prof, wall * 1e6, "one train step", 14)
+    busy, by_name = report_profile(prof, wall * 1e6, "one train step", 14)
+    bwd = {part: tuple(map(sum, zip((0.0, 0), *(
+        v for n, v in by_name.items() if name in n))))
+        for part, name in FLASH_BWD_KERNELS.items()}
+    bwd_us = sum(t for t, _ in bwd.values())
     print(f"train (c'): the step's parts on synchronized host clocks: "
           + ", ".join(f"{k} {v*1e3:.1f} ms" for k, v in parts.items())
           + f"; profiled step {wall*1e3:.1f} ms, device busy "
-            f"{busy/1e3:.1f} ms [{CARD}]")
+            f"{busy/1e3:.1f} ms; the flash backward's kernels "
+            f"{bwd_us/1e3:.3f} ms ({100 * bwd_us / busy:.2f} % of busy: "
+          + ", ".join(f"{p} {t/1e3:.3f} ms in {n}" for p, (t, n)
+                      in bwd.items()) + f") [{CARD}]")
+    check(all(n == cfg.n_layers for _, n in bwd.values()),
+          f"train (c'): flash backward kernels in the step {bwd}")
     return {"parts_ms": {k: v * 1e3 for k, v in parts.items()},
-            "profiled_step_ms": wall * 1e3, "busy_ms": busy / 1e3}
+            "profiled_step_ms": wall * 1e3, "busy_ms": busy / 1e3,
+            "flash_bwd_ms": bwd_us / 1e3}
 
 
 def train_restart_check(torch):

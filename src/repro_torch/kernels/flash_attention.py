@@ -51,13 +51,19 @@ them to each other with the plain version at ``bk=KEY_TILE``.
 The gradient.  Given ``lse=True`` both routes also write each row's
 log-sum-exp (B, Hq, Sq) f32, which :func:`flash_attention_bwd_kernel`
 reads: ``csrc/flash_attention_bwd.cu``, replacing no TPU kernel (the
-reference differentiates ``chunked_attention`` by XLA's autodiff).  Three
-launches -- delta = rowsum(dO * O), a dK/dV kernel (a block per 64-key
-tile, KV head and batch row, looping over the G query heads and the query
-tiles that see the tile) and a dQ kernel (a block per query tile) -- each
-output written once, no atomics, so a run is deterministic; bf16 on the
-tensor cores (``mma.sync``), f32 on the CUDA cores; head dims
-``BWD_HEAD_DIMS``.  :class:`FlashAttention` is the ``torch.autograd.
+reference differentiates ``chunked_attention`` by XLA's autodiff): delta
+= rowsum(dO * O), a dQ kernel and a dK/dV kernel, each output written
+once, no atomics, sums in a fixed order, so a run is deterministic; head
+dims ``BWD_HEAD_DIMS``.  bf16 runs on the tensor cores (``wgmma``; a
+producer warp's TMA ring of 3 stages feeding one or two consumer
+warpgroups) in two launches: dQ a block per 64 query rows (128 at D =
+128), also writing its rows' delta; dK/dV a block per 64-key tile (128
+at D = 128), KV head and batch row, the G query heads' walks over the
+query tiles that see its keys split evenly over a thread-block cluster
+of :func:`bwd_cluster` blocks (a rule of the shape and the card's SM
+count), their dK and dV summed in f32 in rank order.  f32 runs on the
+CUDA cores in three launches (delta its own kernel; the dK/dV block
+walks the G heads itself).  :class:`FlashAttention` is the ``torch.autograd.
 Function`` pairing the two; :func:`flash_attention_bwd_plain` is the
 backward kernels' arithmetic in plain PyTorch (the CPU tests' check of the
 formulas), and autograd through :func:`flash_attention_plain` the check of
@@ -78,6 +84,7 @@ from . import build
 
 __all__ = ["NEG_INF", "KEY_TILE", "BWD_HEAD_DIMS", "flash_attention_plain",
            "flash_attention_kernel", "flash_attention_bwd_plain",
+           "bwd_walks", "bwd_cluster",
            "flash_attention_bwd_kernel", "FlashAttention",
            "bf16_disagreement", "bf16_grad_disagreement"]
 # ``flash_attention``, the reference's module-level name, is the dispatching op
@@ -150,6 +157,45 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 128)   # the backward's; D = 256 (the hybrid
                                     # family) waits for its training
+BWD_MAX_CLUSTER = 8                 # the portable thread-block cluster size
+BWD_SLACK = 1.15                    # bwd_cluster's tolerance over the share
+
+
+def bwd_walks(Sq, Skv, D, *, causal, window, kv_len, offset):
+    """The bf16 dK/dV kernel's walk over each of its key tiles (64 keys, 128
+    at D = 128): the number of 64-row query tiles that see the tile, one
+    query head's worth (``Mask::rows`` of ``flash_attention_bwd.cu``)."""
+    rows = 128 if D == 128 else 64
+    walks = []
+    for k0 in range(0, Skv, rows):
+        k1 = min(k0 + rows, kv_len)
+        lo = max(k0 - offset, 0) if causal else 0
+        hi = min(Sq, k1 - 1 + window - offset) if window else Sq
+        walks.append(-(-hi // 64) - lo // 64 if k0 < k1 and hi > lo else 0)
+    return walks
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_cluster(B, Sq, Skv, Hq, Hkv, D, *, causal, window, kv_len, offset,
+                sms):
+    """Blocks of one thread-block cluster of the bf16 dK/dV kernel, 1 to
+    min(G, 8): the G query heads' walks over a (key tile, KV head, batch
+    row) -- G times :func:`bwd_walks` steps -- are split evenly over the
+    cluster's blocks, which then sum their dK and dV in rank order.  The
+    smallest size whose longest block walk is within ``BWD_SLACK`` of the
+    balanced share (every block slot of the ``sms`` SMs busy to the end;
+    two blocks an SM, one at D = 128): a longer walk leaves slots idle at
+    the end, and every further block pays a start-up and its share of the
+    cluster's sum."""
+    G = Hq // Hkv
+    walks = bwd_walks(Sq, Skv, D, causal=causal, window=window,
+                      kv_len=kv_len, offset=offset)
+    share = G * sum(walks) * Hkv * B / (sms * (1 if D == 128 else 2))
+    top = min(G, BWD_MAX_CLUSTER)
+    for c in range(1, top):
+        if -(-G * max(walks, default=0) // c) <= BWD_SLACK * share:
+            return c
+    return top
 
 
 @functools.cache
@@ -266,8 +312,9 @@ def _bwd_entry():
         ctypes.c_void_p]
     delta.restype = ctypes.c_int
     grads = lib.flash_attention_bwd
-    grads.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
-        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    grads.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p]
     grads.restype = ctypes.c_int
     return lib, delta, grads
 
@@ -278,7 +325,9 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal: bool = True,
     contiguous CUDA tensors of one dtype (f32 on the CUDA cores, bf16 on
     the tensor cores), head dim D in ``BWD_HEAD_DIMS``, ``lse`` (B, Hq, Sq)
     f32 from ``flash_attention_kernel(..., lse=True)``.  One call, one
-    count: three launches (delta, dk and dv, dq), deterministic."""
+    count, deterministic: in f32 three launches (delta, dq, dk and dv); in
+    bf16 two (dq, which also writes delta, then dk and dv on clusters of
+    :func:`bwd_cluster` blocks)."""
     _check_inputs((q, k, v, out, dout), "flash_attention_bwd_kernel")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -302,16 +351,21 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal: bool = True,
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     lib, fn_delta, fn = _bwd_entry()
-    build.check(lib, "flash_attention_bwd", fn_delta(
-        out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, Sq, Hq, D, dt,
-        stream))
+    if dt == 0:                     # bf16: the dq launch writes delta
+        build.check(lib, "flash_attention_bwd", fn_delta(
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, Sq, Hq, D,
+            dt, stream))
+    cluster = 1 if dt == 0 else bwd_cluster(
+        B, Sq, Skv, Hq, Hkv, D, causal=bool(causal), window=window,
+        kv_len=kv_len, offset=offset,
+        sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
     tail = (B, Sq, Skv, Hq, Hkv, D, kv_len, offset, int(causal), int(window),
-            1.0 / math.sqrt(D), dt, stream)
-    for which in (1, 2):
+            1.0 / math.sqrt(D), dt, cluster, stream)
+    for which in (2, 1):            # dq, then dk and dv
         build.check(lib, "flash_attention_bwd", fn(
-            which, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *tail))
+            which, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *tail))
     flash_attention_bwd_kernel.launches += 1
     return dq, dk, dv
 
