@@ -9,7 +9,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    versions, and the build of every CUDA kernel of every path from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
    together; ptxas's registers and spills printed, a spill in the chain
-   kernels or ``wkv6`` fails the run);
+   kernels, ``wkv6`` or the flash backward fails the run, one in
+   ``wkv6_bwd`` at hd = 64 in phase 16);
 2. kernels: each kernel against its plain PyTorch version on the card at
    its path's shapes, and their device times beside the bound and the
    plain and library times.  The serving kernels at bf16, Hq=14, Hkv=2,
@@ -335,7 +336,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the first cuBLAS call): a failure injected at step 6 of 8, a checkpoint
    every 4 steps, every final leaf equal to an uninterrupted run's; (e)
    the tiny-train mirror on the card (60 steps, vocab 64): the loss drops
-   by more than 0.5.
+   by more than 0.5;
+16. RWKV6 training, after phase 15's memory is freed: (a) ptxas's
+   registers and spills of every instantiation of the WKV backward
+   (``wkv6_bwd.cu``, hd 16-128, f32 and bf16 r, k, v; a spill at hd = 64,
+   the path's width, fails) and the library's tiling, then the backward
+   kernel against its plain version from a nonzero state and final-state
+   gradient at the loss shape (8, 1024, 40, 64) and at S = 1 and 37 for
+   every hd, f32 and bf16, each gradient within ``WKV_BWD_TOL`` of its
+   largest magnitude, two calls bit-identical; through ``Wkv6`` at the
+   loss shape in bf16, dr, dk, dv within one bf16 ulp (plus the
+   tolerance) of the plain f32 gradients rounded; both dtypes timed at the
+   loss shape beside the bound (FP32 issue slots, ``wkv_bwd_slots``; bytes,
+   ``wkv_bwd_bytes``) and autograd through ``wkv6_plain``; (b) the f32
+   ``Model.loss`` gradient of rwkv6-3b at full width and 2 layers (``u``,
+   ``mu``, ``cm_mu``, ``ln_x``, ``w0`` seeded), 2 x 256, card against CPU,
+   each leaf within ``TRAIN_GRAD_TOL`` of its largest magnitude; (c)
+   ``launch/train.py --arch rwkv6-3b`` at full width and depth (2,863,434,240
+   f32 leaves), 8 x 1024 bf16 batches on f32 masters and f32 AdamW moments,
+   6 steps, the wkv6 counters zeroed just before and read just after (64
+   forward launches a step, 32 of them remat's recompute, and 32 backward
+   calls), the first loss near ln V + s2/2, every loss and grad norm
+   finite, no restart, the step's time, tokens/s, the 6 N D share and the
+   peak memory, the checkpoint written to a temporary directory and
+   removed; (c') one more step under ``torch.profiler``: the device busy
+   share and the wkv6 kernels' shares of it.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -510,6 +535,10 @@ RESTART_VOCAB, RESTART_STEPS, RESTART_FAIL = 4096, 8, 6
 # einsum as a batched product does; each is within a few ulps of the
 # row's larger terms.
 WKV_Y_TOL = 2e-5               # x the (b, t, h) row's max |y|
+# wkv6's backward against its plain version: each gradient within
+# WKV_BWD_TOL of its largest magnitude (f32 sums of hd terms in another
+# order, and G's update fused; the states are the same bits).
+WKV_BWD_TOL = 2e-5
 # The int8 power-of-two matmul: held bit for bit at the reference tests'
 # shapes, the kernel lane's (benchmarks/run.py) and M = 1; then at
 # qwen2-0.5b's widths at M = 8 (a decode step of 8 slots) and M = 512 (a
@@ -5326,6 +5355,380 @@ def train_phase(torch):
     return launches, figures
 
 
+def wkv_bwd_slots(B, S, H, hd):
+    """FP32 issue slots the backward needs at least: 9 a state entry a step
+    (the states rebuilt bit for bit, 3; dr, 1; G's update, 2; dk, dv, dw, 1
+    each) and the steps' scalars and bonus terms (a_t, c_t, the u terms of
+    dr, dk, dv and du), 10 a key."""
+    return B * S * H * (9 * hd * hd + 10 * hd)
+
+
+def wkv_bwd_bytes(B, S, H, hd, es=2):
+    """Bytes the backward must move: r, k, v read at ``es`` bytes an
+    element, w and dy read and dr, dk, dv, dw written in f32, u read and du
+    written, s0 and the final state's gradient read and ds0 written."""
+    n = B * S * H * hd
+    return 3 * es * n + 4 * (6 * n + 2 * H * hd + 3 * B * H * hd * hd)
+
+
+def wkv6_bwd_readings(torch):
+    """Phase 16 (a): the wkv6 backward kernel against its plain version on
+    the card.  ptxas's registers and spills of every instantiation (a spill
+    at hd = 64, the path's width, fails) and the library's tiling against
+    ``wkv6.bwd_tiling``; every gradient within ``WKV_BWD_TOL`` of its
+    largest magnitude, from a nonzero state and final-state gradient, at
+    the loss shape (8, 1024, 40, 64) and at S = 1 and 37 for every hd, f32
+    and bf16 r, k, v, two calls bit-identical; through ``Wkv6`` at the loss
+    shape in bf16, dr, dk, dv within one bf16 ulp of the plain version's
+    f32 values, rounded, plus ``WKV_BWD_TOL``; bf16 and f32 timed at the
+    loss shape beside the bound and autograd through ``wkv6_plain``.
+    Returns the kernel's row of the ``kernels`` line."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.wkv6 import (Wkv6, wkv6_bwd_kernel,
+                                          wkv6_bwd_plain, wkv6_plain)
+    wkv6_mod = importlib.import_module("repro_torch.kernels.wkv6")
+    H, hd = 40, 64
+    report, key = {}, None   # (hd, bf16) or "sum" -> ptxas's lines
+    for line in build.build_log("wkv6_bwd").splitlines():
+        m = re.search(r"entry function '[^']*wkv6_bwd_(sum_)?kernel(?:ILi(\d+)"
+                      r"ELb([01])E)?", line)
+        if m:
+            key = "sum" if m.group(1) else (int(m.group(2)), int(m.group(3)))
+        elif key and ("registers" in line or "spill" in line):
+            report.setdefault(key, []).append(line.strip())
+    for d in wkv6_mod.HEAD_DIMS:
+        t = wkv6_mod.bwd_tiling(d)
+        check(wkv6_mod.library_bwd_tiling(d) == t,
+              f"wkv6_bwd hd {d}: the library's tiling differs")
+        print(f"wkv6_bwd hd {d}: {t}")
+        for bf16 in (0, 1):
+            name = f"wkv6_bwd hd {d} {'bf16' if bf16 else 'f32'}"
+            check((d, bf16) in report, f"ptxas printed nothing for {name}")
+            for line in report[d, bf16]:
+                spills = [int(n) for n in re.findall(r"(\d+) bytes spill",
+                                                     line)]
+                print(f"  ptxas {name} (dynamic shared {t.smem} B): {line}"
+                      + (" [spills]" if any(spills) else ""))
+                check(d != hd or not any(spills), f"{name} spills: {line}")
+    for line in report.get("sum", []):
+        print(f"  ptxas wkv6_bwd_sum_kernel: {line}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(B, S, H, hd, dtype):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        r, k, v = (randn(B, S, H, hd).to(dtype) for _ in range(3))
+        w = torch.exp(-torch.exp(randn(B, S, H, hd) - 1.5))
+        return (r, k, v, w, randn(H, hd) * 0.5, randn(B, H, hd, hd),
+                randn(B, S, H, hd), randn(B, H, hd, hd) * 0.1)
+
+    loss_shape = (RWKV_LOSS_BATCH, RWKV_LOSS_SEQ, H, hd)
+    cases = [loss_shape] + [(2, S, 3, d) for d in wkv6_mod.HEAD_DIMS
+                            for S in (1, 37)]
+    worst_abs, worst_rel = 0.0, 0.0
+    for shape in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = inputs(*shape, dtype)
+            got = wkv6_bwd_kernel(*args)
+            again = wkv6_bwd_kernel(*args)
+            torch.cuda.synchronize()
+            want = wkv6_bwd_plain(*args)
+            name = f"wkv6_bwd {shape} {str(dtype)[6:]}"
+            rels = []
+            for g, a, w in zip(got, again, want):
+                check(torch.equal(g, a), f"{name}: two calls differ")
+                err = (g - w).abs().max().item()
+                worst_abs = max(worst_abs, err)
+                rels.append(err / max(w.abs().max().item(), 1e-30))
+                check(bool(torch.isfinite(g).all()), f"{name}: not finite")
+            worst_rel = max(worst_rel, max(rels))
+            print(f"{name}: dr, dk, dv, dw, du, ds0 within "
+                  f"{', '.join(f'{x:.2e}' for x in rels)} of their largest "
+                  f"magnitudes; repeat bit-identical")
+            check(max(rels) <= WKV_BWD_TOL,
+                  f"{name}: {rels} (tolerance {WKV_BWD_TOL})")
+            del args, got, again, want
+    # through the autograd Function at the loss shape: bf16 dr, dk, dv
+    r, k, v, w, u, s0, dy, dsT = inputs(*loss_shape, torch.bfloat16)
+    want = wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT)
+    ins = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+    y, sT = Wkv6.apply(*ins)
+    got = torch.autograd.grad((y, sT), ins, (dy, dsT))
+    check([g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32]
+          * 3, f"Wkv6 gradient dtypes {[g.dtype for g in got]}")
+    ulps = []
+    for g, x in zip(got[:3], want[:3]):
+        x = x.to(torch.bfloat16).float()
+        ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+        off = (g.float() - x).abs() - WKV_BWD_TOL * x.abs().max()
+        ulps.append((off / ulp).max().item())
+    print(f"Wkv6 {loss_shape} bf16: dr, dk, dv against the plain f32 "
+          f"gradients rounded to bf16: at most {max(ulps):.3f} ulp beyond "
+          f"{WKV_BWD_TOL} of the largest magnitude")
+    check(max(ulps) <= 1.0, f"Wkv6 bf16 gradients: {ulps} ulps")
+    del r, k, v, w, u, s0, dy, dsT, want, ins, y, sT, got
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.finfo(dtype).bits // 8
+        nbytes = wkv_bwd_bytes(*loss_shape, es)
+        sets = [inputs(*loss_shape, dtype)
+                for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+        ms, eager_ms = time_calls(torch, wkv6_bwd_kernel, sets, 3)
+        a = sets[0]
+        ins = [x.clone().requires_grad_() for x in a[:6]]
+        yp, sp = wkv6_plain(*ins)
+        plain_ms = event_ms(torch, lambda: torch.autograd.grad(
+            (yp, sp), ins, (a[6], a[7]), retain_graph=True), 1)
+        del ins, yp, sp
+        ms2, _ = time_calls(torch, wkv6_bwd_kernel, sets, 3)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        s_ms = wkv_bwd_slots(*loss_shape) / F32_SLOTS_PER_S * 1e3
+        rows[dtype] = {"ms": ms, "ms_again": ms2, "eager_ms": eager_ms,
+                       "plain_ms": plain_ms, "bound_ms": max(b_ms, s_ms),
+                       "bound_by": "bytes" if b_ms >= s_ms else "operations",
+                       "bytes_ms": b_ms, "slots_ms": s_ms, "sets": len(sets)}
+        del sets, a
+    for dtype, x in rows.items():
+        print(f"wkv6_bwd ({loss_shape}, r, k, v {str(dtype)[6:]}) [{CARD}]: "
+              f"{x['ms']*1e3:.2f} / {x['ms_again']*1e3:.2f} us on the card "
+              f"({x['eager_ms']*1e3:.2f} us per eager call); autograd "
+              f"through wkv6_plain {x['plain_ms']:.2f} ms; bounds: FP32 "
+              f"issue slots {x['slots_ms']*1e3:.2f} us, bytes "
+              f"{x['bytes_ms']*1e3:.2f} us; the larger ({x['bound_by']}) "
+              f"{100 * x['bound_ms'] / x['ms']:.1f} % of the time; "
+              f"{x['sets']} input sets")
+    row = rows[torch.bfloat16]
+    return {
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+        "replaces": "src/repro/nn/blocks.py:395",
+        "replaces_note": "no Pallas kernel: the gradient of the lax.scan of "
+                         "rwkv_time_mix_seq, which XLA's autodiff derives",
+        "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+        "ms": row["ms"], "eager_ms": row["eager_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "library": "none: no PyTorch call computes the WKV recurrence's "
+                   "gradient",
+        "shape": f"r, k, v bf16, w, dy f32 {loss_shape}: one bf16 train "
+                 f"step's time mix; timed over {row['sets']} input sets",
+        "f32": {k: rows[torch.float32][k]
+                for k in ("ms", "plain_ms", "bound_ms")},
+    }
+
+
+def _seed_rwkv_leaves(torch, params):
+    """Overwrite ``u``, ``mu``, ``cm_mu``, ``ln_x`` and ``w0`` (the
+    reference's constants, which hide a wrong axis) with seeded values."""
+    from repro_torch.tree import flatten_with_path
+    rng = np.random.default_rng(0)
+    draw = {"u": (0.0, 0.5), "mu": (0.5, 0.3), "cm_mu": (0.5, 0.3),
+            "ln_x": (0.0, 0.3), "w0": (-1.5, 1.0)}
+    for path, leaf in flatten_with_path(params):
+        if path[-1] in draw:
+            mean, sd = draw[path[-1]]
+            leaf.copy_(torch.from_numpy(rng.normal(
+                mean, sd, tuple(leaf.shape)).astype(np.float32)))
+
+
+def rwkv_train_grad_check(torch):
+    """Phase 16 (b): the f32 ``Model.loss`` gradient of rwkv6-3b at full
+    width and 2 layers (remat on, ``u``, ``mu``, ``cm_mu``, ``ln_x``,
+    ``w0`` seeded), B = 2, S = 256: the card (both wkv6 kernels) against
+    the same call on the CPU (autograd through the plain version), each
+    leaf within ``TRAIN_GRAD_TOL`` of its largest magnitude."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.wkv6 import wkv6_bwd_kernel, wkv6_kernel
+    from repro_torch.nn import Model, get_config
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), n_layers=2,
+                              dtype="float32")
+    params = Model(cfg, device="cpu").init(0)
+    _seed_rwkv_leaves(torch, params)
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=256, global_batch=2,
+                          seed=0).batch(0)
+    grads, losses, secs = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        live = tree_map(lambda p: p.detach().to(dev).requires_grad_(),
+                        params)
+        f0, b0 = wkv6_kernel.launches, wkv6_bwd_kernel.launches
+        t0 = time.perf_counter()
+        loss, _ = Model(cfg, device=dev).loss(live, batch)
+        grads[dev] = torch.autograd.grad(loss, leaves(live))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = (wkv6_kernel.launches - f0, wkv6_bwd_kernel.launches - b0)
+        secs[dev] = time.perf_counter() - t0
+        losses[dev] = float(loss.detach())
+    worst, worst_path = 0.0, None
+    for (path, _), c, g in zip(flatten_with_path(params), grads["cpu"],
+                               grads["cuda"]):
+        rel = (g.cpu() - c).abs().max().item() / max(c.abs().max().item(),
+                                                     1e-30)
+        if rel > worst:
+            worst, worst_path = rel, "/".join(path)
+        check(rel <= TRAIN_GRAD_TOL, f"rwkv train gradient "
+              f"{'/'.join(path)}: card vs CPU {rel:.3e} of its largest")
+    rel_loss = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"train_rwkv (b): f32 Model.loss gradient, {RWKV_ARCH} full width, "
+          f"2 layers, 2 x 256, seeded u / mu / cm_mu / ln_x / w0: loss card "
+          f"{losses['cuda']!r} CPU {losses['cpu']!r} (rel {rel_loss:.3e}); "
+          f"every leaf within {worst:.3e} of its largest magnitude "
+          f"({worst_path}; <= {TRAIN_GRAD_TOL}); wkv6 launches forward / "
+          f"backward {n[0]} / {n[1]} (remat: 2 a layer forward); "
+          f"{secs['cpu']:.2f} s CPU, "
+          f"{secs['cuda']:.2f} s card [{CARD}]")
+    check(rel_loss <= 1e-5 and n == (2 * cfg.n_layers, cfg.n_layers),
+          f"train_rwkv (b): loss rel {rel_loss}, wkv6 launches {n}")
+    return {"worst_leaf_rel": worst, "loss_rel": rel_loss}
+
+
+def rwkv_train_launcher_run(torch):
+    """Phase 16 (c): ``repro_torch.launch.train.main`` at rwkv6-3b's full
+    width and depth, 8 x 1024 bf16 batches, ``TRAIN_STEPS`` steps, the
+    checkpoint into a temporary directory, removed after.  The wkv6
+    counters zeroed just before and read just after: 64 forward launches a
+    step (32 and 32 for remat) and 32 backward calls; the first loss near
+    ln V + s2/2; every loss and grad norm finite; the step's time (its
+    median past the first), tokens/s, the 6 N D share of the bf16 peak and
+    the peak memory.  Returns the launches and the figures."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels.wkv6 import wkv6_bwd_kernel, wkv6_kernel
+    from repro_torch.launch import train as launch_train
+    from repro_torch.nn import get_config
+    cfg = get_config(RWKV_ARCH)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.reset_peak_memory_stats()
+    wkv6_kernel.launches = 0
+    wkv6_bwd_kernel.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            loop = launch_train.main([
+                "--arch", RWKV_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--ckpt-dir",
+                ckpt, "--ckpt-every", "100", "--log-every", "1"])
+        torch.cuda.synchronize()
+        n_fwd, n_bwd = wkv6_kernel.launches, wkv6_bwd_kernel.launches
+        wall = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(ckpt) for f in fs)
+        saved = os.listdir(ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = [r for r in loop.metrics_log if "loss" in r]
+    for r in recs:
+        print(f"  train_rwkv {r}")
+    steady = sorted(r["dt"] for r in recs[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * cfg.params_count() * tokens / step_s / BF16_FLOPS
+    s2 = 0.02 ** 2 * cfg.d_model
+    expect = float(np.log(cfg.vocab)) + s2 / 2
+    print(f"train_rwkv (c): {RWKV_ARCH} full width and depth through the "
+          f"launcher, {TRAIN_BATCH} x {TRAIN_SEQ} bf16, {TRAIN_STEPS} steps: "
+          f"step {step_s*1e3:.2f} ms (median of steps 1-{TRAIN_STEPS - 1}; "
+          f"step 0 {recs[0]['dt']*1e3:.2f} ms), {tokens / step_s:,.0f} "
+          f"tokens/s, 6 N D {100 * mfu:.2f} % of {BF16_FLOPS / 1e12:.0f} "
+          f"TFLOP/s (N = {cfg.params_count():,}); loss {recs[0]['loss']:.4f} "
+          f"-> {recs[-1]['loss']:.4f} (step 0 expected ln V + s2/2 = "
+          f"{expect:.4f}; the schedule warms up over 20 steps, so these 6 "
+          f"steps take lr <= 7.5e-5, each on a new batch: a fall is not "
+          f"required); peak memory {peak:.3f} GiB; wkv6 launches forward "
+          f"{n_fwd}, backward {n_bwd}; {loop.restarts} restarts; checkpoint "
+          f"{saved} {ckpt_bytes / 2**30:.3f} GiB, removed; {wall:.2f} s with "
+          f"init and the checkpoint [{CARD}]")
+    check(len(recs) == TRAIN_STEPS and loop.restarts == 0 and all(
+        np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+        for r in recs), f"train_rwkv (c): records {recs}")
+    check(abs(recs[0]["loss"] - expect) <= 0.2,
+          f"train_rwkv (c): first loss {recs[0]['loss']} far from {expect}")
+    check(n_fwd == 2 * cfg.n_layers * TRAIN_STEPS
+          and n_bwd == cfg.n_layers * TRAIN_STEPS,
+          f"train_rwkv (c): wkv6 launches forward {n_fwd}, backward {n_bwd}")
+    check(saved == [f"step_{TRAIN_STEPS - 1}"],
+          f"train_rwkv (c): checkpoint directory held {saved}")
+    return {"wkv6": n_fwd, "wkv6_bwd": n_bwd}, {
+        "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu_6nd": mfu, "peak_gib": peak,
+        "losses": [r["loss"] for r in recs]}
+
+
+def rwkv_train_profile(torch):
+    """Phase 16 (c'): one more full-width rwkv6-3b train step (8 x 1024
+    bf16, the launcher's optimizer) under ``torch.profiler``, after one
+    untimed step: the device's busy share, its top kernels and the wkv6
+    kernels' shares."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.wkv6 import wkv6_bwd_kernel, wkv6_kernel
+    from repro_torch.nn import Model, get_config
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime.step import make_train_step
+    cfg = get_config(RWKV_ARCH)
+    m = Model(cfg, device="cuda")
+    params = m.init(0)
+    opt = AdamW(lr=3e-4, schedule=cosine_schedule(3e-4, 20, 100))
+    state = opt.init(params)
+    step = make_train_step(m, opt)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in pipe.batch(0).items()}
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    n0 = (wkv6_kernel.launches, wkv6_bwd_kernel.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = (wkv6_kernel.launches - n0[0], wkv6_bwd_kernel.launches - n0[1])
+    busy, by_name = report_profile(prof, wall * 1e6, "one rwkv6-3b train "
+                                   "step", 14)
+    parts = {part: tuple(map(sum, zip((0.0, 0), *(
+        v for n, v in by_name.items() if name in n))))
+        for part, name in (("wkv6 forward", "wkv6_kernel"),
+                           ("wkv6 backward", "wkv6_bwd_kernel"),
+                           ("its sum", "wkv6_bwd_sum_kernel"))}
+    print(f"train_rwkv (c'): profiled step {wall*1e3:.1f} ms, device busy "
+          f"{busy/1e3:.1f} ms ({100 * busy / (wall * 1e6):.2f} %); "
+          + ", ".join(f"{p} {t/1e3:.3f} ms in {k} events "
+                      f"({100 * t / busy:.2f} % of busy)"
+                      for p, (t, k) in parts.items())
+          + f"; the counters: {n[0]} forward and {n[1]} backward launches "
+            f"[{CARD}]")
+    # the launches are counted exactly by the wrappers; the profiler has
+    # dropped an event of a window now and then (63 of 64 forward kernels
+    # once), so its events only have to show both kernels ran
+    check(n == (2 * cfg.n_layers, cfg.n_layers)
+          and all(k > 0 for _, k in parts.values()),
+          f"train_rwkv (c'): wkv6 launches {n}, profiled kernels {parts}")
+    return {"profiled_step_ms": wall * 1e3, "busy_ms": busy / 1e3,
+            "wkv6_bwd_ms": parts["wkv6 backward"][0] / 1e3,
+            "wkv6_fwd_ms": parts["wkv6 forward"][0] / 1e3}
+
+
+def rwkv_train_phase(torch):
+    """Phase 16, RWKV6 training: (b), (c) and (c') above.  Returns the
+    launches of (c), the main path, and (c)'s figures."""
+    t0 = time.perf_counter()
+    rwkv_train_grad_check(torch)
+    print(f"train_rwkv (b): {time.perf_counter() - t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, figures = rwkv_train_launcher_run(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    figures["profile"] = rwkv_train_profile(torch)
+    return launches, figures
+
+
 def main() -> int:
     global CARD
     # phase 15 (d) runs with deterministic algorithms, which for cuBLAS
@@ -5345,7 +5748,7 @@ def main() -> int:
           f"{sys.version.split()[0]}")
     sources = ("paged_gather", "paged_attention", "csd_matvec",
                "flash_attention", "flash_attention_bwd", "linear_scan",
-               "qmatmul", "chain_scan", "wkv6")
+               "qmatmul", "chain_scan", "wkv6", "wkv6_bwd")
     t0 = time.perf_counter()
     build.build(sources)
     print(f"build: {time.perf_counter()-t0:.2f} s "
@@ -5441,6 +5844,15 @@ def main() -> int:
     kernels.append(bwd_row)
     train_launches, train_figures = train_phase(torch)
     print(f"train phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wkv_bwd_row = wkv6_bwd_readings(torch)
+    kernels.append(wkv_bwd_row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv_train_launches, rwkv_train_figures = rwkv_train_phase(torch)
+    print(f"train_rwkv phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
@@ -5450,6 +5862,7 @@ def main() -> int:
                "moe": moe_launches, "rwkv": rwkv_launches,
                "audio": audio_launches, "vlm": vlm_launches,
                "dense": dense_launches, "train": train_launches,
+               "train_rwkv": rwkv_train_launches,
                "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
@@ -5468,7 +5881,8 @@ def main() -> int:
     for name, n in train_launches.items():
         launches[name] = launches.get(name, 0) + n
     launches["qmatmul"] = qm_launches
-    launches["wkv6"] = rwkv_launches["wkv6"]
+    launches["wkv6"] = rwkv_launches["wkv6"] + rwkv_train_launches["wkv6"]
+    launches["wkv6_bwd"] = rwkv_train_launches["wkv6_bwd"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "paged_attention":
@@ -5489,6 +5903,8 @@ def main() -> int:
             k["forward_lse"] = bwd_row.pop("forward_lse")
         if k["name"] == "flash_attention_bwd":
             k["train_step"] = train_figures
+        if k["name"] == "wkv6_bwd":
+            k["train_step"] = rwkv_train_figures
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

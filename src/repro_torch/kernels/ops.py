@@ -25,7 +25,7 @@ from .paged_attention import paged_attention_kernel, paged_attention_plain
 from .paged_gather import (paged_gather_kernel, paged_gather_pair_kernel,
                            paged_gather_plain)
 from .qmatmul import qmatmul_kernel, qmatmul_plain
-from .wkv6 import wkv6_kernel, wkv6_plain
+from .wkv6 import Wkv6, wkv6_kernel, wkv6_plain
 
 __all__ = ["qmatmul", "quantize_pot", "exp2_int", "paged_gather",
            "paged_gather_pair", "paged_attention", "csd_expand",
@@ -259,13 +259,18 @@ def wkv6(r, k, v, w, u, s0):
     bf16, not cast here), w (B, S, H, hd), u (H, hd), s0 (B, H, hd, hd)
     f32 -> (y (B, S, H, hd) f32, the final state).  The CUDA kernel's
     state is bit-identical to the plain version's, y equal up to the
-    order of the hd-term sums."""
-    if r.is_cuda and _needs_grad(r, k, v, w, u, s0):
-        raise _no_backward("wkv6", "RWKV6")
+    order of the hd-term sums.
+
+    On CUDA tensors that need a gradient the call goes through
+    :class:`~repro_torch.kernels.wkv6.Wkv6` (the forward kernel, then the
+    backward kernel); otherwise it is one forward launch.  On the CPU
+    autograd differentiates the plain version, as XLA differentiates the
+    reference's scan."""
     r, k, v = (t.contiguous() for t in (r, k, v))
     w, u, s0 = (t.to(torch.float32).contiguous() for t in (w, u, s0))
     if r.is_cuda:
-        return wkv6_kernel(*(_aligned16(t) for t in (r, k, v, w)), u, s0)
+        args = (*(_aligned16(t) for t in (r, k, v, w)), u, s0)
+        return Wkv6.apply(*args) if _needs_grad(*args) else wkv6_kernel(*args)
     _plain_or_raise(r, "wkv6")
     return wkv6_plain(r, k, v, w, u, s0)
 

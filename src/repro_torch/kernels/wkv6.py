@@ -51,6 +51,22 @@ us at decode (4, 1); measured in ``PERF.md`` (row 10).
 y differs from the plain version only in the order of its sums (the
 plain ``einsum`` is a batched product; the kernel adds rows in its own
 order, then a_t v_j).
+
+The gradient (:class:`Wkv6`, :func:`wkv6_bwd_kernel`, ``csrc/wkv6_bwd.cu``;
+the reference's XLA differentiates its scan).  With G_t = dL/dS_t (S_t the
+state after step t, G_{S-1} the final state's incoming gradient ``dsT`` or
+zeros), walking t from S - 1 down to 0::
+
+    dr_t[i] = sum_j dy_t[j] S_{t-1}[i,j] + u_i k_t[i] c_t,  c_t = dy_t . v_t
+    dk_t[i] = sum_j G_t[i,j] v_t[j]      + r_t[i] u_i c_t
+    dv_t[j] = sum_i G_t[i,j] k_t[i]      + dy_t[j] a_t,   a_t = sum_i r u k
+    dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
+    du_i   += r_t[i] k_t[i] c_t                     (over b and t)
+    G_{t-1} = w_t[i] G_t[i,j] + r_t[i] dy_t[j]      (ds0 = G_{-1})
+
+S_{t-1} runs forward in time and G_t backward, and dividing by w_t (which
+can come near 0) to walk S back is not exact, so the kernel rebuilds the
+states from checkpoints with the forward's own update (see the source).
 """
 from __future__ import annotations
 
@@ -62,8 +78,9 @@ import torch
 
 from . import build
 
-__all__ = ["wkv6_plain", "wkv6_kernel", "HEAD_DIMS", "ROUTES", "Tiling",
-           "tiling", "route"]
+__all__ = ["wkv6_plain", "wkv6_kernel", "wkv6_bwd_plain", "wkv6_bwd_kernel",
+           "Wkv6", "HEAD_DIMS", "ROUTES", "Tiling", "tiling", "route",
+           "BwdTiling", "bwd_tiling"]
 
 HEAD_DIMS = (16, 32, 64, 128)   # the head widths the kernel is built for
 ROUTES = ("ring", "step")       # the C entry's route ids 0, 1
@@ -195,3 +212,165 @@ def wkv6_kernel(r, k, v, w, u, s0, _route=None):
 
 wkv6_kernel.launches = 0
 wkv6_kernel.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+class BwdTiling(NamedTuple):
+    """The backward kernel's sizes at one hd (``Bwd<HD>`` in
+    ``csrc/wkv6_bwd.cu``)."""
+    cb: int         # state columns a block
+    ncb: int        # blocks a (b, h) chain
+    tc: int         # steps a chunk (a checkpoint every tc steps)
+    sw: int         # columns a row owner holds
+    sh: int         # rows a column owner holds
+    threads: int    # the row owners, then the column owners
+    smem: int       # dynamic shared bytes a block
+
+
+def bwd_tiling(hd: int) -> BwdTiling:
+    """The backward kernel's tiling at head width ``hd`` (in
+    :data:`HEAD_DIMS`): a pure function of hd, the same as the library's
+    ``wkv6_bwd_tiling``."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"wkv6 takes hd in {HEAD_DIMS}, not {hd}")
+    cb = 32 if hd == 128 else hd
+    tc = 16 if hd <= 32 else 8
+    sw, sh = min(cb, 32), min(hd, 32)
+    threads = hd * (cb // sw) + cb * (hd // sh)
+    row = hd + hd // 32 * 4              # a staged row, padded
+    smem = 4 * (tc * hd * cb + 5 * tc * row + 2 * tc + hd)
+    return BwdTiling(cb=cb, ncb=hd // cb, tc=tc, sw=sw, sh=sh,
+                     threads=threads, smem=smem)
+
+
+def wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT=None):
+    """The gradient of :func:`wkv6_plain` (the recurrence in the module's
+    docstring), one token at a time on the f32 upcasts of r, k, v: returns
+    (dr, dk, dv, dw (B, S, H, hd), du (H, hd), ds0 (B, H, hd, hd)), all
+    f32.  ``dsT`` None is zeros.  The states S_{t-1} are rebuilt with
+    :func:`wkv6_plain`'s own update, so they are its states bit for bit."""
+    r, k, v, w, dy = (t.float() for t in (r, k, v, w, dy))
+    B, S, H, hd = r.shape
+    uu = u.float()
+    states, s = [], s0.float()
+    for t in range(S):
+        states.append(s)
+        s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * v[:, t, :, None, :]
+    G = torch.zeros_like(s) if dsT is None else dsT.float()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(uu)
+    for t in reversed(range(S)):
+        sp, rt, kt, vt, dyt = states[t], r[:, t], k[:, t], v[:, t], dy[:, t]
+        c = (dyt * vt).sum(-1, keepdim=True)                   # (B, H, 1)
+        a = (rt * uu * kt).sum(-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", sp, dyt) + uu * kt * c
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", G, vt) + rt * uu * c
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kt) + dyt * a
+        dw[:, t] = (G * sp).sum(-1)
+        du += (rt * kt * c).sum(0)
+        G = w[:, t, :, :, None] * G + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du, G
+
+
+@functools.cache
+def _bwd_entry():
+    lib = build.load("wkv6_bwd")
+    fn = lib.wkv6_bwd
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def library_bwd_tiling(hd: int) -> BwdTiling:
+    """The built library's ``Bwd<hd>`` (needs the build; on the card)."""
+    lib, _ = _bwd_entry()
+    out = (ctypes.c_int * 7)()
+    if lib.wkv6_bwd_tiling(ctypes.c_int(hd), out) != 0:
+        raise ValueError(f"wkv6 takes hd in {HEAD_DIMS}, not {hd}")
+    return BwdTiling(*out)
+
+
+def wkv6_bwd_kernel(r, k, v, w, u, s0, dy, dsT=None):
+    """The CUDA backward: :func:`wkv6_bwd_plain`'s contract on contiguous
+    CUDA tensors, r, k, v all f32 or all bf16, w, u, s0, dy and ``dsT``
+    (None: zeros) f32.  One call, one count: the kernel, then a short one
+    that adds du's per-row partials (and, at hd = 128, the column blocks'
+    partial sums) in a fixed order; no atomics, so repeats are
+    bit-identical.  Raises ``ValueError`` on anything else."""
+    if not (r.is_cuda and all(t.device == r.device
+                              for t in (k, v, w, u, s0, dy))):
+        raise ValueError("wkv6_bwd_kernel takes CUDA tensors on one device")
+    if r.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != r.dtype for t in (k, v)):
+        raise ValueError(f"wkv6_bwd_kernel takes r, k, v all float32 or all "
+                         f"bfloat16, not {[t.dtype for t in (r, k, v)]}")
+    tail = (w, u, s0, dy) if dsT is None else (w, u, s0, dy, dsT)
+    if any(t.dtype != torch.float32 for t in tail):
+        raise ValueError("wkv6_bwd_kernel takes float32 w, u, s0, dy, dsT")
+    if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, w, dy)):
+        raise ValueError(f"r, k, v, w, dy must share one (B, S, H, hd) "
+                         f"shape, not "
+                         f"{[tuple(t.shape) for t in (r, k, v, w, dy)]}")
+    B, S, H, hd = r.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"wkv6_bwd_kernel takes hd in {HEAD_DIMS}, not {hd}")
+    if B < 1 or S < 1:
+        raise ValueError(f"wkv6_bwd_kernel takes B >= 1 and S >= 1, not "
+                         f"({B}, {S})")
+    if tuple(u.shape) != (H, hd) or tuple(s0.shape) != (B, H, hd, hd) or (
+            dsT is not None and dsT.shape != s0.shape):
+        raise ValueError(f"bad shapes: u {tuple(u.shape)}, s0 "
+                         f"{tuple(s0.shape)} for r {tuple(r.shape)}")
+    if dsT is not None and dsT.device != r.device:
+        raise ValueError("wkv6_bwd_kernel takes CUDA tensors on one device")
+    if not all(t.is_contiguous() for t in (r, k, v) + tail):
+        raise ValueError("wkv6_bwd_kernel needs contiguous inputs")
+    t = bwd_tiling(hd)
+    nck = -(-S // t.tc)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv, dw = (torch.empty(r.shape, **f32) for _ in range(4))
+    du = torch.empty((H, hd), **f32)
+    ds0 = torch.empty((B, H, hd, hd), **f32)
+    ck = torch.empty(B * H * nck * hd * hd, **f32)      # the checkpoints
+    du_part = torch.empty((B, H, hd), **f32)
+    part = torch.empty((3, t.ncb) + tuple(r.shape) if t.ncb > 1 else (1,),
+                       **f32)
+    lib, fn = _bwd_entry()
+    ptrs = [x.data_ptr() for x in (r, k, v, w, u, s0, dy)]
+    ptrs.append(0 if dsT is None else dsT.data_ptr())
+    ptrs += [x.data_ptr() for x in (dr, dk, dv, dw, du, ds0, ck, du_part,
+                                    part)]
+    err = fn(*ptrs, B, S, H, hd, int(r.dtype == torch.bfloat16),
+             torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(lib, "wkv6_bwd", err)
+    wkv6_bwd_kernel.launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+wkv6_bwd_kernel.launches = 0
+
+
+class Wkv6(torch.autograd.Function):
+    """The kernel pair under autograd: the forward kernel, unchanged, and
+    the backward kernel.  Only the inputs are saved: under remat the
+    forward runs again before the backward, so y or per-step states would
+    only hold memory.  dr, dk, dv come back in r's dtype (computed in f32
+    and cast once), dw, du, ds0 in f32."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        y, sT = wkv6_kernel(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return y, sT
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device) \
+            if dy is None else dy.float().contiguous()
+        if dsT is not None:
+            dsT = dsT.float().contiguous()
+        dr, dk, dv, dw, du, ds0 = wkv6_bwd_kernel(r, k, v, w, u, s0, dy, dsT)
+        return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du,
+                ds0)

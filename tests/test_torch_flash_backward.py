@@ -21,7 +21,7 @@ bf16 (the tensor cores) under ``bf16_grad_disagreement`` -- at causal GQA
 non-causal, MHA, ragged and cross-length shapes at every head dim the
 backward takes; bf16 dK/dV on clusters of every size; two runs
 bit-identical; the forward's lse; the refusals under grad
-(``linear_scan``, ``wkv6``, flash at D = 256)."""
+(``linear_scan``, flash at D = 256)."""
 import math
 
 import numpy as np
@@ -458,17 +458,12 @@ def test_gpu_backward_on_every_cluster_size(case):
 
 @pytest.mark.gpu
 def test_gpu_kernels_without_a_backward_raise_under_grad():
-    """Under grad on the card linear_scan, wkv6 and flash at D = 256 raise
+    """Under grad on the card linear_scan and flash at D = 256 raise
     NotImplementedError; without grad they launch."""
     _needs_card()
     a = torch.rand(1, 8, 16, device="cuda", requires_grad=True)
     with pytest.raises(NotImplementedError, match="item 11"):
         ops.linear_scan(a, torch.rand(1, 8, 16, device="cuda"))
-    r = torch.rand(1, 4, 2, 16, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ops.wkv6(r, r.detach(), r.detach(), r.detach(),
-                 torch.rand(2, 16, device="cuda"),
-                 torch.zeros(1, 2, 16, 16, device="cuda"))
     q = torch.rand(1, 8, 2, 256, device="cuda", dtype=torch.bfloat16,
                    requires_grad=True)
     with pytest.raises(NotImplementedError, match="item 11"):

@@ -66,6 +66,7 @@ def test_port_files_exist():
     assert (ROOT / "src/repro_torch/kernels/csrc/qmatmul.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/chain_scan.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/wkv6.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/wkv6_bwd.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES,
