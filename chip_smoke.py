@@ -338,17 +338,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the tiny-train mirror on the card (60 steps, vocab 64): the loss drops
    by more than 0.5;
 16. RWKV6 training, after phase 15's memory is freed: (a) ptxas's
-   registers and spills of every instantiation of the WKV backward
-   (``wkv6_bwd.cu``, hd 16-128, f32 and bf16 r, k, v; a spill at hd = 64,
-   the path's width, fails) and the library's tiling, then the backward
-   kernel against its plain version from a nonzero state and final-state
-   gradient at the loss shape (8, 1024, 40, 64) and at S = 1 and 37 for
-   every hd, f32 and bf16, each gradient within ``WKV_BWD_TOL`` of its
-   largest magnitude, two calls bit-identical; through ``Wkv6`` at the
+   registers and spills of every kernel of the WKV backward
+   (``wkv6_bwd.cu``: passes A and B at hd 16-128, f32 and bf16 r, k, v; a
+   spill in either at hd = 64, the path's width, fails) and the library's
+   tiling, then the backward against its plain version, the gradient of
+   log w against w dw, from a nonzero state, at every hd and S in {1, 16,
+   37, 1024} (the loss shape (8, 1024, 40, 64) at hd 64), f32 and bf16,
+   with and without the final state's gradient, and with w = 0 on every
+   other key, each gradient within ``WKV_BWD_TOL`` of its largest
+   magnitude, two calls bit-identical; through ``Wkv6`` on log w at the
    loss shape in bf16, dr, dk, dv within one bf16 ulp (plus the
    tolerance) of the plain f32 gradients rounded; both dtypes timed at the
-   loss shape beside the bound (FP32 issue slots, ``wkv_bwd_slots``; bytes,
-   ``wkv_bwd_bytes``) and autograd through ``wkv6_plain``; (b) the f32
+   loss shape, the whole call and each pass alone, beside the bound (FP32
+   issue slots, ``wkv_bwd_slots``; bytes, ``wkv_bwd_bytes``), the two
+   passes' floor (``wkv_bwd_pass_floors``) and autograd through
+   ``wkv6_plain``; (b) the f32
    ``Model.loss`` gradient of rwkv6-3b at full width and 2 layers (``u``,
    ``mu``, ``cm_mu``, ``ln_x``, ``w0`` seeded), 2 x 256, card against CPU,
    each leaf within ``TRAIN_GRAD_TOL`` of its largest magnitude; (c)
@@ -5356,44 +5360,85 @@ def train_phase(torch):
 
 
 def wkv_bwd_slots(B, S, H, hd):
-    """FP32 issue slots the backward needs at least: 9 a state entry a step
-    (the states rebuilt bit for bit, 3; dr, 1; G's update, 2; dk, dv, dw, 1
-    each) and the steps' scalars and bonus terms (a_t, c_t, the u terms of
-    dr, dk, dv and du), 10 a key."""
-    return B * S * H * (9 * hd * hd + 10 * hd)
+    """FP32 issue slots the backward needs at least: 7 a state entry a step
+    (forward in time the state's update fmaf(w, s, k v), 2, and dr', 1;
+    backward G's update fmaf(w, g, r dy), 2, dv and dk', 1 each) and the
+    steps' scalars and bonus terms (a_t, c_t, the u terms of dr, dk, dv
+    and du), 10 a key."""
+    return B * S * H * (7 * hd * hd + 10 * hd)
 
 
 def wkv_bwd_bytes(B, S, H, hd, es=2):
     """Bytes the backward must move: r, k, v read at ``es`` bytes an
-    element, w and dy read and dr, dk, dv, dw written in f32, u read and du
-    written, s0 and the final state's gradient read and ds0 written."""
+    element, w and dy read and dr, dk, dv, dlw written in f32, u read and
+    du written, s0 and the final state's gradient read and ds0 written."""
     n = B * S * H * hd
     return 3 * es * n + 4 * (6 * n + 2 * H * hd + 3 * B * H * hd * hd)
 
 
+def wkv_bwd_pass_floors(B, S, H, hd, es=2):
+    """The two-pass design's own floor, seconds: (pass A's FP32 issue
+    slots, its bytes, pass B's slots, its bytes).  Pass A: 3 slots a state
+    entry a step, c_t and dr's bonus 3 a key; reads k, v at ``es`` bytes,
+    w and dy, s0 and dsT, writes dr.  Pass B: 4 a state entry a step; a_t,
+    the bonus terms of dk and dv, du and the walk of log w's gradient 11 a
+    key; reads r, k, v, w, dy and dr again, dsT, writes dk, dv, dlw and
+    ds0."""
+    n, st = B * S * H * hd, B * H * hd * hd
+    return (B * S * H * (3 * hd * hd + 3 * hd) / F32_SLOTS_PER_S,
+            (2 * es * n + 4 * (3 * n + 2 * st)) / HBM_BYTES_PER_S,
+            B * S * H * (4 * hd * hd + 11 * hd) / F32_SLOTS_PER_S,
+            (3 * es * n + 4 * (6 * n + 2 * st)) / HBM_BYTES_PER_S)
+
+
+def wkv_bwd_passes(torch):
+    """The backward's passes alone, for timing each: ``passes(bufs, n)``
+    is a function of (i, r, k, v, w, u, s0, dy, dsT) that runs them
+    through the library's ``wkv6_bwd_passes`` (n = 1 pass A, 2 pass B and
+    the sum, 3 both) into ``bufs[i]`` (``wkv6._bwd_buffers``), uncounted."""
+    from repro_torch.kernels import build
+    wk = importlib.import_module("repro_torch.kernels.wkv6")
+    lib, _ = wk._bwd_entry()
+
+    def passes(bufs, n):
+        def call(i, r, k, v, w, u, s0, dy, dsT):
+            B, S, H, hd = r.shape
+            build.check(lib, "wkv6_bwd", lib.wkv6_bwd_passes(
+                *wk._bwd_pointers((r, k, v, w, u, s0, dy), dsT, bufs[i]), B,
+                S, H, hd, int(r.dtype == torch.bfloat16), n,
+                torch.cuda.current_stream().cuda_stream))
+        return call
+    return passes
+
+
 def wkv6_bwd_readings(torch):
-    """Phase 16 (a): the wkv6 backward kernel against its plain version on
-    the card.  ptxas's registers and spills of every instantiation (a spill
-    at hd = 64, the path's width, fails) and the library's tiling against
-    ``wkv6.bwd_tiling``; every gradient within ``WKV_BWD_TOL`` of its
-    largest magnitude, from a nonzero state and final-state gradient, at
-    the loss shape (8, 1024, 40, 64) and at S = 1 and 37 for every hd, f32
-    and bf16 r, k, v, two calls bit-identical; through ``Wkv6`` at the loss
-    shape in bf16, dr, dk, dv within one bf16 ulp of the plain version's
-    f32 values, rounded, plus ``WKV_BWD_TOL``; bf16 and f32 timed at the
-    loss shape beside the bound and autograd through ``wkv6_plain``.
-    Returns the kernel's row of the ``kernels`` line."""
+    """Phase 16 (a): the wkv6 backward against its plain version on the
+    card.  ptxas's registers and spills of every kernel (a spill in pass A
+    or B at hd = 64, the path's width, fails) and the library's tiling
+    against ``wkv6.bwd_tiling``; every gradient within ``WKV_BWD_TOL`` of
+    its largest magnitude, the gradient of log w against w dw, from a
+    nonzero state, at every hd and S in {1, 16, 37, 1024} (the loss shape
+    (8, 1024, 40, 64) at hd 64), f32 and bf16 r, k, v, with and without
+    the final state's gradient, two calls bit-identical; w underflowing to
+    0 on every other key; through ``Wkv6`` on log w at the loss shape in
+    bf16, dr, dk, dv within one bf16 ulp of the plain version's f32
+    values, rounded, plus ``WKV_BWD_TOL``; bf16 and f32 timed at the loss
+    shape, the whole call and each pass alone, beside the bound, the
+    two-pass floor and autograd through ``wkv6_plain``, and hd 128 (a
+    cluster a chain) once in bf16 at the same width.  Returns the kernel's
+    row of the ``kernels`` line."""
     from repro_torch.kernels import build
     from repro_torch.kernels.wkv6 import (Wkv6, wkv6_bwd_kernel,
                                           wkv6_bwd_plain, wkv6_plain)
     wkv6_mod = importlib.import_module("repro_torch.kernels.wkv6")
     H, hd = 40, 64
-    report, key = {}, None   # (hd, bf16) or "sum" -> ptxas's lines
+    report, key = {}, None   # (kernel, hd, bf16) -> ptxas's lines
     for line in build.build_log("wkv6_bwd").splitlines():
-        m = re.search(r"entry function '[^']*wkv6_bwd_(sum_)?kernel(?:ILi(\d+)"
-                      r"ELb([01])E)?", line)
+        m = re.search(r"entry function '[^']*wkv6_bwd_(a|b|sum)_kernel"
+                      r"(?:ILi(\d+)E)?(?:Lb([01])E)?", line)
         if m:
-            key = "sum" if m.group(1) else (int(m.group(2)), int(m.group(3)))
+            key = (m.group(1), m.group(2) and int(m.group(2)),
+                   m.group(3) and int(m.group(3)))
         elif key and ("registers" in line or "spill" in line):
             report.setdefault(key, []).append(line.strip())
     for d in wkv6_mod.HEAD_DIMS:
@@ -5401,57 +5446,88 @@ def wkv6_bwd_readings(torch):
         check(wkv6_mod.library_bwd_tiling(d) == t,
               f"wkv6_bwd hd {d}: the library's tiling differs")
         print(f"wkv6_bwd hd {d}: {t}")
-        for bf16 in (0, 1):
-            name = f"wkv6_bwd hd {d} {'bf16' if bf16 else 'f32'}"
-            check((d, bf16) in report, f"ptxas printed nothing for {name}")
-            for line in report[d, bf16]:
-                spills = [int(n) for n in re.findall(r"(\d+) bytes spill",
-                                                     line)]
-                print(f"  ptxas {name} (dynamic shared {t.smem} B): {line}"
-                      + (" [spills]" if any(spills) else ""))
-                check(d != hd or not any(spills), f"{name} spills: {line}")
-    for line in report.get("sum", []):
-        print(f"  ptxas wkv6_bwd_sum_kernel: {line}")
+        for part in ("a", "b"):
+            for bf16 in (0, 1):
+                name = (f"wkv6_bwd_{part}_kernel hd {d} "
+                        f"{'bf16' if bf16 else 'f32'}")
+                check((part, d, bf16) in report,
+                      f"ptxas printed nothing for {name}")
+                smem = t.a_smem if part == "a" else t.b_smem
+                for line in report[part, d, bf16]:
+                    spills = [int(n) for n in re.findall(
+                        r"(\d+) bytes spill", line)]
+                    print(f"  ptxas {name} (dynamic shared {smem} B): {line}"
+                          + (" [spills]" if any(spills) else ""))
+                    check(d != hd or not any(spills),
+                          f"{name} spills: {line}")
+    for k in sorted((k for k in report if k[0] == "sum"), key=str):
+        for line in report[k]:
+            print(f"  ptxas wkv6_bwd_{k[0]}_kernel"
+                  f"{'' if k[2] is None else ' bf16' if k[2] else ' f32'}: "
+                  f"{line}")
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def inputs(B, S, H, hd, dtype):
+    def inputs(B, S, H, hd, dtype, underflow=False):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
         r, k, v = (randn(B, S, H, hd).to(dtype) for _ in range(3))
-        w = torch.exp(-torch.exp(randn(B, S, H, hd) - 1.5))
-        return (r, k, v, w, randn(H, hd) * 0.5, randn(B, H, hd, hd),
-                randn(B, S, H, hd), randn(B, H, hd, hd) * 0.1)
+        dd = randn(B, S, H, hd) - 1.5
+        if underflow:        # w = exp(-exp(dd)) is 0 in f32 for dd >= 5
+            dd[..., ::2] = 5.0 + dd[..., ::2].abs()
+        lw = -torch.exp(dd)
+        return (r, k, v, torch.exp(lw), randn(H, hd) * 0.5,
+                randn(B, H, hd, hd), randn(B, S, H, hd),
+                randn(B, H, hd, hd) * 0.1, lw)
 
     loss_shape = (RWKV_LOSS_BATCH, RWKV_LOSS_SEQ, H, hd)
-    cases = [loss_shape] + [(2, S, 3, d) for d in wkv6_mod.HEAD_DIMS
-                            for S in (1, 37)]
+    cases = [(shape, False) for d in wkv6_mod.HEAD_DIMS for shape in
+             [(2, S, 3, d) for S in (1, 16, 37)]
+             + [loss_shape if d == hd else (1, 1024, 2, d)]]
+    cases += [(loss_shape, True)] + [((2, 37, 3, d), True) for d in (16, 128)]
     worst_abs, worst_rel = 0.0, 0.0
-    for shape in cases:
+    for shape, underflow in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            args = inputs(*shape, dtype)
-            got = wkv6_bwd_kernel(*args)
-            again = wkv6_bwd_kernel(*args)
-            torch.cuda.synchronize()
-            want = wkv6_bwd_plain(*args)
-            name = f"wkv6_bwd {shape} {str(dtype)[6:]}"
-            rels = []
-            for g, a, w in zip(got, again, want):
-                check(torch.equal(g, a), f"{name}: two calls differ")
-                err = (g - w).abs().max().item()
-                worst_abs = max(worst_abs, err)
-                rels.append(err / max(w.abs().max().item(), 1e-30))
-                check(bool(torch.isfinite(g).all()), f"{name}: not finite")
-            worst_rel = max(worst_rel, max(rels))
-            print(f"{name}: dr, dk, dv, dw, du, ds0 within "
-                  f"{', '.join(f'{x:.2e}' for x in rels)} of their largest "
-                  f"magnitudes; repeat bit-identical")
-            check(max(rels) <= WKV_BWD_TOL,
-                  f"{name}: {rels} (tolerance {WKV_BWD_TOL})")
-            del args, got, again, want
-    # through the autograd Function at the loss shape: bf16 dr, dk, dv
-    r, k, v, w, u, s0, dy, dsT = inputs(*loss_shape, torch.bfloat16)
-    want = wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT)
-    ins = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+            if underflow and dtype == torch.float32:
+                continue
+            args = inputs(*shape, dtype, underflow)
+            if underflow:
+                check(bool((args[3][..., ::2] == 0).all()),
+                      "wkv6_bwd: the underflow case has no w = 0")
+            line = []
+            for final in (True, False):
+                dsT = args[7] if final else None
+                got = wkv6_bwd_kernel(*args[:7], dsT)
+                again = wkv6_bwd_kernel(*args[:7], dsT)
+                torch.cuda.synchronize()
+                want = wkv6_bwd_plain(*args[:7], dsT, log_w=True)
+                name = (f"wkv6_bwd {shape} {str(dtype)[6:]}"
+                        f"{' w = 0 on every other key' if underflow else ''}"
+                        f" dsT {'given' if final else 'None'}")
+                rels = []
+                for g, a, w in zip(got, again, want):
+                    check(torch.equal(g, a), f"{name}: two calls differ")
+                    err = (g - w).abs().max().item()
+                    worst_abs = max(worst_abs, err)
+                    rels.append(err / max(w.abs().max().item(), 1e-30))
+                    check(bool(torch.isfinite(g).all()),
+                          f"{name}: not finite")
+                worst_rel = max(worst_rel, max(rels))
+                check(max(rels) <= WKV_BWD_TOL,
+                      f"{name}: {rels} (tolerance {WKV_BWD_TOL})")
+                line.append(f"dsT {'given' if final else 'None'} "
+                            + ", ".join(f"{x:.2e}" for x in rels))
+                del got, again, want
+            print(f"wkv6_bwd {shape} {str(dtype)[6:]}"
+                  f"{' w = 0 on every other key' if underflow else ''}: dr, "
+                  f"dk, dv, dlw (against w dw), du, ds0 within "
+                  f"{'; '.join(line)} of their largest magnitudes; repeats "
+                  f"bit-identical")
+            del args
+    # through the autograd Function on log w at the loss shape: bf16 dr,
+    # dk, dv
+    r, k, v, w, u, s0, dy, dsT, lw = inputs(*loss_shape, torch.bfloat16)
+    want = wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT, log_w=True)
+    ins = [x.clone().requires_grad_() for x in (r, k, v, lw, u, s0)]
     y, sT = Wkv6.apply(*ins)
     got = torch.autograd.grad((y, sT), ins, (dy, dsT))
     check([g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32]
@@ -5462,42 +5538,71 @@ def wkv6_bwd_readings(torch):
         ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
         off = (g.float() - x).abs() - WKV_BWD_TOL * x.abs().max()
         ulps.append((off / ulp).max().item())
-    print(f"Wkv6 {loss_shape} bf16: dr, dk, dv against the plain f32 "
-          f"gradients rounded to bf16: at most {max(ulps):.3f} ulp beyond "
-          f"{WKV_BWD_TOL} of the largest magnitude")
-    check(max(ulps) <= 1.0, f"Wkv6 bf16 gradients: {ulps} ulps")
-    del r, k, v, w, u, s0, dy, dsT, want, ins, y, sT, got
+    rest = [(g - x).abs().max().item() / x.abs().max().item()
+            for g, x in zip(got[3:], want[3:])]
+    print(f"Wkv6 {loss_shape} bf16 on log w: dr, dk, dv against the plain "
+          f"f32 gradients rounded to bf16: at most {max(ulps):.3f} ulp "
+          f"beyond {WKV_BWD_TOL} of the largest magnitude; dlw, du, ds0 "
+          f"within {', '.join(f'{x:.2e}' for x in rest)}")
+    check(max(ulps) <= 1.0 and max(rest) <= WKV_BWD_TOL,
+          f"Wkv6 bf16 gradients: {ulps} ulps, {rest}")
+    del r, k, v, w, u, s0, dy, dsT, lw, want, ins, y, sT, got
     rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    passes = wkv_bwd_passes(torch)
+    # the rwkv6-3b loss shape in bf16 and f32; hd 128 (a chain a cluster of
+    # four column blocks) once, at the same width in heads of 128
+    wide = (RWKV_LOSS_BATCH, RWKV_LOSS_SEQ, H * hd // 128, 128)
+    for shape, dtype in ((loss_shape, torch.bfloat16),
+                         (loss_shape, torch.float32), (wide, torch.bfloat16)):
         es = torch.finfo(dtype).bits // 8
-        nbytes = wkv_bwd_bytes(*loss_shape, es)
-        sets = [inputs(*loss_shape, dtype)
+        nbytes = wkv_bwd_bytes(*shape, es)
+        sets = [inputs(*shape, dtype)[:8]
                 for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
         ms, eager_ms = time_calls(torch, wkv6_bwd_kernel, sets, 3)
-        a = sets[0]
-        ins = [x.clone().requires_grad_() for x in a[:6]]
-        yp, sp = wkv6_plain(*ins)
-        plain_ms = event_ms(torch, lambda: torch.autograd.grad(
-            (yp, sp), ins, (a[6], a[7]), retain_graph=True), 1)
-        del ins, yp, sp
+        bufs = [wkv6_mod._bwd_buffers(a[0]) for a in sets]
+        idx = [(i,) + a for i, a in enumerate(sets)]
+        for a in idx:                  # a whole call's dr, for pass B alone
+            passes(bufs, 3)(*a)
+        a_ms, _ = time_calls(torch, passes(bufs, 1), idx, 3)
+        b_ms_, _ = time_calls(torch, passes(bufs, 2), idx, 3)
+        plain_ms = None
+        if shape == loss_shape:
+            a = sets[0]
+            ins = [x.clone().requires_grad_() for x in a[:6]]
+            yp, sp = wkv6_plain(*ins)
+            plain_ms = event_ms(torch, lambda: torch.autograd.grad(
+                (yp, sp), ins, (a[6], a[7]), retain_graph=True), 1)
+            del ins, yp, sp
         ms2, _ = time_calls(torch, wkv6_bwd_kernel, sets, 3)
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        s_ms = wkv_bwd_slots(*loss_shape) / F32_SLOTS_PER_S * 1e3
-        rows[dtype] = {"ms": ms, "ms_again": ms2, "eager_ms": eager_ms,
-                       "plain_ms": plain_ms, "bound_ms": max(b_ms, s_ms),
-                       "bound_by": "bytes" if b_ms >= s_ms else "operations",
-                       "bytes_ms": b_ms, "slots_ms": s_ms, "sets": len(sets)}
-        del sets, a
-    for dtype, x in rows.items():
-        print(f"wkv6_bwd ({loss_shape}, r, k, v {str(dtype)[6:]}) [{CARD}]: "
+        by_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        s_ms = wkv_bwd_slots(*shape) / F32_SLOTS_PER_S * 1e3
+        rows[shape, dtype] = {
+            "ms": ms, "ms_again": ms2, "eager_ms": eager_ms, "a_ms": a_ms,
+            "b_ms": b_ms_, "plain_ms": plain_ms,
+            "bound_ms": max(by_ms, s_ms),
+            "bound_by": "bytes" if by_ms >= s_ms else "operations",
+            "bytes_ms": by_ms, "slots_ms": s_ms, "sets": len(sets)}
+        del sets, bufs, idx
+    for (shape, dtype), x in rows.items():
+        fa, ba, fb, bb = wkv_bwd_pass_floors(*shape)
+        floor_ms = (max(fa, ba) + max(fb, bb)) * 1e3
+        plain = ("" if x["plain_ms"] is None else
+                 f"autograd through wkv6_plain {x['plain_ms']:.2f} ms; ")
+        print(f"wkv6_bwd ({shape}, r, k, v {str(dtype)[6:]}) [{CARD}]: "
               f"{x['ms']*1e3:.2f} / {x['ms_again']*1e3:.2f} us on the card "
-              f"({x['eager_ms']*1e3:.2f} us per eager call); autograd "
-              f"through wkv6_plain {x['plain_ms']:.2f} ms; bounds: FP32 "
-              f"issue slots {x['slots_ms']*1e3:.2f} us, bytes "
+              f"({x['eager_ms']*1e3:.2f} us per eager call); pass A alone "
+              f"{x['a_ms']*1e3:.2f} us (floor {max(fa, ba)*1e6:.2f}: slots "
+              f"{fa*1e6:.2f}, bytes {ba*1e6:.2f}), pass B with the sum alone "
+              f"{x['b_ms']*1e3:.2f} us (floor {max(fb, bb)*1e6:.2f}: slots "
+              f"{fb*1e6:.2f}, bytes {bb*1e6:.2f}); {plain}bound: FP32 issue "
+              f"slots {x['slots_ms']*1e3:.2f} us (7 a state entry a step), "
+              f"bytes "
               f"{x['bytes_ms']*1e3:.2f} us; the larger ({x['bound_by']}) "
-              f"{100 * x['bound_ms'] / x['ms']:.1f} % of the time; "
-              f"{x['sets']} input sets")
-    row = rows[torch.bfloat16]
+              f"{100 * x['bound_ms'] / x['ms']:.1f} % of the time; the "
+              f"two passes' floor {floor_ms*1e3:.2f} us, "
+              f"{100 * floor_ms / x['ms']:.1f} % of the time; {x['sets']} "
+              f"input sets")
+    row = rows[loss_shape, torch.bfloat16]
     return {
         "name": "wkv6_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
@@ -5506,14 +5611,19 @@ def wkv6_bwd_readings(torch):
                          "rwkv_time_mix_seq, which XLA's autodiff derives",
         "max_abs_err": worst_abs, "max_rel_err": worst_rel,
         "ms": row["ms"], "eager_ms": row["eager_ms"],
+        "pass_a_ms": row["a_ms"], "pass_b_ms": row["b_ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
+        "bound_by": row["bound_by"],
+        "library_ms": None,
         "library": "none: no PyTorch call computes the WKV recurrence's "
                    "gradient",
         "shape": f"r, k, v bf16, w, dy f32 {loss_shape}: one bf16 train "
                  f"step's time mix; timed over {row['sets']} input sets",
-        "f32": {k: rows[torch.float32][k]
-                for k in ("ms", "plain_ms", "bound_ms")},
+        "f32": {k: rows[loss_shape, torch.float32][k]
+                for k in ("ms", "a_ms", "b_ms", "plain_ms", "bound_ms")},
+        "hd128": {"shape": f"r, k, v bf16 {wide}", **{
+            k: rows[wide, torch.bfloat16][k]
+            for k in ("ms", "a_ms", "b_ms", "bound_ms")}},
     }
 
 
@@ -5694,7 +5804,8 @@ def rwkv_train_profile(torch):
     parts = {part: tuple(map(sum, zip((0.0, 0), *(
         v for n, v in by_name.items() if name in n))))
         for part, name in (("wkv6 forward", "wkv6_kernel"),
-                           ("wkv6 backward", "wkv6_bwd_kernel"),
+                           ("wkv6 backward pass A", "wkv6_bwd_a_kernel"),
+                           ("pass B", "wkv6_bwd_b_kernel"),
                            ("its sum", "wkv6_bwd_sum_kernel"))}
     print(f"train_rwkv (c'): profiled step {wall*1e3:.1f} ms, device busy "
           f"{busy/1e3:.1f} ms ({100 * busy / (wall * 1e6):.2f} %); "
@@ -5710,7 +5821,8 @@ def rwkv_train_profile(torch):
           and all(k > 0 for _, k in parts.values()),
           f"train_rwkv (c'): wkv6 launches {n}, profiled kernels {parts}")
     return {"profiled_step_ms": wall * 1e3, "busy_ms": busy / 1e3,
-            "wkv6_bwd_ms": parts["wkv6 backward"][0] / 1e3,
+            "wkv6_bwd_ms": sum(parts[p][0] for p in (
+                "wkv6 backward pass A", "pass B", "its sum")) / 1e3,
             "wkv6_fwd_ms": parts["wkv6 forward"][0] / 1e3}
 
 

@@ -25,7 +25,7 @@ from .paged_attention import paged_attention_kernel, paged_attention_plain
 from .paged_gather import (paged_gather_kernel, paged_gather_pair_kernel,
                            paged_gather_plain)
 from .qmatmul import qmatmul_kernel, qmatmul_plain
-from .wkv6 import Wkv6, wkv6_kernel, wkv6_plain
+from .wkv6 import Wkv6, _aligned16, wkv6_kernel, wkv6_plain
 
 __all__ = ["qmatmul", "quantize_pot", "exp2_int", "paged_gather",
            "paged_gather_pair", "paged_attention", "csd_expand",
@@ -253,32 +253,44 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor, *, bt=None, bw=None,
     return linear_scan_plain(a, x)
 
 
-def wkv6(r, k, v, w, u, s0):
+def wkv6(r, k, v, w, u, s0, log_w=None):
     """The RWKV6 WKV recurrence over a sequence (``kernels/wkv6.py``):
     r, k, v (B, S, H, hd) in the dtype the projections give them (f32 or
-    bf16, not cast here), w (B, S, H, hd), u (H, hd), s0 (B, H, hd, hd)
-    f32 -> (y (B, S, H, hd) f32, the final state).  The CUDA kernel's
-    state is bit-identical to the plain version's, y equal up to the
-    order of the hd-term sums.
+    bf16, not cast here), the decay (B, S, H, hd) as w or as ``log_w``
+    (then w = ``torch.exp(log_w)``; pass w None), u (H, hd), s0 (B, H, hd,
+    hd) f32 -> (y (B, S, H, hd) f32, the final state).  The CUDA kernel's
+    state is bit-identical to the plain version's, y equal up to the order
+    of the hd-term sums.
 
     On CUDA tensors that need a gradient the call goes through
     :class:`~repro_torch.kernels.wkv6.Wkv6` (the forward kernel, then the
-    backward kernel); otherwise it is one forward launch.  On the CPU
-    autograd differentiates the plain version, as XLA differentiates the
-    reference's scan."""
+    backward kernel, which gives the gradient of log w: it does not divide
+    by w, which underflows to 0), so a gradient through the decay needs it
+    as ``log_w`` (ValueError for a w that needs one).  Otherwise it is one
+    forward launch.  On the CPU autograd differentiates the plain version,
+    as XLA differentiates the reference's scan."""
+    if (w is None) == (log_w is None):
+        raise ValueError("ops.wkv6 takes the decay as w or as log_w")
     r, k, v = (t.contiguous() for t in (r, k, v))
-    w, u, s0 = (t.to(torch.float32).contiguous() for t in (w, u, s0))
+    u, s0 = (t.to(torch.float32).contiguous() for t in (u, s0))
+    if log_w is not None:
+        log_w = log_w.to(torch.float32).contiguous()
     if r.is_cuda:
-        args = (*(_aligned16(t) for t in (r, k, v, w)), u, s0)
-        return Wkv6.apply(*args) if _needs_grad(*args) else wkv6_kernel(*args)
+        r, k, v = (_aligned16(t) for t in (r, k, v))
+        if log_w is not None and _needs_grad(r, k, v, log_w, u, s0):
+            return Wkv6.apply(r, k, v, log_w, u, s0)
+        w = _aligned16(torch.exp(log_w) if w is None
+                       else w.to(torch.float32).contiguous())
+        if not _needs_grad(r, k, v, w, u, s0):
+            return wkv6_kernel(r, k, v, w, u, s0)
+        if w.requires_grad:
+            raise ValueError("ops.wkv6: a gradient through the decay on the "
+                             "card needs it as log_w (the backward gives "
+                             "the gradient of log w)")
+        return Wkv6.apply(r, k, v, None, u, s0, w)
     _plain_or_raise(r, "wkv6")
-    return wkv6_plain(r, k, v, w, u, s0)
-
-
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it where it starts off a 16-byte boundary (a
-    view into a larger tensor): TMA tensor maps need aligned bases."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return wkv6_plain(r, k, v, torch.exp(log_w) if w is None
+                      else w.to(torch.float32).contiguous(), u, s0)
 
 
 def chain_scan(a, acc, w, bsh, lab, lab_safe, acts, q, k, count0,

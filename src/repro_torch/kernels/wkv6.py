@@ -53,20 +53,25 @@ plain ``einsum`` is a batched product; the kernel adds rows in its own
 order, then a_t v_j).
 
 The gradient (:class:`Wkv6`, :func:`wkv6_bwd_kernel`, ``csrc/wkv6_bwd.cu``;
-the reference's XLA differentiates its scan).  With G_t = dL/dS_t (S_t the
-state after step t, G_{S-1} the final state's incoming gradient ``dsT`` or
-zeros), walking t from S - 1 down to 0::
+the reference's XLA differentiates its scan) is taken with respect to log
+w: the model's decay is w = exp(-exp(dd)), so autograd needs d/d(log w)
+anyway.  With G_t = dL/dS_t (S_t the state after step t, G_{S-1} the final
+state's incoming gradient ``dsT`` or zeros), walking t from S - 1 down to
+0::
 
-    dr_t[i] = sum_j dy_t[j] S_{t-1}[i,j] + u_i k_t[i] c_t,  c_t = dy_t . v_t
-    dk_t[i] = sum_j G_t[i,j] v_t[j]      + r_t[i] u_i c_t
-    dv_t[j] = sum_i G_t[i,j] k_t[i]      + dy_t[j] a_t,   a_t = sum_i r u k
-    dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
-    du_i   += r_t[i] k_t[i] c_t                     (over b and t)
+    dr_t[i] = dr'_t[i] + u_i k_t[i] c_t,  dr'_t[i] = sum_j S_{t-1}[i,j] dy_t[j]
+    dk_t[i] = dk'_t[i] + r_t[i] u_i c_t,  dk'_t[i] = sum_j G_t[i,j] v_t[j]
+    dv_t[j] = sum_i G_t[i,j] k_t[i] + dy_t[j] a_t   (c_t = dy_t . v_t,
+    du_i   += r_t[i] k_t[i] c_t                      a_t = sum_i r u k)
     G_{t-1} = w_t[i] G_t[i,j] + r_t[i] dy_t[j]      (ds0 = G_{-1})
+    dlw_t   = w_t dw_t = P_t - k_t dk'_t,  P_{t-1} = dlw_t + r_t dr'_t
 
-S_{t-1} runs forward in time and G_t backward, and dividing by w_t (which
-can come near 0) to walk S back is not exact, so the kernel rebuilds the
-states from checkpoints with the forward's own update (see the source).
+where P_t[i] = sum_j G_t[i,j] S_t[i,j] (P_{S-1} from dsT): since w_t
+S_{t-1} = S_t - k_t v_t^T, the gradient of log w is a reverse running sum
+of the state parts of dr and dk.  So the kernel walks S forward once for
+dr (pass A) and G back once for the rest (pass B, the forward recurrence
+run backward in time on (k, r, dy, w)), rebuilds no state and never
+divides by w (:func:`wkv6_bwd_twopass_plain` renders the two passes).
 """
 from __future__ import annotations
 
@@ -79,8 +84,8 @@ import torch
 from . import build
 
 __all__ = ["wkv6_plain", "wkv6_kernel", "wkv6_bwd_plain", "wkv6_bwd_kernel",
-           "Wkv6", "HEAD_DIMS", "ROUTES", "Tiling", "tiling", "route",
-           "BwdTiling", "bwd_tiling"]
+           "wkv6_bwd_twopass_plain", "Wkv6", "HEAD_DIMS", "ROUTES", "Tiling",
+           "tiling", "route", "BwdTiling", "bwd_tiling"]
 
 HEAD_DIMS = (16, 32, 64, 128)   # the head widths the kernel is built for
 ROUTES = ("ring", "step")       # the C entry's route ids 0, 1
@@ -215,39 +220,54 @@ wkv6_kernel.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class BwdTiling(NamedTuple):
-    """The backward kernel's sizes at one hd (``Bwd<HD>`` in
+    """The backward's sizes at one hd (``Bwd<HD>`` in
     ``csrc/wkv6_bwd.cu``)."""
-    cb: int         # state columns a block
-    ncb: int        # blocks a (b, h) chain
-    tc: int         # steps a chunk (a checkpoint every tc steps)
-    sw: int         # columns a row owner holds
-    sh: int         # rows a column owner holds
-    threads: int    # the row owners, then the column owners
-    smem: int       # dynamic shared bytes a block
+    t: int          # steps a ring stage (both passes)
+    ns: int         # stages in a ring
+    u: int          # steps a group (one exchange of the lanes' sums)
+    rb: int         # pass A: state rows a block (all columns)
+    nrb: int        # pass A: blocks a (b, h) chain
+    a_threads: int  # pass A: consumers and one producer warp
+    a_smem: int     # pass A: dynamic shared bytes a block
+    cb: int         # pass B: state columns a block (all rows)
+    ncb: int        # pass B: blocks a (b, h) chain
+    b_threads: int  # pass B: consumers and one producer warp
+    b_smem: int     # pass B: dynamic shared bytes a block
 
 
 def bwd_tiling(hd: int) -> BwdTiling:
-    """The backward kernel's tiling at head width ``hd`` (in
-    :data:`HEAD_DIMS`): a pure function of hd, the same as the library's
-    ``wkv6_bwd_tiling``."""
+    """The backward's tiling at head width ``hd`` (in :data:`HEAD_DIMS`):
+    a pure function of hd, the same as the library's ``wkv6_bwd_tiling``.
+    A consumer thread holds 4 rows x 4 columns of the state (2 columns at
+    hd 16): in pass A the lanes split the columns (dr' sums over them), in
+    pass B the rows (dv sums over them)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"wkv6 takes hd in {HEAD_DIMS}, not {hd}")
+    t, ns, u, bars = 8 if hd == 128 else 16, 2, 4, 128
+    ca = cc = 2 if hd == 16 else 4
+    rb = min(hd, 32)
+    wa = rb // (4 * (32 // (hd // ca)))
+    stage_a = 4 * t * (3 * rb + 2 * hd) + 128 + 2 * t * (rb + hd)
     cb = 32 if hd == 128 else hd
-    tc = 16 if hd <= 32 else 8
-    sw, sh = min(cb, 32), min(hd, 32)
-    threads = hd * (cb // sw) + cb * (hd // sh)
-    row = hd + hd // 32 * 4              # a staged row, padded
-    smem = 4 * (tc * hd * cb + 5 * tc * row + 2 * tc + hd)
-    return BwdTiling(cb=cb, ncb=hd // cb, tc=tc, sw=sw, sh=sh,
-                     threads=threads, smem=smem)
+    wb = cb // (cc * (32 // (hd // 4)))
+    nt = 32 * wb
+    slots = wb * (32 // (hd // 4))
+    stage_b = 4 * t * (6 * hd + cb) + 128 + 2 * t * 3 * hd
+    smem_b = (bars + ns * stage_b + 8 * u * slots * hd + 16 * u * cb + 4 * nt
+              + (16 * u * hd if cb < hd else 0))     # hd 128's exchange
+    return BwdTiling(t=t, ns=ns, u=u, rb=rb, nrb=hd // rb,
+                     a_threads=32 * (wa + 1), a_smem=bars + ns * stage_a,
+                     cb=cb, ncb=hd // cb, b_threads=nt + 32, b_smem=smem_b)
 
 
-def wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT=None):
+def wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT=None, log_w=False):
     """The gradient of :func:`wkv6_plain` (the recurrence in the module's
     docstring), one token at a time on the f32 upcasts of r, k, v: returns
     (dr, dk, dv, dw (B, S, H, hd), du (H, hd), ds0 (B, H, hd, hd)), all
     f32.  ``dsT`` None is zeros.  The states S_{t-1} are rebuilt with
-    :func:`wkv6_plain`'s own update, so they are its states bit for bit."""
+    :func:`wkv6_plain`'s own update, so they are its states bit for bit.
+    With ``log_w`` the fourth is w · dw instead, one f32 product: the
+    gradient of log w, as :func:`wkv6_bwd_kernel` returns it."""
     r, k, v, w, dy = (t.float() for t in (r, k, v, w, dy))
     B, S, H, hd = r.shape
     uu = u.float()
@@ -268,35 +288,108 @@ def wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT=None):
         dw[:, t] = (G * sp).sum(-1)
         du += (rt * kt * c).sum(0)
         G = w[:, t, :, :, None] * G + rt[..., None] * dyt[..., None, :]
-    return dr, dk, dv, dw, du, G
+    return dr, dk, dv, w * dw if log_w else dw, du, G
+
+
+def wkv6_bwd_twopass_plain(r, k, v, w, u, s0, dy, dsT=None):
+    """The CUDA backward's two passes in plain PyTorch, one token at a
+    time, the same sums in its order (the tests' rendering of the kernel's
+    algorithm; the kernel is held against :func:`wkv6_bwd_plain`).
+
+    Pass A walks the state forward from s0: dr'_t = S_{t-1} dy_t, dr_t =
+    dr'_t + u k_t c_t (c_t = dy_t . v_t), and at the end P_{S-1} = sum_j
+    dsT S_{S-1} (zeros without dsT).  Pass B walks G back from dsT: dv_t
+    = G_t^T k_t + dy_t a_t, dk'_t = G_t v_t, dk_t = dk'_t + r_t u c_t, the
+    gradient of log w dlw_t = P_t - k_t dk'_t and P_{t-1} = dlw_t + r_t
+    dr'_t (dr' = dr - u k c, from pass A's dr), G_{t-1} = w_t G_t + r_t
+    dy_t^T.  Returns (dr, dk, dv, dlw, du, ds0), all f32: no state is
+    rebuilt and nothing divides by w."""
+    r, k, v, w, dy = (t.float() for t in (r, k, v, w, dy))
+    B, S, H, hd = r.shape
+    uu = u.float()
+    c = (dy * v).sum(-1, keepdim=True)                     # (B, S, H, 1)
+    dr = torch.empty_like(r)
+    s = s0.float()
+    for t in range(S):
+        drp = torch.einsum("bhij,bhj->bhi", s, dy[:, t])
+        dr[:, t] = drp + uu * k[:, t] * c[:, t]
+        s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * v[:, t, :, None, :]
+    P = torch.zeros((B, H, hd), device=r.device) if dsT is None \
+        else (dsT.float() * s).sum(-1)
+    G = torch.zeros_like(s) if dsT is None else dsT.float()
+    dk, dv, dlw = (torch.empty_like(r) for _ in range(3))
+    du = torch.zeros_like(uu)
+    for t in reversed(range(S)):
+        rt, kt, vt, dyt, ct = r[:, t], k[:, t], v[:, t], dy[:, t], c[:, t]
+        a = (rt * uu * kt).sum(-1, keepdim=True)
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kt) + dyt * a
+        dkp = torch.einsum("bhij,bhj->bhi", G, vt)
+        dk[:, t] = dkp + rt * uu * ct
+        dlw[:, t] = P - kt * dkp
+        P = dlw[:, t] + rt * (dr[:, t] - uu * kt * ct)
+        du += (rt * kt * ct).sum(0)
+        G = w[:, t, :, :, None] * G + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dlw, du, G
 
 
 @functools.cache
 def _bwd_entry():
     lib = build.load("wkv6_bwd")
-    fn = lib.wkv6_bwd
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    for fn, n_int in ((lib.wkv6_bwd, 5), (lib.wkv6_bwd_passes, 6)):
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * n_int + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib, lib.wkv6_bwd
 
 
 def library_bwd_tiling(hd: int) -> BwdTiling:
     """The built library's ``Bwd<hd>`` (needs the build; on the card)."""
     lib, _ = _bwd_entry()
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 11)()
     if lib.wkv6_bwd_tiling(ctypes.c_int(hd), out) != 0:
         raise ValueError(f"wkv6 takes hd in {HEAD_DIMS}, not {hd}")
     return BwdTiling(*out)
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it starts off a 16-byte boundary (a
+    view into a larger tensor): TMA tensor maps need aligned bases."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_BWD_OUTPUTS = ("dr", "dk", "dv", "dlw", "du", "ds0")
+
+
+def _bwd_buffers(r: torch.Tensor) -> dict:
+    """The backward's outputs (:data:`_BWD_OUTPUTS`) and scratch, f32, for
+    r's (B, S, H, hd): ``pend`` is P_{S-1}, ``du_part`` du's partial a (b,
+    h) chain."""
+    B, S, H, hd = r.shape
+    f32 = dict(dtype=torch.float32, device=r.device)
+    o = {x: torch.empty(r.shape, **f32) for x in ("dr", "dk", "dv", "dlw")}
+    o["du"] = torch.empty((H, hd), **f32)
+    o["ds0"] = torch.empty((B, H, hd, hd), **f32)
+    o["pend"] = torch.empty((B, H, hd), **f32)
+    o["du_part"] = torch.empty((B, H, hd), **f32)
+    return o
+
+
+def _bwd_pointers(ins, dsT, o) -> list:
+    """The library's 16 pointer arguments: the inputs (r, k, v, w, u, s0,
+    dy), ``dsT`` (0 for None), then :func:`_bwd_buffers`' ``o``."""
+    return ([x.data_ptr() for x in ins] + [0 if dsT is None else
+                                           dsT.data_ptr()]
+            + [o[x].data_ptr() for x in _BWD_OUTPUTS + ("pend", "du_part")])
+
+
 def wkv6_bwd_kernel(r, k, v, w, u, s0, dy, dsT=None):
-    """The CUDA backward: :func:`wkv6_bwd_plain`'s contract on contiguous
-    CUDA tensors, r, k, v all f32 or all bf16, w, u, s0, dy and ``dsT``
-    (None: zeros) f32.  One call, one count: the kernel, then a short one
-    that adds du's per-row partials (and, at hd = 128, the column blocks'
-    partial sums) in a fixed order; no atomics, so repeats are
-    bit-identical.  Raises ``ValueError`` on anything else."""
+    """The CUDA backward: :func:`wkv6_bwd_plain`'s contract with
+    ``log_w=True`` on contiguous CUDA tensors, r, k, v all f32 or all bf16,
+    w, u, s0, dy and ``dsT`` (None: zeros) f32: returns (dr, dk, dv, dlw,
+    du, ds0), dlw the gradient of log w.  One call, one count: pass A, pass
+    B, then a short kernel that adds du's per-chain partials over b in a
+    fixed order; no atomics, so repeats are bit-identical.  Raises
+    ``ValueError`` on anything else."""
     if not (r.is_cuda and all(t.device == r.device
                               for t in (k, v, w, u, s0, dy))):
         raise ValueError("wkv6_bwd_kernel takes CUDA tensors on one device")
@@ -325,40 +418,37 @@ def wkv6_bwd_kernel(r, k, v, w, u, s0, dy, dsT=None):
         raise ValueError("wkv6_bwd_kernel takes CUDA tensors on one device")
     if not all(t.is_contiguous() for t in (r, k, v) + tail):
         raise ValueError("wkv6_bwd_kernel needs contiguous inputs")
-    t = bwd_tiling(hd)
-    nck = -(-S // t.tc)
-    f32 = dict(dtype=torch.float32, device=r.device)
-    dr, dk, dv, dw = (torch.empty(r.shape, **f32) for _ in range(4))
-    du = torch.empty((H, hd), **f32)
-    ds0 = torch.empty((B, H, hd, hd), **f32)
-    ck = torch.empty(B * H * nck * hd * hd, **f32)      # the checkpoints
-    du_part = torch.empty((B, H, hd), **f32)
-    part = torch.empty((3, t.ncb) + tuple(r.shape) if t.ncb > 1 else (1,),
-                       **f32)
+    r, k, v, w, dy = (_aligned16(t) for t in (r, k, v, w, dy))
+    o = _bwd_buffers(r)
     lib, fn = _bwd_entry()
-    ptrs = [x.data_ptr() for x in (r, k, v, w, u, s0, dy)]
-    ptrs.append(0 if dsT is None else dsT.data_ptr())
-    ptrs += [x.data_ptr() for x in (dr, dk, dv, dw, du, ds0, ck, du_part,
-                                    part)]
-    err = fn(*ptrs, B, S, H, hd, int(r.dtype == torch.bfloat16),
+    err = fn(*_bwd_pointers((r, k, v, w, u, s0, dy), dsT, o), B, S, H, hd,
+             int(r.dtype == torch.bfloat16),
              torch.cuda.current_stream(r.device).cuda_stream)
     build.check(lib, "wkv6_bwd", err)
     wkv6_bwd_kernel.launches += 1
-    return dr, dk, dv, dw, du, ds0
+    return tuple(o[x] for x in _BWD_OUTPUTS)
 
 
 wkv6_bwd_kernel.launches = 0
 
 
 class Wkv6(torch.autograd.Function):
-    """The kernel pair under autograd: the forward kernel, unchanged, and
-    the backward kernel.  Only the inputs are saved: under remat the
+    """The kernel pair under autograd, on log w: the forward computes w =
+    ``torch.exp(log_w)`` and runs the forward kernel, unchanged; the
+    backward kernel returns the gradient of log w in w's place, so nothing
+    divides by w, which underflows to 0 where the decay is strong.  A decay
+    that needs no gradient may come as w instead: ``Wkv6.apply(r, k, v,
+    None, u, s0, w)``.  Only r, k, v, w, u, s0 are saved: under remat the
     forward runs again before the backward, so y or per-step states would
     only hold memory.  dr, dk, dv come back in r's dtype (computed in f32
-    and cast once), dw, du, ds0 in f32."""
+    and cast once), dlw, du, ds0 in f32."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u, s0):
+    def forward(ctx, r, k, v, log_w, u, s0, w=None):
+        if (log_w is None) == (w is None):
+            raise ValueError("Wkv6 takes log w or, without its gradient, w")
+        if w is None:
+            w = torch.exp(log_w)
         y, sT = wkv6_kernel(r, k, v, w, u, s0)
         ctx.save_for_backward(r, k, v, w, u, s0)
         ctx.set_materialize_grads(False)
@@ -371,6 +461,7 @@ class Wkv6(torch.autograd.Function):
             if dy is None else dy.float().contiguous()
         if dsT is not None:
             dsT = dsT.float().contiguous()
-        dr, dk, dv, dw, du, ds0 = wkv6_bwd_kernel(r, k, v, w, u, s0, dy, dsT)
-        return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du,
-                ds0)
+        dr, dk, dv, dlw, du, ds0 = wkv6_bwd_kernel(r, k, v, w, u, s0, dy,
+                                                   dsT)
+        return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                dlw if ctx.needs_input_grad[3] else None, du, ds0, None)

@@ -355,9 +355,10 @@ def _token_shift(x, x_prev):
 
 def _rwkv_proj(p, x, x_prev, cfg: ArchConfig):
     """Token-shift mixes + projections.  x: (B, S, d); x_prev: (B, d), the
-    token before x[:, 0].  Returns r, k, v, g in x.dtype and the decay
-    w = exp(-exp(w0 + tanh(mix_w @ wA) @ wB)) in f32 whatever x.dtype,
-    as the reference casts."""
+    token before x[:, 0].  Returns r, k, v, g in x.dtype and the decay's
+    log, log w = -exp(w0 + tanh(mix_w @ wA) @ wB), in f32 whatever
+    x.dtype, as the reference casts: exp(log w) is the reference's w =
+    exp(-exp(...)) bit for bit, since negation is exact."""
     mu = p["mu"].to(x.dtype)
     xs = _token_shift(x, x_prev)
     mix = [x + (xs - x) * mu[i] for i in range(5)]
@@ -367,8 +368,7 @@ def _rwkv_proj(p, x, x_prev, cfg: ArchConfig):
     g = F.silu(mix[3] @ p["wg"].to(x.dtype))
     dd = p["w0"].float() + (torch.tanh(mix[4].float() @ p["wA"].float())
                             @ p["wB"].float())
-    w = torch.exp(-torch.exp(dd))                              # (B, S, d)
-    return r, k, v, g, w
+    return r, k, v, g, -torch.exp(dd)                          # (B, S, d)
 
 
 def rwkv_time_mix_seq(p, x, cfg: ArchConfig, state=None, x_prev=None):
@@ -386,9 +386,9 @@ def rwkv_time_mix_seq(p, x, cfg: ArchConfig, state=None, x_prev=None):
     if state is None:
         state = torch.zeros((B, H, hd, hd), dtype=torch.float32,
                             device=x.device)
-    r, k, v, g, w = _rwkv_proj(p, x, x_prev, cfg)
-    out, state = wkv6(*(t.reshape(B, S, H, hd) for t in (r, k, v, w)),
-                      p["u"], state)
+    r, k, v, g, lw = _rwkv_proj(p, x, x_prev, cfg)
+    r, k, v, lw = (t.reshape(B, S, H, hd) for t in (r, k, v, lw))
+    out, state = wkv6(r, k, v, None, p["u"], state, log_w=lw)
     y = out.reshape(B, S, d).to(x.dtype)
     y = rms_norm(y, p["ln_x"].to(x.dtype), cfg.norm_eps)
     y = (y * g) @ p["wo"].to(x.dtype)

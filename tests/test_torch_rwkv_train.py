@@ -12,6 +12,12 @@ its own largest magnitude.
 - ``wkv6_bwd_plain`` within 1e-5 of each gradient's largest magnitude of
   autograd through ``wkv6_plain``, from a nonzero state and a nonzero
   final-state gradient, S = 1 among the shapes;
+- the kernel's two passes in plain PyTorch (``wkv6_bwd_twopass_plain``:
+  the gradient of log w as a reverse running sum, no rebuilt state)
+  within ``WKV_BWD_TOL`` of ``wkv6_bwd_plain`` at S = 1024, d(log w)
+  against w dw, also where w underflows to 0; its dv and ds0 the forward
+  recurrence run backward in time; ``_rwkv_proj``'s w the bits of
+  exp(-exp(dd)), and the model's gradient where w is 0;
 - ``Model.loss`` and every gradient leaf, f32, remat on and off, against
   ``jax.value_and_grad`` of the reference's, within ``GRAD_TOL``; bf16
   within the bounds ``tests/test_torch_train.py`` states;
@@ -19,11 +25,14 @@ its own largest magnitude.
   jitted step; the launcher trains ``--arch rwkv6-3b --reduced``.
 
 The ``gpu`` tests (they skip without a card) hold the backward kernel
-against ``wkv6_bwd_plain`` at every hd, S in {1, 16, 37, 1024}, f32 and bf16
-r, k, v, views off 16 bytes, within ``WKV_BWD_TOL`` of each gradient's
-largest magnitude; repeats bit-identical; one count a call; ``ops.wkv6``
-under grad on the card through both kernels and never a plain version;
-the library's tiling; a reduced rwkv6's gradient card against CPU."""
+against ``wkv6_bwd_plain`` (the gradient of log w against w dw) at every
+hd, S in {1, 16, 37, 1024}, f32 and bf16 r, k, v, views off 16 bytes, w
+underflowing to 0, within ``WKV_BWD_TOL`` of each gradient's largest
+magnitude; repeats bit-identical; one count a call; ``ops.wkv6`` under
+grad on the card through both kernels on log w and never a plain version,
+a gradient through w given without log w refused, one through r alone
+with w given served; the library's tiling; a reduced rwkv6's gradient
+card against CPU."""
 import dataclasses
 import importlib
 
@@ -93,18 +102,33 @@ def _regrow(like, values):
     return tree_map(lambda _: next(it), like)
 
 
-def _wkv_inputs(seed, B, S, H, hd, dtype=torch.float32, device="cpu"):
+def _wkv_inputs(seed, B, S, H, hd, dtype=torch.float32, device="cpu",
+                log_w=False, dd_shift=-1.5):
     """r, k, v (in ``dtype``), w, u, s0, dy, dsT from a seeded numpy
-    generator, all nonzero."""
+    generator, all nonzero; w = exp(lw), lw = -exp(dd), and with ``log_w``
+    lw follows them."""
     rng = np.random.default_rng(seed)
 
     def f32(*shape, scale=1.0, shift=0.0):
         return torch.from_numpy((rng.normal(0, scale, shape) + shift).astype(
             np.float32)).to(device)
     r, k, v = (f32(B, S, H, hd).to(dtype) for _ in range(3))
-    w = torch.exp(-torch.exp(f32(B, S, H, hd, shift=-1.5)))
-    return (r, k, v, w, f32(H, hd, scale=0.5), f32(B, H, hd, hd),
-            f32(B, S, H, hd), f32(B, H, hd, hd, scale=0.1))
+    lw = -torch.exp(f32(B, S, H, hd, shift=dd_shift))
+    out = (r, k, v, torch.exp(lw), f32(H, hd, scale=0.5), f32(B, H, hd, hd),
+           f32(B, S, H, hd), f32(B, H, hd, hd, scale=0.1))
+    return out + (lw,) if log_w else out
+
+
+def _underflowing(seed, B, S, H, hd, dtype=torch.float32, device="cpu"):
+    """``_wkv_inputs`` where every other key's decay has dd >= 5, so w =
+    exp(-exp(dd)) is 0 in f32 (exp(-148) is below the least subnormal)."""
+    args = list(_wkv_inputs(seed, B, S, H, hd, dtype, device))
+    lw = torch.log(args[3])
+    lw[..., ::2] = -torch.exp(5.0 + lw[..., ::2].abs())
+    args[3] = torch.exp(lw)
+    assert bool((args[3][..., ::2] == 0).all()) and bool(
+        (args[3][..., 1::2] > 0).all())
+    return tuple(args)
 
 
 def _rel_errors(got, want):
@@ -147,17 +171,92 @@ def test_wkv6_bwd_plain_takes_bf16_as_its_upcasts():
 
 
 def test_bwd_tiling_is_a_function_of_hd():
-    """The backward's tiling: whole chains in one block up to hd 64, four
-    column blocks at 128, shared memory within a block's 227 KB."""
+    """The backward's tiling: pass A's row blocks hold whole rows and pass
+    B's column blocks whole columns; pass B holds a chain's columns in one
+    block up to hd 64, four column blocks at 128; a whole number of
+    groups a stage; shared memory within a block's 227 KB, at hd 64
+    several blocks an SM in each pass (228 KB an SM, 1 KB of it reserved a
+    block), and at hd 128 two pass B blocks (two clusters' worth) an SM."""
     for hd in wkv6_mod.HEAD_DIMS:
         t = wkv6_mod.bwd_tiling(hd)
-        assert t.cb * t.ncb == hd and t.sw == t.sh
-        assert t.threads % 32 == 0 and t.smem <= 232448
-        assert (t.tc * hd) % t.threads == 0
-    assert wkv6_mod.bwd_tiling(64).ncb == 1
-    assert wkv6_mod.bwd_tiling(128).ncb == 4
+        assert t.rb * t.nrb == hd and t.cb * t.ncb == hd
+        assert t.t % t.u == 0 and t.ns >= 2
+        assert t.a_threads % 32 == 0 and t.b_threads % 32 == 0
+        assert t.a_smem <= 232448 and t.b_smem <= 232448
+        assert (t.b_threads - 32) % hd == 0     # a thread a (step, key)
+    t = wkv6_mod.bwd_tiling(64)
+    assert t.ncb == 1 and t.nrb == 2
+    assert 233472 // (t.a_smem + 1024) >= 4
+    assert 233472 // (t.b_smem + 1024) >= 2
+    t = wkv6_mod.bwd_tiling(128)
+    assert t.ncb == 4 and 233472 // (t.b_smem + 1024) >= 2
     with pytest.raises(ValueError):
         wkv6_mod.bwd_tiling(48)
+
+
+@pytest.mark.parametrize("final", [True, False], ids=["dsT", "no_dsT"])
+@pytest.mark.parametrize("hd", [16, 64])
+def test_twopass_matches_plain(hd, final):
+    """The kernel's algorithm in plain PyTorch against the oracle at S =
+    1024 (B = H = 1): every gradient within ``WKV_BWD_TOL`` of its largest
+    magnitude, d(log w) against w dw (the reverse running sum adds ~1e-6
+    over the sequence; dr, dv, du and ds0 are the oracle's own sums)."""
+    args = _wkv_inputs(hd, 1, 1024, 1, hd)
+    dsT = args[7] if final else None
+    got = wkv6_mod.wkv6_bwd_twopass_plain(*args[:7], dsT)
+    want = wkv6_mod.wkv6_bwd_plain(*args[:7], dsT, log_w=True)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert max(_rel_errors(got, want)) <= WKV_BWD_TOL
+
+
+def test_twopass_dv_and_ds0_are_the_forward_run_backward():
+    """Pass B is the forward recurrence run backward in time: ``wkv6_plain``
+    on the time-reversed (k, r, dy, w), with the same u and s0 = dsT,
+    gives dv (its y, flipped back; a_t = sum r u k is symmetric in r and k)
+    and ds0 (its final state, bit for bit)."""
+    r, k, v, w, u, s0, dy, dsT = _wkv_inputs(8, 2, 37, 3, 16)
+    _, _, dv, _, _, ds0 = wkv6_mod.wkv6_bwd_twopass_plain(r, k, v, w, u, s0,
+                                                          dy, dsT)
+    y, sT = wkv6_mod.wkv6_plain(*(t.flip(1) for t in (k, r, dy, w)), u, dsT)
+    assert torch.equal(sT, ds0)
+    assert _rel_errors([y.flip(1)], [dv])[0] <= WKV_BWD_TOL
+
+
+def test_twopass_where_w_underflows():
+    """Where dd >= 5 the decay w = exp(-exp(dd)) is 0 in f32, and w dw is
+    0 there: the two passes (which never divide by w) give a finite
+    d(log w) within ``WKV_BWD_TOL`` of it, of the largest |w dw| over
+    every key, and every other gradient as the oracle does."""
+    args = _underflowing(21, 2, 64, 2, 16)
+    got = wkv6_mod.wkv6_bwd_twopass_plain(*args)
+    want = wkv6_mod.wkv6_bwd_plain(*args, log_w=True)
+    assert bool((want[3][..., ::2] == 0).all())
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert max(_rel_errors(got, want)) <= WKV_BWD_TOL
+
+
+def test_rwkv_proj_w_is_exp_of_log_w():
+    """``_rwkv_proj`` returns lw = -exp(dd), and w = exp(lw) (as
+    ``ops.wkv6`` forms it) is the bits of exp(-exp(dd)) that the model
+    used before it handed ``wkv6`` log w."""
+    from repro_torch.nn import blocks
+    cfg = get_config(ARCH).reduced()
+    p = {k: v[0] for k, v in Model(cfg, device="cpu").init(3)[
+        "layers"].items()}
+    rng = np.random.default_rng(4)
+    p["w0"] = torch.from_numpy(rng.normal(-1.5, 3.0, p["w0"].shape).astype(
+        np.float32))
+    x = torch.from_numpy(rng.normal(0, 1, (2, 9, cfg.d_model)).astype(
+        np.float32))
+    xp = torch.from_numpy(rng.normal(0, 1, (2, cfg.d_model)).astype(
+        np.float32))
+    *_, lw = blocks._rwkv_proj(p, x, xp, cfg)
+    w = torch.exp(lw)
+    mix = x + (torch.cat([xp[:, None], x[:, :-1]], 1) - x) * p["mu"][4]
+    dd = p["w0"] + torch.tanh(mix @ p["wA"]) @ p["wB"]
+    assert torch.equal(w, torch.exp(-torch.exp(dd)))
+    assert torch.equal(lw, -torch.exp(dd))
+    assert bool((w == 0).any())                # dd past 5 somewhere
 
 
 # ---------------------------------------------------------- loss and grads
@@ -188,6 +287,36 @@ def test_loss_and_gradient_match_jax(remat):
     # give u's and ln_x's as zeros in part)
     for name in ("u", "w0", "mu", "cm_mu", "ln_x"):
         assert np.abs(want[("layers", name)]).max() > 0, name
+
+
+def test_gradient_matches_jax_where_w_underflows():
+    """f32, remat on, ``w0`` = 6 on every other channel (w = exp(-exp(6 +
+    ...)) is 0 in f32 there): the loss and every gradient leaf, ``w0``'s
+    among them, within ``GRAD_TOL`` of ``jax.value_and_grad`` of the
+    reference's, so the path through log w holds where w is 0."""
+    cfgs = _cfgs(dtype="float32", remat=True)
+    npp = _overrides(jax.tree.map(
+        np.asarray, JModel(cfgs[0]).init(jax.random.PRNGKey(5))), 5)
+    w0 = npp["layers"]["w0"].copy()
+    w0[..., ::2] = 6.0
+    npp = {**npp, "layers": {**npp["layers"], "w0": w0}}
+    jp = jax.tree.map(jnp.asarray, npp)
+    tp = params_from_jax(npp, device="cpu")
+    batch = _batch(step=5)
+    (jl, _), jg = jax.value_and_grad(JModel(cfgs[0]).loss, has_aux=True)(
+        jp, jax.tree.map(jnp.asarray, batch))
+    live = tree_map(lambda p: p.requires_grad_(), tp)
+    tl, _ = Model(cfgs[1], device="cpu").loss(live, batch)
+    tg = torch.autograd.grad(tl, leaves(live))
+    assert abs(float(tl.detach()) - float(jl)) <= 1e-5 * abs(float(jl))
+    want = dict(flatten_with_path(jax.tree.map(np.asarray, jg)))
+    for path, g in flatten_with_path(_regrow(live, tg)):
+        assert bool(torch.isfinite(g).all()), path
+        err = np.abs(g.numpy() - want[path]).max()
+        assert err <= GRAD_TOL * max(np.abs(want[path]).max(), 1e-30), \
+            (path, err)
+    gw0 = want[("layers", "w0")]
+    assert np.abs(gw0[..., 1::2]).max() > 0
 
 
 def test_bf16_loss_and_gradient_match_jax():
@@ -274,8 +403,8 @@ def _needs_card():
         pytest.skip("needs an NVIDIA GPU with nvcc")
 
 
-def _card(seed, B, S, H, hd, dtype):
-    return _wkv_inputs(seed, B, S, H, hd, dtype, device="cuda")
+def _card(seed, B, S, H, hd, dtype, log_w=False):
+    return _wkv_inputs(seed, B, S, H, hd, dtype, device="cuda", log_w=log_w)
 
 
 def _check_kernel(args, final=True):
@@ -284,7 +413,7 @@ def _check_kernel(args, final=True):
                                    dsT if final else None)
     torch.cuda.synchronize()
     want = wkv6_mod.wkv6_bwd_plain(r, k, v, w, u, s0, dy,
-                                   dsT if final else None)
+                                   dsT if final else None, log_w=True)
     assert all(bool(torch.isfinite(g).all()) for g in got)
     errs = _rel_errors(got, want)
     assert max(errs) <= WKV_BWD_TOL, errs
@@ -307,6 +436,16 @@ def test_gpu_wkv6_bwd_matches_plain(hd, S, dtype):
 def test_gpu_wkv6_bwd_without_a_final_gradient(hd):
     _needs_card()
     _check_kernel(_card(7, 2, 21, 2, hd, torch.bfloat16), final=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_gpu_wkv6_bwd_where_w_underflows(hd):
+    """w = 0 on every other key (dd >= 5): d(log w) there within
+    ``WKV_BWD_TOL`` of w dw = 0, every gradient finite and as the plain
+    version's."""
+    _needs_card()
+    _check_kernel(_underflowing(23, 2, 70, 2, hd, torch.bfloat16, "cuda"))
 
 
 @pytest.mark.gpu
@@ -363,22 +502,26 @@ def test_gpu_wkv6_bwd_counts_one_a_call_and_refuses():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_gpu_ops_wkv6_under_grad_runs_both_kernels(dtype, monkeypatch):
-    """``ops.wkv6`` on CUDA tensors that need a gradient: one forward and
-    one backward kernel launch, never a plain version; dr, dk, dv in r's
-    dtype, within one bf16 ulp of the plain f32 gradient rounded plus
-    ``WKV_BWD_TOL`` of its largest magnitude; dw, du, ds0 in f32."""
+    """``ops.wkv6`` on CUDA tensors that need a gradient, the decay given
+    as log w (as the model hands it): one forward and one backward kernel
+    launch, never a plain version; dr, dk, dv in r's dtype, within one
+    bf16 ulp of the plain f32 gradient rounded plus ``WKV_BWD_TOL`` of its
+    largest magnitude; d(log w) (against w dw), du, ds0 in f32.  With w
+    given instead, a gradient through w is refused, and one through r
+    alone runs both kernels and matches dr."""
     _needs_card()
-    r, k, v, w, u, s0, dy, dsT = _card(19, 2, 50, 3, 64, dtype)
-    want = wkv6_mod.wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT)
+    r, k, v, w, u, s0, dy, dsT, lw = _card(19, 2, 50, 3, 64, dtype,
+                                           log_w=True)
+    want = wkv6_mod.wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT, log_w=True)
 
     def refuse(*a, **kw):
         raise AssertionError("a plain version ran on the card")
     monkeypatch.setattr(ops, "wkv6_plain", refuse)
     monkeypatch.setattr(wkv6_mod, "wkv6_bwd_plain", refuse)
-    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    ins = [t.clone().requires_grad_() for t in (r, k, v, lw, u, s0)]
     f0 = wkv6_mod.wkv6_kernel.launches
     b0 = wkv6_mod.wkv6_bwd_kernel.launches
-    y, sT = ops.wkv6(*ins)
+    y, sT = ops.wkv6(*ins[:3], None, *ins[4:], log_w=ins[3])
     got = torch.autograd.grad((y * dy).sum() + (sT * dsT).sum(), ins)
     torch.cuda.synchronize()
     assert wkv6_mod.wkv6_kernel.launches == f0 + 1
@@ -390,6 +533,57 @@ def test_gpu_ops_wkv6_under_grad_runs_both_kernels(dtype, monkeypatch):
             if g.dtype == torch.bfloat16 else torch.zeros_like(x)
         limit = ulp + WKV_BWD_TOL * x.abs().max()
         assert bool(((g.float() - x).abs() <= limit).all())
+    with pytest.raises(ValueError):        # through w
+        ops.wkv6(r, k, v, w.clone().requires_grad_(), u, s0)
+    assert wkv6_mod.wkv6_kernel.launches == f0 + 1
+    rg = r.clone().requires_grad_()        # through r alone
+    y, sT = ops.wkv6(rg, k, v, w, u, s0)
+    (dr,) = torch.autograd.grad((y * dy).sum() + (sT * dsT).sum(), rg)
+    torch.cuda.synchronize()
+    assert wkv6_mod.wkv6_kernel.launches == f0 + 2
+    assert wkv6_mod.wkv6_bwd_kernel.launches == b0 + 2
+    assert torch.equal(dr, got[0])
+
+
+_AUTOGRAD_THREAD = """
+import importlib, sys, torch
+m = importlib.import_module("repro_torch.kernels.wkv6")
+B, S, H, hd = 2, 37, 3, 64
+g = torch.Generator(device="cuda").manual_seed(0)
+def randn(*s):
+    return torch.randn(s, generator=g, device="cuda")
+r, k, v = (randn(B, S, H, hd).bfloat16() for _ in range(3))
+lw = -torch.exp(randn(B, S, H, hd) - 1.5)
+u, s0, dy, dsT = (randn(H, hd), randn(B, H, hd, hd), randn(B, S, H, hd),
+                  randn(B, H, hd, hd))
+m.wkv6_bwd_kernel(r, k, v, torch.exp(lw), u, s0, dy, dsT)  # main thread
+ins = [x.clone().requires_grad_() for x in (r, k, v, lw, u, s0)]
+y, sT = m.Wkv6.apply(*ins)
+got = torch.autograd.grad((y, sT), ins, (dy, dsT))
+torch.cuda.synchronize()
+print("ok", all(bool(torch.isfinite(x).all()) for x in got))
+"""
+
+
+@pytest.mark.gpu
+def test_gpu_wkv6_backward_on_autograd_s_own_thread():
+    """In a fresh process, the library set up by a call on the main thread,
+    then ``Wkv6``'s backward with f32 gradients given, so that the kernel's
+    entry makes the first CUDA call on autograd's thread: the driver's
+    tensor-map encoder needs the context current there (it failed with
+    CUDA_ERROR_INVALID_CONTEXT before the entry bound it)."""
+    _needs_card()
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(importlib.import_module("repro_torch").__path__[0] + "/..")]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    done = subprocess.run([sys.executable, "-c", _AUTOGRAD_THREAD], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert done.stdout.strip().endswith("ok True"), done.stdout
 
 
 @pytest.mark.gpu
