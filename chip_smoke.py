@@ -309,7 +309,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 15. training, after the dense phase's memory is freed: (a) ptxas's
    registers and spills of every instantiation of the flash backward
    (``flash_attention_bwd.cu``: delta, dk/dv and dq, f32 on the CUDA cores
-   and bf16 on the tensor cores, 20; a spill fails the run), then the
+   and bf16 on the tensor cores, 25; a spill fails the run), then the
    backward through ``FlashAttention`` against autograd through the plain
    version at qwen2-0.5b's loss shape (8, 1024, 14 / 2 heads of 64) and at
    D = 128, GQA 8:1 (qwen2.5-3b's 16 / 2), causal, f32 within
@@ -364,7 +364,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    finite, no restart, the step's time, tokens/s, the 6 N D share and the
    peak memory, the checkpoint written to a temporary directory and
    removed; (c') one more step under ``torch.profiler``: the device busy
-   share and the wkv6 kernels' shares of it.
+   share and the wkv6 kernels' shares of it;
+17. hybrid training, after phase 16's memory is freed: (a) ptxas's
+   registers and spills of the flash backward's five D = 256
+   instantiations (a spill fails the run), then the backward through
+   ``FlashAttention`` against autograd through the plain version, f32 and
+   bf16, two calls bit-identical, at recurrentgemma-9b's local attention
+   (16 / 1 heads of 256, causal, window 2048) at (2, 4096) and (1, 4096),
+   and at (1, 300) under a window of 128 and (2, 333) without one; in
+   bf16 timed at both 4096-row shapes beside its bound, autograd through
+   the plain version and ``scaled_dot_product_attention``'s backward with
+   the window as a mask (its backend named); (b) the linear scan's
+   backward (the forward kernel over the time-reversed inputs) at (2,
+   4096, 4096): bit-identical to the plain reversed scan and on repeat,
+   within ``SCAN_BWD_TOL`` of autograd through the plain scan, timed
+   beside its bytes bound; (c) the f32 ``Model.loss`` gradient of
+   recurrentgemma-9b at full width, 4 layers (a unit and a tail layer),
+   vocab 4096, 1 x 2304, norms, ``lam``, gates and conv seeded, card
+   against CPU, each leaf within ``TRAIN_GRAD_TOL`` of its largest
+   magnitude; (d) the train launcher's ``train`` at recurrentgemma-9b's
+   full width and 8 of its 38 layers (two units and the two tail layers;
+   the cut printed), 2 x 4096 bf16 batches on f32 masters and f32 AdamW
+   moments, remat a unit, 6 steps, the counters zeroed just before and
+   read just after (a step: 4 flash forward launches and 2 backward
+   calls, 10 forward and 6 backward scans), the first loss near ln V +
+   s2/2, every loss and grad norm finite, no restart, the step's time,
+   tokens/s, the 6 N D share and the peak memory, the checkpoint written
+   to a temporary directory and removed; (e) one more step under
+   ``torch.profiler``: the device busy share and the shares of the flash
+   kernels and the scan.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -534,6 +562,28 @@ TRAIN_GRAD_TOL = 1e-4
 # (d): the restart check at full width, 2 layers, vocab 4096, 4 x 256
 # batches, 8 steps, a checkpoint every 4, a failure injected at step 6.
 RESTART_VOCAB, RESTART_STEPS, RESTART_FAIL = 4096, 8, 6
+# The hybrid's training (phase 17): recurrentgemma-9b at full width and
+# HYB_TRAIN_LAYERS of its 38 layers -- two scanned units and the config's
+# two unrolled tail layers (n_layers % 3 == 2, as 38 = 12 x 3 + 2) --
+# through the train launcher's code: 3,678,646,272 f32 leaves, 54.8 GiB of
+# masters, gradients and AdamW moments (142.6 GiB at full depth).  Two
+# TokenPipeline rows of 4096 tokens a step, past the 2048 window.
+HYB_TRAIN_LAYERS = 8
+HYB_TRAIN_BATCH, HYB_TRAIN_SEQ = 2, 4096
+# (c): the f32 gradient at full width, one unit and one tail layer, vocab
+# 4096, one row of 2304 positions (the window bites on 256 rows), card
+# against CPU within TRAIN_GRAD_TOL; these leaves seeded (the reference's
+# init zeros the norms and sets lam to 3 everywhere)
+HYB_GRAD_LAYERS, HYB_GRAD_VOCAB, HYB_GRAD_SEQ = 4, 4096, 2304
+# its CPU side took 337.7 s on the H100 host's 8 cores, so it runs in a
+# child process (this flag, these threads) beside phases 2-16
+CPU_REFERENCE_FLAG = "--hybrid-cpu-reference"
+HYB_CPU_THREADS = 4
+HYB_SEEDED = ("ln", "ln1", "ln2", "final_norm", "lam", "gate_i", "gate_r",
+              "conv_k")
+# (b): the linear scan's backward against autograd through the plain scan,
+# each gradient within this of its largest magnitude
+SCAN_BWD_TOL = 1e-5
 # wkv6's y against the plain version: the kernel adds sum_i r_i s_ij with
 # FMAs over each lane's rows, then across lanes, then v_j a_t, the plain
 # einsum as a batched product does; each is within a few ulps of the
@@ -4793,6 +4843,64 @@ def flash_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, offset,
                                        else "operations")
 
 
+def bwd_agreement(torch, name, shape, dt, inputs, window=0):
+    """The flash backward through ``FlashAttention`` (``ops.flash_attention``
+    under grad, causal, ``window``) at ``shape`` (B, S, Hq, Hkv, D) in
+    ``dt`` against autograd through the plain version: f32 within
+    ``BWD_F32_TOL`` of each gradient's largest magnitude, bf16 under
+    ``bf16_grad_disagreement``; two calls bit-identical.  Returns the
+    reading's entries."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        BWD_BF16_MAX, BWD_BF16_MEAN, BWD_F32_TOL, KEY_TILE,
+        bf16_grad_disagreement, flash_attention_plain)
+    reading = {}
+
+    def kernel_grads(q, k, v, dout):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = ops.flash_attention(q, k, v, bk=512, offset=0, window=window)
+        return torch.autograd.grad(out, (q, k, v), dout)
+
+    q, k, v, dout = inputs(shape, dt)
+    got = kernel_grads(q, k, v, dout)
+    again = kernel_grads(q, k, v, dout)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = flash_attention_plain(
+        qq, kk, vv, offset=0, window=window,
+        bk=512 if dt == torch.float32 else KEY_TILE)
+    want = torch.autograd.grad(out, (qq, kk, vv), dout)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    if dt == torch.float32:
+        rel = [e / w.abs().max().item() for e, w in zip(errs, want)]
+        ok = max(rel) <= BWD_F32_TOL
+        tol = (f"largest err / largest |grad| {max(rel):.3e} (<= "
+               f"{BWD_F32_TOL})")
+    else:
+        dis = [bf16_grad_disagreement(g, w) for g, w in zip(got, want)]
+        mx, mean = max(d[0] for d in dis), max(d[1] for d in dis)
+        ok = mx <= BWD_BF16_MAX and mean <= BWD_BF16_MEAN
+        tol = (f"largest / mean err over largest / mean |grad| "
+               f"{mx:.3e} / {mean:.3e} (<= {BWD_BF16_MAX} / "
+               f"{BWD_BF16_MEAN})")
+        reading.update(bf16_max_ratio=mx, bf16_mean_ratio=mean)
+    key = str(dt).replace("torch.", "")
+    reading[f"{key}_max_abs_err"] = max(errs)
+    reading[f"{key}_deterministic"] = same
+    print(f"flash_attention_bwd {name} {shape}"
+          f"{f' window {window}' if window else ''} {key}: max abs err "
+          f"dq / dk / dv {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} "
+          f"against autograd through the plain version ({tol}); two runs "
+          f"bit-identical: {same}")
+    check(ok and finite and same,
+          f"flash_attention_bwd {name} {key}: {tol}, finite {finite}, "
+          f"deterministic {same}")
+    return reading
+
+
 def train_kernel_readings(torch):
     """Phase 15 (a): the flash backward kernels at qwen2-0.5b's loss shape
     (8, 1024, 14 / 2 heads of 64) and at D = 128 GQA 8:1 (qwen2.5-3b's 16
@@ -4807,11 +4915,8 @@ def train_kernel_readings(torch):
     kernel's share from ``torch.profiler``; the forward at the loss shape
     timed with and without its lse.  Returns the ``flash_attention_bwd``
     row (without launches) and the forward's lse reading."""
-    from repro_torch.kernels import build, ops
-    from repro_torch.kernels.flash_attention import (
-        BWD_BF16_MAX, BWD_BF16_MEAN, BWD_F32_TOL, KEY_TILE,
-        bf16_grad_disagreement, flash_attention_kernel,
-        flash_attention_plain)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
     ptxas = {}
     for fn, line in ptxas_lines(build.build_log("flash_attention_bwd")):
         ptxas.setdefault(fn, []).append(line)
@@ -4820,8 +4925,8 @@ def train_kernel_readings(torch):
                   for n in re.findall(r"(\d+) bytes spill", line)]
         print(f"flash_attention_bwd {fn}: ptxas {' / '.join(lines)}")
         check(not any(spills), f"flash_attention_bwd {fn} spills: {lines}")
-    check(len(ptxas) == 20, f"flash_attention_bwd: {len(ptxas)} "
-                            f"instantiations in ptxas's log, not 20")
+    check(len(ptxas) == 25, f"flash_attention_bwd: {len(ptxas)} "
+                            f"instantiations in ptxas's log, not 25")
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(shape, dt):
@@ -4830,55 +4935,13 @@ def train_kernel_readings(torch):
                 for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
                           (B, S, Hq, D))]
 
-    def kernel_grads(q, k, v, dout):
-        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-        out = ops.flash_attention(q, k, v, bk=512, offset=0)
-        return torch.autograd.grad(out, (q, k, v), dout)
-
     shapes = {"qwen2-0.5b loss": (8, 1024, 14, 2, 64),
               "D = 128 GQA 8:1 loss": (8, 1024, 16, 2, 128)}
     row = {"shapes": {}}
     for name, shape in shapes.items():
         reading = {}
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v, dout = inputs(shape, dt)
-            got = kernel_grads(q, k, v, dout)
-            again = kernel_grads(q, k, v, dout)
-            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-            out = flash_attention_plain(
-                qq, kk, vv, offset=0, bk=512 if dt == torch.float32
-                else KEY_TILE)
-            want = torch.autograd.grad(out, (qq, kk, vv), dout)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            finite = all(bool(torch.isfinite(g).all()) for g in got)
-            errs = [(g.float() - w.float()).abs().max().item()
-                    for g, w in zip(got, want)]
-            if dt == torch.float32:
-                rel = [e / w.abs().max().item() for e, w in zip(errs, want)]
-                ok = max(rel) <= BWD_F32_TOL
-                tol = (f"largest err / largest |grad| {max(rel):.3e} (<= "
-                       f"{BWD_F32_TOL})")
-            else:
-                dis = [bf16_grad_disagreement(g, w)
-                       for g, w in zip(got, want)]
-                mx, mean = max(d[0] for d in dis), max(d[1] for d in dis)
-                ok = mx <= BWD_BF16_MAX and mean <= BWD_BF16_MEAN
-                tol = (f"largest / mean err over largest / mean |grad| "
-                       f"{mx:.3e} / {mean:.3e} (<= {BWD_BF16_MAX} / "
-                       f"{BWD_BF16_MEAN})")
-                reading.update(bf16_max_ratio=mx, bf16_mean_ratio=mean)
-            key = str(dt).replace("torch.", "")
-            reading[f"{key}_max_abs_err"] = max(errs)
-            reading[f"{key}_deterministic"] = same
-            print(f"flash_attention_bwd {name} {shape} {key}: max abs err "
-                  f"dq / dk / dv {errs[0]:.3e} / {errs[1]:.3e} / "
-                  f"{errs[2]:.3e} against autograd through the plain "
-                  f"version ({tol}); two runs bit-identical: {same}")
-            check(ok and finite and same,
-                  f"flash_attention_bwd {name} {key}: {tol}, finite "
-                  f"{finite}, deterministic {same}")
-            del q, k, v, dout, got, again, qq, kk, vv, out, want
+            reading.update(bwd_agreement(torch, name, shape, dt, inputs))
         reading.update(flash_bwd_timing(torch, inputs, shape))
         row["shapes"][name] = reading
     # the forward at the loss shape with and without its lse
@@ -4931,9 +4994,9 @@ FLASH_BWD_KERNELS = {"dq": "flash_bwd_dq_wgmma_kernel",
                      "dkdv": "flash_bwd_dkdv_wgmma_kernel"}
 
 
-def sdpa_bwd_device_ms(torch, sets, reps):
-    """``scaled_dot_product_attention``'s backward (is_causal, enable_gqa)
-    as device time: ``reps`` rounds of ``torch.autograd.grad`` over the
+def sdpa_bwd_device_ms(torch, sets, reps, mask=None):
+    """``scaled_dot_product_attention``'s backward (is_causal, or ``mask``
+    as its boolean ``attn_mask``; enable_gqa) as device time: ``reps`` rounds of ``torch.autograd.grad`` over the
     input sets (q, k, v, out, dout, lse), every kernel it launches (GQA's
     expand and sum included) timed by ``device_time_ms``; also the same
     calls timed eagerly with CUDA events (autograd's host time inside),
@@ -4943,16 +5006,17 @@ def sdpa_bwd_device_ms(torch, sets, reps):
     from torch.nn.attention import SDPBackend
     from torch.profiler import ProfilerActivity, profile
     calls = []
+    sdpa = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
     for q, k, v, _, dout, _ in sets:
         lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
-        lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
-                                              enable_gqa=True)
+        lout = F.scaled_dot_product_attention(lq, lk, lv, enable_gqa=True,
+                                              **sdpa)
         ldo = dout.transpose(1, 2).contiguous()
         calls.append(lambda lout=lout, xs=(lq, lk, lv), ldo=ldo:
                      torch.autograd.grad(lout, xs, ldo, retain_graph=True))
     backend = SDPBackend(torch._fused_sdp_choice(
-        lq, lk, lv, is_causal=True, enable_gqa=True)).name
+        lq, lk, lv, enable_gqa=True, **sdpa)).name
 
     def round_():
         for c in calls:
@@ -4967,8 +5031,9 @@ def sdpa_bwd_device_ms(torch, sets, reps):
     return device_ms, eager_ms, backend, names
 
 
-def flash_bwd_timing(torch, inputs, shape):
-    """The backward's time in bf16 at ``shape`` (B, S, Hq, Hkv, D), causal:
+def flash_bwd_timing(torch, inputs, shape, window=0):
+    """The backward's time in bf16 at ``shape`` (B, S, Hq, Hkv, D), causal
+    under ``window`` (SDPA takes it as a mask):
     the kernels over input sets together twice the L2, each kernel's
     device time (``device_time_ms`` of its launches through the C entry
     point on the first set), autograd's backward through the plain version
@@ -4979,7 +5044,7 @@ def flash_bwd_timing(torch, inputs, shape):
         _bwd_entry, bwd_cluster, flash_attention_bwd_kernel,
         flash_attention_kernel, flash_attention_plain)
     B, S, Hq, Hkv, D = shape
-    kw = dict(causal=True, window=0, kv_len=S, offset=0)
+    kw = dict(causal=True, window=window, kv_len=S, offset=0)
     one = 2 * (4 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
     sets = []
     for _ in range(max(2, -(-2 * L2_BYTES // one))):
@@ -5005,22 +5070,30 @@ def flash_bwd_timing(torch, inputs, shape):
     def launch(which):
         build.check(lib, "flash_attention_bwd", fn(
             which, *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta)),
-            *(g.data_ptr() for g in grads), B, S, S, Hq, Hkv, D, S, 0, 1, 0,
-            D ** -0.5, 1, cluster, stream))
+            *(g.data_ptr() for g in grads), B, S, S, Hq, Hkv, D, S, 0, 1,
+            window, D ** -0.5, 1, cluster, stream))
 
     parts = {"dq": device_time_ms(torch, lambda: launch(2), 10),
              "dkdv": device_time_ms(torch, lambda: launch(1), 10)}
     del delta, grads
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-    out = flash_attention_plain(qq, kk, vv, offset=0, bk=64)
+    out = flash_attention_plain(qq, kk, vv, offset=0, bk=64, window=window)
     plain_ms = event_ms(torch, lambda: torch.autograd.grad(
         out, (qq, kk, vv), dout, retain_graph=True), 1)
     del out, qq, kk, vv
+    mask = None
+    if window:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
     lib_ms, lib_eager_ms, backend, lib_names = sdpa_bwd_device_ms(
-        torch, sets, 3)
-    bound_ms, bound_by = flash_bwd_bound_ms(B, S, S, Hq, Hkv, D, True, 0,
-                                            0, 2)
-    print(f"flash_attention_bwd {shape} bf16: {ms*1e3:.2f} us on the card "
+        torch, sets, 3, mask)
+    del mask
+    bound_ms, bound_by = flash_bwd_bound_ms(B, S, S, Hq, Hkv, D, True,
+                                            window, 0, 2)
+    print(f"flash_attention_bwd {shape}"
+          f"{f' window {window}' if window else ''} bf16: {ms*1e3:.2f} us "
+          f"on the card "
           f"({eager_ms*1e3:.2f} us per eager call; dq with delta / dk,dv "
           f"{parts['dq']*1e3:.2f} / {parts['dkdv']*1e3:.2f} us, clusters of "
           f"{cluster}), bound {bound_ms*1e3:.2f} us "
@@ -5841,6 +5914,443 @@ def rwkv_train_phase(torch):
     return launches, figures
 
 
+def hybrid_bwd_readings(torch):
+    """Phase 17 (a): the flash backward at D = 256, the hybrid's local
+    attention (16 / 1 heads of 256, causal, window 2048): ptxas's
+    registers and spills of its five instantiations (a spill fails the
+    run); through ``FlashAttention`` against autograd through the plain
+    version, f32 and bf16 (``bwd_agreement``), at the train cell's (2,
+    4096), at (1, 4096) and at small shapes with and without a window; in
+    bf16 timed at both 4096-row shapes beside the bound, autograd through
+    the plain version and ``scaled_dot_product_attention``'s backward with
+    the window as a mask.  Returns the readings by shape."""
+    from repro_torch.kernels import build
+    lines = [(fn, line) for fn, line in ptxas_lines(
+        build.build_log("flash_attention_bwd")) if "Li256E" in fn]
+    for fn, line in lines:
+        print(f"flash_attention_bwd D = 256 {fn}: ptxas {line}")
+        check(not any(int(n) for n in re.findall(r"(\d+) bytes spill",
+                                                 line)),
+              f"flash_attention_bwd {fn} spills: {line}")
+    check(len({fn for fn, _ in lines}) == 5,
+          f"flash_attention_bwd: {len(lines)} ptxas lines at D = 256")
+    serial = build.build_log("flash_attention_bwd").count("C7515")
+    print(f"flash_attention_bwd: ptxas reports {serial} kernels whose wgmma "
+          f"are serialized (C7515)")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def inputs(shape, dt):
+        B, S, Hq, Hkv, D = shape
+        return [torch.randn(s, generator=gen, device="cuda", dtype=dt)
+                for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                          (B, S, Hq, D))]
+
+    W = 2048                                   # the config's local_window
+    cases = [("train cell", (HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, 16, 1, 256), W),
+             ("one row", (1, HYB_TRAIN_SEQ, 16, 1, 256), W),
+             ("small, window 128", (1, 300, 16, 1, 256), 128),
+             ("small, no window", (2, 333, 16, 1, 256), 0)]
+    readings = {}
+    for name, shape, window in cases:
+        reading = {"window": window}
+        for dt in (torch.float32, torch.bfloat16):
+            reading.update(bwd_agreement(torch, name, shape, dt, inputs,
+                                         window))
+        gc.collect()
+        torch.cuda.empty_cache()
+        if shape[1] == HYB_TRAIN_SEQ:
+            reading.update(flash_bwd_timing(torch, inputs, shape, window))
+        readings[f"{name} {shape}"] = reading
+    return readings
+
+
+def scan_bwd_readings(torch):
+    """Phase 17 (b): the linear scan's backward (``linear_scan_bwd`` on the
+    kernel: the forward kernel over the time-reversed, shifted a and dh)
+    at the hybrid's (2, 4096, 4096): bit-identical to the plain reversed
+    scan and on repeat, each gradient within ``SCAN_BWD_TOL`` of its
+    largest magnitude of autograd through ``linear_scan_plain``; timed
+    (CUDA-graph replays over two input sets, each past the L2), the
+    reversed scan alone too, beside the bytes bound (a, h, dh read and da,
+    dx written once; the scan alone three arrays) and the plain reversed
+    scan.  Returns the reading."""
+    from repro_torch.kernels.linear_scan import (linear_scan_bwd,
+                                                 linear_scan_kernel,
+                                                 linear_scan_plain)
+    B, S, W = HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, 4096
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def inputs():
+        a = torch.rand((B, S, W), generator=gen, device="cuda") * 0.5 + 0.5
+        x, dh = (torch.randn((B, S, W), generator=gen, device="cuda")
+                 for _ in range(2))
+        return a, linear_scan_kernel(a, x), dh, x
+
+    a, h, dh, x = inputs()
+    got = linear_scan_bwd(linear_scan_kernel, a, h, dh)
+    again = linear_scan_bwd(linear_scan_kernel, a, h, dh)
+    plain = linear_scan_bwd(linear_scan_plain, a, h, dh)
+    aa, xx = a.clone().requires_grad_(), x.clone().requires_grad_()
+    want = torch.autograd.grad(linear_scan_plain(aa, xx), (aa, xx), dh)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, p) for g, p in zip(got, plain))
+    repeat = all(torch.equal(g, r) for g, r in zip(got, again))
+    rel = max(((g - w).abs().max() / w.abs().max()).item()
+              for g, w in zip(got, want))
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    del got, again, plain, aa, xx, want, x
+    sets = [(a, h, dh)] + [inputs()[:3]]
+    ms, eager_ms = time_calls(
+        torch, lambda a, h, dh: linear_scan_bwd(linear_scan_kernel, a, h, dh),
+        sets, 3)
+    rev = [(torch.cat([a[:, :1] * 0, a[:, 1:].flip(1)], 1).contiguous(),
+            dh.flip(1).contiguous()) for a, _, dh in sets]
+    scan_ms, _ = time_calls(torch, linear_scan_kernel, rev, 3)
+    plain_ms = event_ms(torch, lambda: linear_scan_bwd(
+        linear_scan_plain, a, h, dh), 1)
+    one = 4 * B * S * W
+    bound_ms = 5 * one / HBM_BYTES_PER_S * 1e3
+    scan_bound_ms = 3 * one / HBM_BYTES_PER_S * 1e3
+    print(f"linear_scan backward ({B}, {S}, {W}) f32: bit-identical to the "
+          f"plain reversed scan {same}, on repeat {repeat}; against autograd "
+          f"through linear_scan_plain max abs err {err:.3e}, {rel:.3e} of "
+          f"the largest (<= {SCAN_BWD_TOL}); {ms*1e3:.2f} us a call "
+          f"({eager_ms*1e3:.2f} eager), the reversed scan alone "
+          f"{scan_ms*1e3:.2f} us; bound {bound_ms*1e3:.2f} us (bytes: a, h, "
+          f"dh, da, dx; {100 * bound_ms / ms:.1f} %), the scan's "
+          f"{scan_bound_ms*1e3:.2f} us ({100 * scan_bound_ms / scan_ms:.1f} "
+          f"%); plain reversed scan {plain_ms:.2f} ms [{CARD}]")
+    check(same and repeat and rel <= SCAN_BWD_TOL,
+          f"linear_scan backward: plain {same}, repeat {repeat}, rel {rel}")
+    return {"shape": [B, S, W], "max_abs_err": err, "rel_err": rel,
+            "ms": ms, "eager_ms": eager_ms, "scan_ms": scan_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "scan_bound_ms": scan_bound_ms, "library_ms": None}
+
+
+def hybrid_counters():
+    """The hybrid training path's launch counters: flash forward and
+    backward, the linear scan's launches (forward and backward) and its
+    backward calls."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.kernels.linear_scan import LinearScan, linear_scan_kernel
+    return (flash_attention_kernel.launches,
+            flash_attention_bwd_kernel.launches, linear_scan_kernel.launches,
+            LinearScan.backward_launches)
+
+
+def zero_hybrid_counters():
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.kernels.linear_scan import LinearScan, linear_scan_kernel
+    flash_attention_kernel.launches = 0
+    flash_attention_bwd_kernel.launches = 0
+    linear_scan_kernel.launches = 0
+    LinearScan.backward_launches = 0
+
+
+def hybrid_step_launches(cfg, steps):
+    """A step's launches at ``cfg``'s depth, as the counters count them:
+    (flash forward, flash backward, linear scan launches, linear scan
+    backward calls).  Remat recomputes each scanned unit's forward (its
+    two RG-LRU layers and its attention) in the backward; the tail layers
+    are not under it."""
+    units, tail = cfg.n_layers // 3, cfg.n_layers % 3
+    fwd_scans = 2 * 2 * units + tail
+    bwd_scans = 2 * units + tail
+    return (2 * units * steps, units * steps,
+            (fwd_scans + bwd_scans) * steps, bwd_scans * steps)
+
+
+def _seed_hybrid_leaves(torch, params):
+    """Overwrite the ``HYB_SEEDED`` leaves with seeded values: norms around
+    0, lam around 3, the gates and the conv around their init's scale."""
+    from repro_torch.tree import flatten_with_path
+    rng = np.random.default_rng(0)
+    draw = {"lam": (3.0, 1.0), "conv_k": (0.0, 0.3)}
+    for path, leaf in flatten_with_path(params):
+        if path[-1] in HYB_SEEDED:
+            mean, sd = draw.get(path[-1], (0.0, 0.5))
+            leaf.copy_(torch.from_numpy(rng.normal(
+                mean, sd, tuple(leaf.shape)).astype(np.float32)))
+
+
+def hybrid_grad_inputs(torch):
+    """(c)'s config, parameters (on the CPU, from seed 0, the
+    ``HYB_SEEDED`` leaves seeded) and batch, the same in both processes."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.nn import Model, get_config
+    cfg = dataclasses.replace(get_config(HYB_ARCH), n_layers=HYB_GRAD_LAYERS,
+                              vocab=HYB_GRAD_VOCAB, dtype="float32")
+    params = Model(cfg, device="cpu").init(0)
+    _seed_hybrid_leaves(torch, params)
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=HYB_GRAD_SEQ,
+                          global_batch=1, seed=0).batch(0)
+    return cfg, params, batch
+
+
+def hybrid_cpu_reference(path):
+    """(c)'s CPU side, run in a process of its own (``HYB_CPU_THREADS``
+    threads) while the card works on the earlier phases: the f32 loss and
+    its gradient through the plain versions, without remat (the same
+    arithmetic, a fifth less work), saved to ``path``."""
+    import dataclasses
+    import torch
+    from repro_torch.nn import Model
+    from repro_torch.tree import leaves, tree_map
+    torch.set_num_threads(HYB_CPU_THREADS)
+    t0 = time.perf_counter()
+    cfg, params, batch = hybrid_grad_inputs(torch)
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = Model(dataclasses.replace(cfg, remat=False),
+                    device="cpu").loss(live, batch)
+    grads = torch.autograd.grad(loss, leaves(live))
+    torch.save({"loss": float(loss.detach()), "grads": list(grads),
+                "secs": time.perf_counter() - t0}, path)
+    return 0
+
+
+def start_hybrid_cpu_reference():
+    """Start ``hybrid_cpu_reference`` in a child process (no card, its own
+    threads) into a temporary directory; it is stopped and the directory
+    removed when this process exits.  Returns (process, path)."""
+    import atexit
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hybrid_cpu_")
+    path = os.path.join(tmp, "grads.pt")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS=str(HYB_CPU_THREADS))
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             CPU_REFERENCE_FLAG, path], env=env)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    atexit.register(stop)
+    return proc, path
+
+
+def hybrid_train_grad_check(torch, reference):
+    """Phase 17 (c): the f32 ``Model.loss`` gradient of recurrentgemma-9b at
+    full width, ``HYB_GRAD_LAYERS`` layers (one unit and one tail layer),
+    vocab ``HYB_GRAD_VOCAB``, one row of ``HYB_GRAD_SEQ`` positions (past
+    the window), remat on, the ``HYB_SEEDED`` leaves seeded: the card
+    (flash at D = 256 and the linear scan, forward and backward) against
+    the CPU's (autograd through the plain versions, computed by
+    ``hybrid_cpu_reference`` in a child process started with the run),
+    each leaf within ``TRAIN_GRAD_TOL`` of its largest magnitude."""
+    from repro_torch.nn import Model
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    proc, path = reference
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    waited = time.perf_counter() - t0
+    check(rc == 0, f"train_hybrid (c): the CPU reference exited with {rc}")
+    cpu = torch.load(path)
+    os.unlink(path)
+    cfg, params, batch = hybrid_grad_inputs(torch)
+    live = tree_map(lambda p: p.detach().to("cuda").requires_grad_(), params)
+    n0 = hybrid_counters()
+    t0 = time.perf_counter()
+    loss, _ = Model(cfg, device="cuda").loss(live, batch)
+    grads = torch.autograd.grad(loss, leaves(live))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    n = tuple(b - a for a, b in zip(n0, hybrid_counters()))
+    worst, worst_path = 0.0, None
+    for (path_, _), c, g in zip(flatten_with_path(params), cpu["grads"],
+                                grads):
+        name = "/".join(map(str, path_))
+        rel = (g.cpu() - c).abs().max().item() / max(c.abs().max().item(),
+                                                     1e-30)
+        if rel > worst:
+            worst, worst_path = rel, name
+        check(rel <= TRAIN_GRAD_TOL, f"hybrid train gradient {name}: card "
+              f"vs CPU {rel:.3e} of its largest")
+    card_loss = float(loss.detach())
+    rel_loss = abs(card_loss - cpu["loss"]) / abs(cpu["loss"])
+    want = hybrid_step_launches(cfg, 1)
+    print(f"train_hybrid (c): f32 Model.loss gradient, {HYB_ARCH} full "
+          f"width, {HYB_GRAD_LAYERS} layers, vocab {HYB_GRAD_VOCAB}, 1 x "
+          f"{HYB_GRAD_SEQ}, seeded {'/'.join(HYB_SEEDED)}: loss card "
+          f"{card_loss!r} CPU {cpu['loss']!r} (rel {rel_loss:.3e}); every "
+          f"leaf within {worst:.3e} of its largest magnitude ({worst_path}; "
+          f"<= {TRAIN_GRAD_TOL}); launches flash forward / backward {n[0]} "
+          f"/ {n[1]}, linear scan {n[2]} ({n[3]} of them backward); CPU "
+          f"{cpu['secs']:.2f} s in its own process ({HYB_CPU_THREADS} "
+          f"threads, waited {waited:.2f} s for it here), card {card_s:.2f} "
+          f"s [{CARD}]")
+    check(rel_loss <= 1e-5 and n == want,
+          f"train_hybrid (c): loss rel {rel_loss}, launches {n}, not {want}")
+    return {"worst_leaf_rel": worst, "loss_rel": rel_loss,
+            "cpu_s": cpu["secs"], "waited_s": waited}
+
+
+def hybrid_train_launcher_run(torch):
+    """Phase 17 (d): the train launcher's code (``launch.train.train``) at
+    recurrentgemma-9b's full width and ``HYB_TRAIN_LAYERS`` of its 38
+    layers, ``HYB_TRAIN_BATCH`` x ``HYB_TRAIN_SEQ`` bf16 batches on f32
+    masters and f32 AdamW moments, remat a unit, ``TRAIN_STEPS`` steps,
+    the checkpoint into a temporary directory, removed after.  The
+    counters zeroed just before and read just after
+    (``hybrid_step_launches``);
+    the first loss near ln V + s2/2; every loss and grad norm finite, no
+    restart; the step's time (its median past the first), tokens/s, the 6
+    N D share of the bf16 peak and the peak memory.  Returns the launches
+    and the figures."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as launch_train
+    from repro_torch.nn import get_config
+    full = get_config(HYB_ARCH)
+    cfg = dataclasses.replace(full, n_layers=HYB_TRAIN_LAYERS)
+    print(f"train_hybrid (d): {HYB_ARCH} cut to {cfg.n_layers} of "
+          f"{full.n_layers} layers ({cfg.n_layers // 3} scanned units and "
+          f"{cfg.n_layers % 3} tail layers; full depth's f32 masters, "
+          f"gradients and AdamW moments are 142.6 GiB), full width")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.reset_peak_memory_stats()
+    zero_hybrid_counters()
+    t0 = time.perf_counter()
+    try:
+        loop = launch_train.train(
+            cfg, steps=TRAIN_STEPS, batch=HYB_TRAIN_BATCH, seq=HYB_TRAIN_SEQ,
+            ckpt_dir=ckpt, ckpt_every=100, log_every=1)
+        torch.cuda.synchronize()
+        n = hybrid_counters()
+        wall = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(ckpt) for f in fs)
+        saved = os.listdir(ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = [r for r in loop.metrics_log if "loss" in r]
+    for r in loop.metrics_log:
+        print(f"  train_hybrid {r}")
+    steady = sorted(r["dt"] for r in recs[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = HYB_TRAIN_BATCH * HYB_TRAIN_SEQ
+    mfu = 6 * cfg.params_count() * tokens / step_s / BF16_FLOPS
+    s2 = 0.02 ** 2 * cfg.d_model
+    expect = float(np.log(cfg.vocab)) + s2 / 2
+    want = hybrid_step_launches(cfg, TRAIN_STEPS)
+    print(f"train_hybrid (d): {HYB_ARCH} full width, {cfg.n_layers} layers, "
+          f"through the launcher's train(), {HYB_TRAIN_BATCH} x "
+          f"{HYB_TRAIN_SEQ} bf16, {TRAIN_STEPS} steps: step "
+          f"{step_s*1e3:.2f} ms (median of steps 1-{TRAIN_STEPS - 1}; step 0 "
+          f"{recs[0]['dt']*1e3:.2f} ms), {tokens / step_s:,.0f} tokens/s, 6 "
+          f"N D {100 * mfu:.2f} % of {BF16_FLOPS / 1e12:.0f} TFLOP/s (N = "
+          f"{cfg.params_count():,}); loss {recs[0]['loss']:.4f} -> "
+          f"{recs[-1]['loss']:.4f} (step 0 expected ln V + s2/2 = "
+          f"{expect:.4f}); peak memory {peak:.3f} GiB; launches flash "
+          f"forward {n[0]}, backward {n[1]}, linear scan {n[2]} ({n[3]} "
+          f"backward calls); {loop.restarts} restarts; checkpoint {saved} "
+          f"{ckpt_bytes / 2**30:.3f} GiB, removed; {wall:.2f} s with init "
+          f"and the checkpoint [{CARD}]")
+    check(len(recs) == TRAIN_STEPS and loop.restarts == 0 and all(
+        np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+        for r in recs), f"train_hybrid (d): records {loop.metrics_log}")
+    check(abs(recs[0]["loss"] - expect) <= 0.2,
+          f"train_hybrid (d): first loss {recs[0]['loss']} far from {expect}")
+    check(n == want, f"train_hybrid (d): launches {n}, not {want}")
+    check(saved == [f"step_{TRAIN_STEPS - 1}"],
+          f"train_hybrid (d): checkpoint directory held {saved}")
+    launches = {"flash_attention": n[0], "flash_attention_bwd": n[1],
+                "linear_scan": n[2], "linear_scan backward calls": n[3]}
+    return launches, {
+        "layers": cfg.n_layers, "step_ms": step_s * 1e3,
+        "tokens_per_s": tokens / step_s, "mfu_6nd": mfu, "peak_gib": peak,
+        "losses": [r["loss"] for r in recs],
+        "checkpoint_gib": ckpt_bytes / 2**30}
+
+
+def hybrid_train_profile(torch):
+    """Phase 17 (e): one more step at (d)'s configuration (the launcher's
+    optimizer) under ``torch.profiler``, after one untimed step: the
+    device's busy share and the shares of the flash backward's kernels and
+    of the linear scan (forward and backward launches alike)."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.nn import Model, get_config
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime.step import make_train_step
+    cfg = dataclasses.replace(get_config(HYB_ARCH), n_layers=HYB_TRAIN_LAYERS)
+    m = Model(cfg, device="cuda")
+    params = m.init(0)
+    opt = AdamW(lr=3e-4, schedule=cosine_schedule(3e-4, 20, 100))
+    state = opt.init(params)
+    step = make_train_step(m, opt)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=HYB_TRAIN_SEQ,
+                         global_batch=HYB_TRAIN_BATCH)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in pipe.batch(0).items()}
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    n0 = hybrid_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = tuple(b - a for a, b in zip(n0, hybrid_counters()))
+    busy, by_name = report_profile(prof, wall * 1e6, "one recurrentgemma-9b "
+                                   f"train step, {cfg.n_layers} layers", 14)
+    parts = {part: tuple(map(sum, zip((0.0, 0), *(
+        v for k, v in by_name.items() if name in k))))
+        for part, name in (("flash forward", "flash_attention_wgmma_kernel"),
+                           ("flash backward dq", FLASH_BWD_KERNELS["dq"]),
+                           ("flash backward dk/dv",
+                            FLASH_BWD_KERNELS["dkdv"]),
+                           ("linear scan", "linear_scan_ring_kernel"))}
+    print(f"train_hybrid (e): profiled step {wall*1e3:.1f} ms, device busy "
+          f"{busy/1e3:.1f} ms ({100 * busy / (wall * 1e6):.2f} %); "
+          + ", ".join(f"{p} {t/1e3:.3f} ms in {k} events "
+                      f"({100 * t / busy:.2f} % of busy)"
+                      for p, (t, k) in parts.items())
+          + f"; the counters: {n} [{CARD}]")
+    check(n == hybrid_step_launches(cfg, 1)
+          and all(k > 0 for _, k in parts.values()),
+          f"train_hybrid (e): launches {n}, profiled kernels {parts}")
+    return {"profiled_step_ms": wall * 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (wall * 1e6),
+            "shares": {p: t / busy for p, (t, _) in parts.items()}}
+
+
+def hybrid_train_phase(torch, reference):
+    """Phase 17, the hybrid's training: (a), (b), (d), (e), then (c), whose
+    CPU side (``reference``, from ``start_hybrid_cpu_reference``) has had
+    the run to finish.  Returns the flash backward's D = 256 readings, the
+    scan backward's reading, the launches of (d), the main path, and (d)'s
+    figures."""
+    t0 = time.perf_counter()
+    bwd = hybrid_bwd_readings(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    scan = scan_bwd_readings(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_hybrid (a), (b): {time.perf_counter() - t0:.2f} s")
+    launches, figures = hybrid_train_launcher_run(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    figures["profile"] = hybrid_train_profile(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    figures["grad_check"] = hybrid_train_grad_check(torch, reference)
+    print(f"train_hybrid (c): {time.perf_counter() - t0:.2f} s")
+    return bwd, scan, launches, figures
+
+
 def main() -> int:
     global CARD
     # phase 15 (d) runs with deterministic algorithms, which for cuBLAS
@@ -5865,6 +6375,8 @@ def main() -> int:
     build.build(sources)
     print(f"build: {time.perf_counter()-t0:.2f} s "
           f"({', '.join(n + '.cu' for n in sources)}, in parallel)")
+    # phase 17 (c)'s CPU side runs beside the card's phases
+    hybrid_reference = start_hybrid_cpu_reference()
     for name in sources:
         for fn, line in ptxas_lines(build.build_log(name)):
             print(f"  ptxas {name} {fn}: {line}")
@@ -5965,6 +6477,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     rwkv_train_launches, rwkv_train_figures = rwkv_train_phase(torch)
     print(f"train_rwkv phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hyb_bwd, scan_bwd, hyb_train_launches, hyb_train_figures = \
+        hybrid_train_phase(torch, hybrid_reference)
+    print(f"train_hybrid phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
@@ -5975,6 +6493,7 @@ def main() -> int:
                "audio": audio_launches, "vlm": vlm_launches,
                "dense": dense_launches, "train": train_launches,
                "train_rwkv": rwkv_train_launches,
+               "train_hybrid": hyb_train_launches,
                "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
@@ -5991,6 +6510,8 @@ def main() -> int:
     for name, n in dense_launches.items():
         launches[name] += n
     for name, n in train_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in hyb_train_launches.items():
         launches[name] = launches.get(name, 0) + n
     launches["qmatmul"] = qm_launches
     launches["wkv6"] = rwkv_launches["wkv6"] + rwkv_train_launches["wkv6"]
@@ -6015,6 +6536,12 @@ def main() -> int:
             k["forward_lse"] = bwd_row.pop("forward_lse")
         if k["name"] == "flash_attention_bwd":
             k["train_step"] = train_figures
+            k["hybrid_shapes"] = hyb_bwd
+            k["train_hybrid_step"] = hyb_train_figures
+        if k["name"] == "linear_scan":
+            k["backward"] = scan_bwd
+            k["backward_calls"] = hyb_train_launches[
+                "linear_scan backward calls"]
         if k["name"] == "wkv6_bwd":
             k["train_step"] = rwkv_train_figures
     print(json.dumps({"kernels": kernels}))
@@ -6025,4 +6552,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [CPU_REFERENCE_FLAG]:
+        sys.path.insert(0, os.path.join(HERE, "src"))
+        sys.exit(hybrid_cpu_reference(sys.argv[2]))
     sys.exit(main())

@@ -780,6 +780,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a current context.  Autograd runs a
+// backward on a thread of its own, where this may be the first CUDA call:
+// cudaSetDevice makes the device's primary context current there.
+cudaError_t make_current() {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaSetDevice(dev) : e;
+}
+
 // the 4-D map of a contiguous bf16 (B, S, H, D) tensor, boxes of `rows`
 // rows of one head and one slab of dims, swizzled for wgmma
 template <int D>
@@ -810,6 +819,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   using T = Tile<D>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
+  if (const cudaError_t ce = make_current(); ce != cudaSuccess) return ce;
   CUtensorMap tq, tk, tv, to;
   if (!tensor_map<D>(enc, &tq, q, B, Sq, Hq, 64) ||
       !tensor_map<D>(enc, &tk, k, B, Skv, Hkv, T::KT) ||

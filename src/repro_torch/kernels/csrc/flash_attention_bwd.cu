@@ -39,9 +39,9 @@
 // 128-byte (64-, 32-byte) swizzle that wgmma descriptors read.  A block is
 // a producer warpgroup and NW consumer warpgroups (NW = 2 at D = 128, else
 // 1; setmaxnreg moves the producer's registers to the consumers): one
-// producer warp keeps a ring of kStages = 3 stages full by TMA, each stage
+// producer warp keeps a ring of 3 stages (2 at D = 256) full by TMA, each stage
 // completing on an mbarrier, and each consumer warpgroup computes 64 keys
-// (b) or 64 query rows (c).  Two blocks an SM at D <= 64, one at D = 128.
+// (b) or 64 query rows (c).  Two blocks an SM at D <= 64, one at D >= 128.
 // Where a boundary (causal diagonal, window edge, Sq, kv_len) crosses a
 // tile, P is zeroed where masked after its exponential: no branch per
 // element (a branch per element made (b) 1.8x slower).
@@ -80,6 +80,16 @@
 // the A fragments of dQ += dS K (register-A, K read MN-major).  Epilogue:
 // dQ times the scale as bf16 into the warpgroup's Q buffer, swizzled, then
 // a TMA store.
+//
+// D = 256 (the hybrid's local attention, MQA 16:1 under a window): a 64 x
+// 256 f32 accumulator is 128 registers a thread, so one warpgroup cannot
+// hold both dK and dV, and three ring stages of 64 KB do not fit beside the
+// resident 64 KB.  (b) has two consumer warpgroups on one 64-key tile,
+// split by output: both compute S^T and P^T, warpgroup 0 owns dV += P^T dO,
+// warpgroup 1 also computes dP^T and dS^T and owns dK += dS^T Q; the
+// cluster's sum is as above.  (c) has one consumer warpgroup (dQ 128
+// registers, no setmaxnreg).  The ring is 2 stages deep in both: 64 KB
+// resident and 2 x 64 KB in flight.
 //
 // float32 -- the CUDA cores (the *_simt_kernel's), for the checks that hold
 // f32 gradients tightly: tiles of 32 query rows and 64 keys in shared
@@ -144,13 +154,15 @@ struct Mask {
 
 // delta (B, Hq, Sq) = sum over d of dO * O, float32.  A warp takes 32
 // consecutive rows s0.. of one (b, h): L = D / 4 lanes a row (a float4
-// each), R = 32 / L rows a pass; the 32 sums leave in one coalesced store.
+// each; at D = 256 32 lanes, two float4 each), R = 32 / L rows a pass; the
+// 32 sums leave in one coalesced store.
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const float* __restrict__ o,
                        const float* __restrict__ dout,
                        float* __restrict__ delta, int B, int Sq, int Hq) {
-  constexpr int L = D / 4;                      // lanes a row
+  constexpr int V = D > 128 ? D / 128 : 1;      // float4s a lane
+  constexpr int L = D / (4 * V);                // lanes a row
   constexpr int R = 32 / L;                     // rows a pass
   __shared__ float sums[8][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -166,10 +178,16 @@ flash_bwd_delta_kernel(const float* __restrict__ o,
     const int s = s0 + p * R + lane / L;
     float acc = 0.0f;
     if (s < Sq) {
-      const long long at = (((long long)b * Sq + s) * Hq + h) * D + 4 * part;
-      const float4 x = *reinterpret_cast<const float4*>(o + at);
-      const float4 y = *reinterpret_cast<const float4*>(dout + at);
-      acc = fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, x.w * y.w)));
+#pragma unroll
+      for (int w = 0; w < V; ++w) {
+        const long long at =
+            (((long long)b * Sq + s) * Hq + h) * D + 4 * (part + L * w);
+        const float4 x = *reinterpret_cast<const float4*>(o + at);
+        const float4 y = *reinterpret_cast<const float4*>(dout + at);
+        const float t =
+            fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, x.w * y.w)));
+        acc = w ? acc + t : t;
+      }
     }
 #pragma unroll
     for (int w = L / 2; w > 0; w >>= 1)
@@ -375,19 +393,31 @@ flash_bwd_dq_simt_kernel(const float* __restrict__ q,
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kStages = 3;           // depth of the TMA ring
+constexpr int kStages = 3;           // depth of the TMA ring below D = 256
 constexpr int kMaxCluster = 8;       // the portable cluster size
 
 template <int D>
 struct Tile {
-  static constexpr int NW = D == 128 ? 2 : 1;   // consumer warpgroups
+  // At D = 256 (SPLIT) the dK/dV kernel's two consumer warpgroups share one
+  // 64-key tile and split by output, each holding one 64 x 256 f32
+  // accumulator (128 registers a thread): warpgroup 0 owns dV, warpgroup 1
+  // dK.  The dQ kernel has one consumer warpgroup there.
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int NW = D == 128 ? 2 : 1;   // consumer warpgroups of
+                                                // (c), and of (b) unless SPLIT
+  static constexpr int CW = SPLIT ? 2 : NW;     // consumer warpgroups of (b)
   static constexpr int THREADS = 128 * (NW + 1);
-  static constexpr int BLOCKS = NW == 2 ? 1 : 2;  // blocks an SM
+  static constexpr int DKDV_THREADS = 128 * (CW + 1);
+  static constexpr int BLOCKS = D >= 128 ? 1 : 2;  // blocks an SM
+  static constexpr int STAGES = D == 256 ? 2 : kStages;  // the ring's depth
   // registers a thread after setmaxnreg: the consumers take what the
   // producer warpgroup gives up (launch bounds give each 65536 / (BLOCKS *
-  // THREADS), rounded down to 8)
+  // THREADS), rounded down to 8).  (c) at D = 256, one block of 256
+  // threads an SM, moves none: ptxas gives it what it needs, up to 255.
   static constexpr int PRODUCER_REGS = 24;
   static constexpr int CONSUMER_REGS = NW == 2 ? 240 : 232;
+  static constexpr int DKDV_CONSUMER_REGS = CW == 2 ? 240 : 232;
+  static constexpr bool DQ_MOVES_REGS = !SPLIT;
   static constexpr int DW = D < 64 ? D : 64;    // dims per swizzled slab
   static constexpr int W = 2 * DW;              // a slab row in bytes: the
                                                 // swizzle width
@@ -396,12 +426,12 @@ struct Tile {
                                                 // B128 / B64 / B32
   static constexpr int TILE = 64 * D * 2;       // a 64-row tile, bytes
   static constexpr int ROWS = 64 * NW;          // keys (b) / rows (c) a block
-  // (b): resident K, V [NW][2][TILE], ring [kStages][Q, dO][TILE], then
-  // [kStages][lse, delta][64] f32; (c): resident Q, dO [NW][2][TILE], ring
-  // [kStages][K, V][TILE]
-  static constexpr int DATA = NW * 2 * TILE + kStages * 2 * TILE;
-  static constexpr int VECS = kStages * 2 * 64 * 4;
-  static constexpr int BARS = 8 * (2 * kStages + 1);
+  // (b): resident K, V [NW][2][TILE], ring [STAGES][Q, dO][TILE], then
+  // [STAGES][lse, delta][64] f32; (c): resident Q, dO [NW][2][TILE], ring
+  // [STAGES][K, V][TILE]
+  static constexpr int DATA = NW * 2 * TILE + STAGES * 2 * TILE;
+  static constexpr int VECS = STAGES * 2 * 64 * 4;
+  static constexpr int BARS = 8 * (2 * STAGES + 1);
   static constexpr int DKDV_SMEM = 1024 + DATA + VECS + BARS;
   static constexpr int DQ_SMEM = 1024 + DATA + BARS;
   // (b)'s f32 dK, dV slots at the end, over the resident tiles and the
@@ -410,6 +440,8 @@ struct Tile {
   static constexpr int PITCH = D + 8;
   static_assert((2 * ROWS + kMaxCluster - 1) * PITCH * 4 <= DATA,
                 "the cluster's dK, dV slots fit the tiles' room");
+  static_assert(DKDV_SMEM <= 232448 && DQ_SMEM <= 232448,
+                "a block's shared memory fits the SM's 227 KB");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -678,6 +710,25 @@ __device__ __forceinline__ void score_pair(float* s, float* dp, uint32_t a0,
   wgmma_commit();
 }
 
+// score_pair's first product alone: S^T into s, one commit group
+template <int D>
+__device__ __forceinline__ void score_one(float* s, uint32_t a0,
+                                          uint32_t b0) {
+  using T = Tile<D>;
+  constexpr int W = T::W, DW = T::DW;
+  uint64_t da0 = gmma_desc(a0, 16, 8 * W, T::LAYOUT);
+  uint64_t db0 = gmma_desc(b0, 16, 8 * W, T::LAYOUT);
+  asm volatile("" : "+l"(da0), "+l"(db0));
+  pin<32>(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 / DW, off = c * 64 * W + (kk * 16 % DW) * 2;
+    wgmma_ss_n64(s, da0 + (off >> 4), db0 + (off >> 4), kk > 0);
+  }
+  wgmma_commit();
+}
+
 // acc (64 x D) += A (64 x 64, bf16 fragments, 4 k16 steps) B, B a 64 x D
 // tile [SLABS][64][W] in shared memory read MN-major; one commit group
 template <int D>
@@ -718,11 +769,82 @@ __device__ __forceinline__ void to_frags(const float* x, uint32_t (&a)[4][4]) {
       a[kk][j] = pack(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
 }
 
+// (b) at D = 256, one consumer warpgroup's walk: P^T = 2^(S^T scale
+// log2(e) - lse log2(e)), then dV += P^T dO (DK false) or, with dP^T,
+// dS^T = P^T (dP^T - delta) and dK += dS^T Q (DK true), into acc
+template <int D, bool DK>
+__device__ __forceinline__ void split_walk(
+    float (&acc)[Tile<D>::SLABS][Tile<D>::DW / 2], const uint8_t* ring,
+    const float* vecs, uint64_t* full, uint64_t* empty, uint32_t k_addr,
+    uint32_t v_addr, int n_steps, int t0, int u0, int nt, int wlo, int whi,
+    int kw, int key_a, const Mask& mask, float scale_log2, int lane) {
+  using T = Tile<D>;
+  constexpr int TILE = T::TILE, STAGES = T::STAGES;
+  for (int u = 0; u < n_steps; ++u) {
+    const int s = u % STAGES;
+    const int i0 = (t0 + (u0 + u) % nt) * 64;
+    mbar_wait(&full[s], (u / STAGES) & 1);
+    if (i0 < whi && i0 + 64 > wlo) {
+      const uint32_t q_addr = smem_u32(ring + s * 2 * TILE);
+      const uint32_t do_addr = q_addr + TILE;
+      const float* lse2 = vecs + s * 128;
+      const float* dl = lse2 + 64;
+      float st[32], dpt[32];
+      if constexpr (DK)
+        score_pair<D>(st, dpt, k_addr, q_addr, v_addr, do_addr);
+      else
+        score_one<D>(st, k_addr, q_addr);
+      float2 rv[8];
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+        rv[g] = *reinterpret_cast<const float2*>(lse2 + 8 * g +
+                                                 2 * (lane & 3));
+      wgmma_wait<DK ? 1 : 0>();
+      pin<32>(st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        st[i] = ex2(st[i] * scale_log2 -
+                    ((i & 1) ? rv[i >> 2].y : rv[i >> 2].x));
+      if (!mask.all(i0, 64, kw, 64)) {    // a boundary crosses the tile
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          if (!mask.sees(i0 + col, key_a + 8 * ((i >> 1) & 1)))
+            st[i] = 0.0f;
+        }
+      }
+      uint32_t fa[4][4];
+      if constexpr (DK) {
+#pragma unroll
+        for (int g = 0; g < 8; ++g)
+          rv[g] =
+              *reinterpret_cast<const float2*>(dl + 8 * g + 2 * (lane & 3));
+        wgmma_wait<0>();
+        pin<32>(dpt);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          dpt[i] =
+              st[i] * (dpt[i] - ((i & 1) ? rv[i >> 2].y : rv[i >> 2].x));
+        to_frags(dpt, fa);              // dS^T rounded to bf16
+        acc_product<D>(acc, fa, q_addr);
+      } else {
+        to_frags(st, fa);               // P^T rounded to bf16
+        acc_product<D>(acc, fa, do_addr);
+      }
+      wgmma_wait<0>();
+      hold(fa);
+#pragma unroll
+      for (int cc = 0; cc < T::SLABS; ++cc) pin<T::DW / 2>(acc[cc]);
+    }
+    mbar_arrive(&empty[s]);
+  }
+}
+
 // (b) dK and dV.  Grid (Hkv * c, B, key tiles of ROWS), clusters of c along
 // x: the blocks of cluster hk share the walks of query heads hk * G ..
 // hk * G + G - 1 over the key tile, step by step
 template <int D>
-__global__ void __launch_bounds__(Tile<D>::THREADS, Tile<D>::BLOCKS)
+__global__ void __launch_bounds__(Tile<D>::DKDV_THREADS, Tile<D>::BLOCKS)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
@@ -732,16 +854,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             bf16* __restrict__ dk, bf16* __restrict__ dv,
                             int Skv, int Hq, int Hkv, Mask mask, float scale) {
   using T = Tile<D>;
-  constexpr int NW = T::NW, TILE = T::TILE, ROWS = T::ROWS, PITCH = T::PITCH;
+  constexpr int NW = T::NW, TILE = T::TILE, ROWS = T::ROWS, PITCH = T::PITCH,
+                STAGES = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle patterns repeat every 1024 bytes: align the buffers to it
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* res = smem;                            // [NW][K, V][TILE]
-  uint8_t* ring = smem + NW * 2 * TILE;           // [kStages][Q, dO][TILE]
-  float* vecs = reinterpret_cast<float*>(smem + T::DATA);  // [kStages][2][64]
+  uint8_t* ring = smem + NW * 2 * TILE;           // [STAGES][Q, dO][TILE]
+  float* vecs = reinterpret_cast<float*>(smem + T::DATA);  // [STAGES][2][64]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::DATA + T::VECS);
-  uint64_t* empty = full + kStages;
-  uint64_t* kv_bar = empty + kStages;
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_bar = empty + STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4,
             lane = tid % 32;
@@ -759,9 +882,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_steps = (rank + 1) * G * nt / c - u0;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 32);
-      mbar_init(&empty[s], NW * 128);
+      mbar_init(&empty[s], T::CW * 128);
     }
     mbar_init(kv_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -770,7 +893,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (wg == 0) {
     // the producer: K, V once, then step u0 + u = (head (u0 + u) / nt,
-    // query tile t0 + (u0 + u) % nt) into stage u % kStages
+    // query tile t0 + (u0 + u) % nt) into stage u % STAGES
     regs_down<T::PRODUCER_REGS>();
     if (warp == 0) {
       if (lane == 0) {
@@ -782,8 +905,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
       for (int u = 0; u < n_steps; ++u) {
-        const int s = u % kStages;
-        if (u >= kStages) mbar_wait(&empty[s], (u / kStages - 1) & 1);
+        const int s = u % STAGES;
+        if (u >= STAGES) mbar_wait(&empty[s], (u / STAGES - 1) & 1);
         const int h = hk * G + (u0 + u) / nt;
         const int i0 = (t0 + (u0 + u) % nt) * 64;
         if (lane == 0) {                // the tiles first, then the rows
@@ -807,87 +930,19 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  regs_up<T::CONSUMER_REGS>();
+  regs_up<T::DKDV_CONSUMER_REGS>();
   const int cw = wg - 1;
+  const int kt = T::SPLIT ? 0 : cw;   // this warpgroup's K, V tile
   const float scale_log2 = scale * kLog2e;
-  const uint32_t k_addr = smem_u32(res + cw * 2 * TILE);
+  const uint32_t k_addr = smem_u32(res + kt * 2 * TILE);
   const uint32_t v_addr = k_addr + TILE;
-  const int kw = k0 + 64 * cw;        // this warpgroup's keys kw..kw+63
+  const int kw = k0 + 64 * kt;        // this warpgroup's keys kw..kw+63
   int wlo, whi;
   mask.rows(kw, min(kw + 64, mask.kv_len), &wlo, &whi);
   // accumulator element i of a 64 x N tile sits at row (key)
   // 16 warp + lane / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) +
   // 2 (lane & 3) + (i & 1)
   const int key_a = kw + 16 * warp + lane / 4;
-  float ak[T::SLABS][T::DW / 2], av[T::SLABS][T::DW / 2];
-#pragma unroll
-  for (int cc = 0; cc < T::SLABS; ++cc)
-#pragma unroll
-    for (int i = 0; i < T::DW / 2; ++i) ak[cc][i] = av[cc][i] = 0.0f;
-  mbar_wait(kv_bar, 0);
-
-  for (int u = 0; u < n_steps; ++u) {
-    const int s = u % kStages;
-    const int i0 = (t0 + (u0 + u) % nt) * 64;
-    mbar_wait(&full[s], (u / kStages) & 1);
-    if (i0 < whi && i0 + 64 > wlo) {
-      const uint32_t q_addr = smem_u32(ring + s * 2 * TILE);
-      const uint32_t do_addr = q_addr + TILE;
-      const float* lse2 = vecs + s * 128;
-      const float* dl = lse2 + 64;
-      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 rows
-      float st[32], dpt[32];
-      score_pair<D>(st, dpt, k_addr, q_addr, v_addr, do_addr);
-      // this thread's columns (query rows) are 8 g + 2 (lane & 3) + {0, 1}
-      float2 rv[8];
-#pragma unroll
-      for (int g = 0; g < 8; ++g)
-        rv[g] = *reinterpret_cast<const float2*>(lse2 + 8 * g +
-                                                 2 * (lane & 3));
-      wgmma_wait<1>();
-      pin<32>(st);
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        st[i] = ex2(st[i] * scale_log2 -
-                    ((i & 1) ? rv[i >> 2].y : rv[i >> 2].x));
-      if (!mask.all(i0, 64, kw, 64)) {    // a boundary crosses the tile
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-          if (!mask.sees(i0 + col, key_a + 8 * ((i >> 1) & 1)))
-            st[i] = 0.0f;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 8; ++g)
-        rv[g] =
-            *reinterpret_cast<const float2*>(dl + 8 * g + 2 * (lane & 3));
-      wgmma_wait<0>();
-      pin<32>(dpt);
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        dpt[i] =
-            st[i] * (dpt[i] - ((i & 1) ? rv[i >> 2].y : rv[i >> 2].x));
-      // dV += P^T dO with P^T rounded to bf16, then dK += dS^T Q with
-      // dS^T rounded, packed while the first product runs (P^T and dS^T
-      // in f32 are dead by then: at D = 128 dK and dV hold 128 registers)
-      uint32_t pa[4][4], sa[4][4];
-      to_frags(st, pa);
-      acc_product<D>(av, pa, do_addr);
-      to_frags(dpt, sa);
-      acc_product<D>(ak, sa, q_addr);
-      wgmma_wait<0>();
-      hold(pa);
-      hold(sa);
-#pragma unroll
-      for (int cc = 0; cc < T::SLABS; ++cc) {
-        pin<T::DW / 2>(av[cc]);
-        pin<T::DW / 2>(ak[cc]);
-      }
-    }
-    mbar_arrive(&empty[s]);
-  }
-
   // dK and dV summed over the cluster in rank order: rows [q span, (q +
   // 1) span) of the 2 ROWS rows of [dK; dV] belong to block q.  Once
   // every block of the cluster is done with its tiles (a cluster
@@ -895,26 +950,132 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // tiles' room of block q, slot `rank` (remote stores: nothing waits on
   // them); after a second cluster barrier block q adds its c slots in
   // rank order and stores bf16, dK times the scale.
-  cluster_barrier();
   const int span = (2 * ROWS + c - 1) / c;
   float* sums = reinterpret_cast<float*>(smem);   // [c][span][PITCH]
+  if constexpr (T::SPLIT) {
+    // At D = 256 warpgroup 0 forms P^T and owns dV += P^T dO; warpgroup 1
+    // forms P^T, dP^T and dS^T and owns dK += dS^T Q.  Each holds one
+    // 64 x 256 f32 accumulator, where one warpgroup holding both would need
+    // 256 registers a thread for them alone.
+    const bool owns_dk = cw == 1;
+    float acc[T::SLABS][T::DW / 2];
 #pragma unroll
-  for (int cc = 0; cc < T::SLABS; ++cc)
+    for (int cc = 0; cc < T::SLABS; ++cc)
 #pragma unroll
-    for (int i = 0; i < T::DW / 2; i += 2) {
-      const int r = 64 * cw + 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
-      const int col = cc * T::DW + 8 * (i >> 2) + 2 * (lane & 3);
-      const int qk = r / span, qv = (ROWS + r) / span;
-      store_remote(sums + (rank * span + r - qk * span) * PITCH + col, qk,
-                   ak[cc][i], ak[cc][i + 1]);
-      store_remote(
-          sums + (rank * span + ROWS + r - qv * span) * PITCH + col, qv,
-          av[cc][i], av[cc][i + 1]);
+      for (int i = 0; i < T::DW / 2; ++i) acc[cc][i] = 0.0f;
+    mbar_wait(kv_bar, 0);
+    // one walk for each role, each a straight line of products (a walk
+    // that branched on the role between them serialized the wgmma's)
+    if (owns_dk)
+      split_walk<D, true>(acc, ring, vecs, full, empty, k_addr, v_addr,
+                          n_steps, t0, u0, nt, wlo, whi, kw, key_a, mask,
+                          scale_log2, lane);
+    else
+      split_walk<D, false>(acc, ring, vecs, full, empty, k_addr, v_addr,
+                           n_steps, t0, u0, nt, wlo, whi, kw, key_a, mask,
+                           scale_log2, lane);
+
+    cluster_barrier();
+    const int base = owns_dk ? 0 : ROWS;  // dK's rows, then dV's
+#pragma unroll
+    for (int cc = 0; cc < T::SLABS; ++cc)
+#pragma unroll
+      for (int i = 0; i < T::DW / 2; i += 2) {
+        const int r = base + 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+        const int col = cc * T::DW + 8 * (i >> 2) + 2 * (lane & 3);
+        const int q = r / span;
+        store_remote(sums + (rank * span + r - q * span) * PITCH + col, q,
+                     acc[cc][i], acc[cc][i + 1]);
+      }
+  } else {
+    float ak[T::SLABS][T::DW / 2], av[T::SLABS][T::DW / 2];
+#pragma unroll
+    for (int cc = 0; cc < T::SLABS; ++cc)
+#pragma unroll
+      for (int i = 0; i < T::DW / 2; ++i) ak[cc][i] = av[cc][i] = 0.0f;
+    mbar_wait(kv_bar, 0);
+
+    for (int u = 0; u < n_steps; ++u) {
+      const int s = u % STAGES;
+      const int i0 = (t0 + (u0 + u) % nt) * 64;
+      mbar_wait(&full[s], (u / STAGES) & 1);
+      if (i0 < whi && i0 + 64 > wlo) {
+        const uint32_t q_addr = smem_u32(ring + s * 2 * TILE);
+        const uint32_t do_addr = q_addr + TILE;
+        const float* lse2 = vecs + s * 128;
+        const float* dl = lse2 + 64;
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 rows
+        float st[32], dpt[32];
+        score_pair<D>(st, dpt, k_addr, q_addr, v_addr, do_addr);
+        // this thread's columns (query rows) are 8 g + 2 (lane & 3) + {0, 1}
+        float2 rv[8];
+#pragma unroll
+        for (int g = 0; g < 8; ++g)
+          rv[g] = *reinterpret_cast<const float2*>(lse2 + 8 * g +
+                                                   2 * (lane & 3));
+        wgmma_wait<1>();
+        pin<32>(st);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          st[i] = ex2(st[i] * scale_log2 -
+                      ((i & 1) ? rv[i >> 2].y : rv[i >> 2].x));
+        if (!mask.all(i0, 64, kw, 64)) {    // a boundary crosses the tile
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+            if (!mask.sees(i0 + col, key_a + 8 * ((i >> 1) & 1)))
+              st[i] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < 8; ++g)
+          rv[g] =
+              *reinterpret_cast<const float2*>(dl + 8 * g + 2 * (lane & 3));
+        wgmma_wait<0>();
+        pin<32>(dpt);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          dpt[i] =
+              st[i] * (dpt[i] - ((i & 1) ? rv[i >> 2].y : rv[i >> 2].x));
+        // dV += P^T dO with P^T rounded to bf16, then dK += dS^T Q with
+        // dS^T rounded, packed while the first product runs (P^T and dS^T
+        // in f32 are dead by then: at D = 128 dK and dV hold 128 registers)
+        uint32_t pa[4][4], sa[4][4];
+        to_frags(st, pa);
+        acc_product<D>(av, pa, do_addr);
+        to_frags(dpt, sa);
+        acc_product<D>(ak, sa, q_addr);
+        wgmma_wait<0>();
+        hold(pa);
+        hold(sa);
+#pragma unroll
+        for (int cc = 0; cc < T::SLABS; ++cc) {
+          pin<T::DW / 2>(av[cc]);
+          pin<T::DW / 2>(ak[cc]);
+        }
+      }
+      mbar_arrive(&empty[s]);
     }
+
+    cluster_barrier();
+#pragma unroll
+    for (int cc = 0; cc < T::SLABS; ++cc)
+#pragma unroll
+      for (int i = 0; i < T::DW / 2; i += 2) {
+        const int r = 64 * cw + 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+        const int col = cc * T::DW + 8 * (i >> 2) + 2 * (lane & 3);
+        const int qk = r / span, qv = (ROWS + r) / span;
+        store_remote(sums + (rank * span + r - qk * span) * PITCH + col, qk,
+                     ak[cc][i], ak[cc][i + 1]);
+        store_remote(
+            sums + (rank * span + ROWS + r - qv * span) * PITCH + col, qv,
+            av[cc][i], av[cc][i + 1]);
+      }
+  }
   cluster_barrier();
   constexpr int Q4 = D / 4;
   const int n = min(span, 2 * ROWS - rank * span) * Q4;
-  for (int e = tid - 128; e < n; e += NW * 128) {
+  for (int e = tid - 128; e < n; e += T::CW * 128) {
     const int rr = e / Q4, c4 = e % Q4;
     const float* at = sums + rr * PITCH + 4 * c4;
     float4 sum = *reinterpret_cast<const float4*>(at);
@@ -957,14 +1118,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           float* __restrict__ delta, int Hq, int Hkv,
                           Mask mask, float scale) {
   using T = Tile<D>;
-  constexpr int NW = T::NW, TILE = T::TILE, ROWS = T::ROWS, W = T::W;
+  constexpr int NW = T::NW, TILE = T::TILE, ROWS = T::ROWS, W = T::W,
+                STAGES = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* res = smem;                            // [NW][Q, dO][TILE]
-  uint8_t* ring = smem + NW * 2 * TILE;           // [kStages][K, V][TILE]
+  uint8_t* ring = smem + NW * 2 * TILE;           // [STAGES][K, V][TILE]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::DATA);
-  uint64_t* empty = full + kStages;
-  uint64_t* q_bar = empty + kStages;
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_bar = empty + STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4,
             lane = tid % 32;
@@ -978,7 +1140,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_steps = hi > lo ? (hi - j_lo + 63) / 64 : 0;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], NW * 128);
     }
@@ -989,8 +1151,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (wg == 0) {
     // the producer: Q, dO once, then key tile j_lo + 64 u into stage u %
-    // kStages
-    regs_down<T::PRODUCER_REGS>();
+    // STAGES
+    if constexpr (T::DQ_MOVES_REGS) regs_down<T::PRODUCER_REGS>();
     if (tid == 0) {
       mbar_expect_tx(q_bar, NW * 2 * TILE);
       for (int w = 0; w < NW; ++w) {
@@ -999,8 +1161,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                     b);
       }
       for (int u = 0; u < n_steps; ++u) {
-        const int s = u % kStages;
-        if (u >= kStages) mbar_wait(&empty[s], (u / kStages - 1) & 1);
+        const int s = u % STAGES;
+        if (u >= STAGES) mbar_wait(&empty[s], (u / STAGES - 1) & 1);
         mbar_expect_tx(&full[s], 2 * TILE);
         tma_tile<D>(ring + s * 2 * TILE, &tk, &full[s], hk, j_lo + 64 * u, b);
         tma_tile<D>(ring + s * 2 * TILE + TILE, &tv, &full[s], hk,
@@ -1010,7 +1172,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  regs_up<T::CONSUMER_REGS>();
+  if constexpr (T::DQ_MOVES_REGS) regs_up<T::CONSUMER_REGS>();
   const int cw = wg - 1;
   const int w0 = q0 + 64 * cw;          // this warpgroup's rows w0..w0+63
   const bool live = w0 < Sq;
@@ -1065,9 +1227,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   mbar_wait(q_bar, 0);
 
   for (int u = 0; u < n_steps; ++u) {
-    const int s = u % kStages;
+    const int s = u % STAGES;
     const int j0 = j_lo + 64 * u;
-    mbar_wait(&full[s], (u / kStages) & 1);
+    mbar_wait(&full[s], (u / STAGES) & 1);
     if (j0 < whi && j0 + 64 > wlo) {
       const uint32_t k_addr = smem_u32(ring + s * 2 * TILE);
       const uint32_t v_addr = k_addr + TILE;
@@ -1200,6 +1362,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a current context.  Autograd runs a
+// backward on a thread of its own, where this may be the first CUDA call:
+// cudaSetDevice makes the device's primary context current there.
+cudaError_t make_current() {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaSetDevice(dev) : e;
+}
+
 // the 4-D map of a contiguous bf16 (B, S, H, D) tensor, boxes of 64 rows of
 // one head and one slab of dims, swizzled for wgmma
 template <int D>
@@ -1233,6 +1404,7 @@ cudaError_t dkdv_bf16(const Args& a) {
   if (c < 1 || c > kMaxCluster || c > G) return cudaErrorInvalidValue;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
+  if (const cudaError_t ce = make_current(); ce != cudaSuccess) return ce;
   CUtensorMap tq, tk, tv, tdo;
   if (!tensor_map<D>(enc, &tq, a.q, a.B, a.Sq, a.Hq) ||
       !tensor_map<D>(enc, &tk, a.k, a.B, a.Skv, a.Hkv) ||
@@ -1246,7 +1418,7 @@ cudaError_t dkdv_bf16(const Args& a) {
   cudaLaunchConfig_t cfg{};
   cudaLaunchAttribute attr[1];
   cfg.gridDim = dim3(a.Hkv * c, a.B, (a.Skv + T::ROWS - 1) / T::ROWS);
-  cfg.blockDim = dim3(T::THREADS);
+  cfg.blockDim = dim3(T::DKDV_THREADS);
   cfg.dynamicSmemBytes = T::DKDV_SMEM;
   cfg.stream = a.stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1270,6 +1442,7 @@ cudaError_t dq_bf16(const Args& a) {
                            a.stream);
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
+  if (const cudaError_t ce = make_current(); ce != cudaSuccess) return ce;
   CUtensorMap tq, tk, tv, tdo, tdq;
   if (!tensor_map<D>(enc, &tq, a.q, a.B, a.Sq, a.Hq) ||
       !tensor_map<D>(enc, &tk, a.k, a.B, a.Skv, a.Hkv) ||
@@ -1307,6 +1480,8 @@ cudaError_t run(int which, int D, int dtype, const Args& a) {
       return launch<64>(which, dtype, a);
     case 128:
       return launch<128>(which, dtype, a);
+    case 256:
+      return launch<256>(which, dtype, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1327,6 +1502,7 @@ cudaError_t delta_launch(int D, const float* o, const float* dout,
     DELTA_CASE(32)
     DELTA_CASE(64)
     DELTA_CASE(128)
+    DELTA_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
@@ -1337,7 +1513,7 @@ cudaError_t delta_launch(int D, const float* o, const float* dout,
 
 // delta (B, Hq, Sq) f32 = sum_d dO * O, o and dout (B, Sq, Hq, D)
 // contiguous and 16-byte aligned, float32 (dtype 0: the bf16 route's dq
-// launch computes delta itself), D in {16, 32, 64, 128}.  Returns
+// launch computes delta itself), D in {16, 32, 64, 128, 256}.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int flash_attention_bwd_delta(const void* o, const void* dout,
                                          float* delta, int B, int Sq, int Hq,
@@ -1351,7 +1527,8 @@ extern "C" int flash_attention_bwd_delta(const void* o, const void* dout,
 
 // q, out, dout, dq: (B, Sq, Hq, D); k, v, dk, dv: (B, Skv, Hkv, D); lse,
 // delta: (B, Hq, Sq) f32; all contiguous, 16-byte aligned, one dtype (0
-// float32: CUDA cores, 1 bfloat16: tensor cores); D in {16, 32, 64, 128};
+// float32: CUDA cores, 1 bfloat16: tensor cores); D in {16, 32, 64, 128,
+// 256};
 // Hq % Hkv == 0; kv_len <= Skv.  which = 1 writes dk and dv (dq may be
 // null), which = 2 writes dq (dk, dv may be null); every element of what it
 // writes, the keys at kv_len and past as zeros.  delta: in float32 written

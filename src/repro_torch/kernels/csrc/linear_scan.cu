@@ -382,6 +382,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a current context.  Autograd runs a
+// backward on a thread of its own, where this may be the first CUDA call:
+// cudaSetDevice makes the device's primary context current there.
+cudaError_t make_current() {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaSetDevice(dev) : e;
+}
+
 // the map of a contiguous (B, S, W) float32 tensor as (W, S, B) in boxes
 // of (kRingBW, kRingBT, 1): reads past W or S are zeros, writes there are
 // dropped
@@ -401,6 +410,7 @@ cudaError_t launch_ring(const float* a, const float* x, float* h, int B,
                         int S, int W, cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
+  if (const cudaError_t ce = make_current(); ce != cudaSuccess) return ce;
   CUtensorMap ta, tx, th;
   if (!scan_map(enc, &ta, a, B, S, W) || !scan_map(enc, &tx, x, B, S, W) ||
       !scan_map(enc, &th, h, B, S, W))

@@ -703,6 +703,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a current context.  Autograd runs a
+// backward on a thread of its own, where this may be the first CUDA call:
+// cudaSetDevice makes the device's primary context current there.
+cudaError_t make_current() {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaSetDevice(dev) : e;
+}
+
 // the map of a row-major int8 (rows, cols) matrix in boxes of (box_rows,
 // 128 bytes of a row), 128-byte swizzled; out-of-bounds reads are zeros
 bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows,
@@ -724,6 +733,7 @@ cudaError_t launch(const void* x, const void* w, const void* e, void* y,
   using C = Cfg<BM>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
+  if (const cudaError_t ce = make_current(); ce != cudaSuccess) return ce;
   CUtensorMap tx, tw;
   if (!tensor_map(enc, &tx, x, M, K, BM) ||
       !tensor_map(enc, &tw, w, K, N, kBK))

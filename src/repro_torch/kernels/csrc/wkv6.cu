@@ -633,6 +633,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a current context.  Autograd runs a
+// backward on a thread of its own, where this may be the first CUDA call:
+// cudaSetDevice makes the device's primary context current there.
+cudaError_t make_current() {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaSetDevice(dev) : e;
+}
+
 // the map of a contiguous (B, S, H, HD) tensor as (HD, H, S, B) in boxes of
 // (width, 1, T, 1): reads past S are zeros, writes there are dropped
 bool seq_map(EncodeTiled enc, CUtensorMap* map, bool bf16, const void* p,
@@ -667,6 +676,7 @@ cudaError_t launch(int route, const void* r, const void* k, const void* v,
   if (route != 0) return cudaErrorInvalidValue;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
+  if (const cudaError_t ce = make_current(); ce != cudaSuccess) return ce;
   CUtensorMap tr, tk, tv, tw, ty;
   if (!seq_map(enc, &tr, BF16, r, B, S, H, HD, HD, K::T) ||
       !seq_map(enc, &tk, BF16, k, B, S, H, HD, HD, K::T) ||

@@ -54,9 +54,10 @@ reads: ``csrc/flash_attention_bwd.cu``, replacing no TPU kernel (the
 reference differentiates ``chunked_attention`` by XLA's autodiff): delta
 = rowsum(dO * O), a dQ kernel and a dK/dV kernel, each output written
 once, no atomics, sums in a fixed order, so a run is deterministic; head
-dims ``BWD_HEAD_DIMS``.  bf16 runs on the tensor cores (``wgmma``; a
-producer warp's TMA ring of 3 stages feeding one or two consumer
-warpgroups) in two launches: dQ a block per 64 query rows (128 at D =
+dims ``BWD_HEAD_DIMS``, all of the forward's.  bf16 runs on the tensor
+cores (``wgmma``; a producer warp's TMA ring of 3 stages, 2 at D = 256,
+feeding one or two consumer warpgroups; at D = 256 the dK/dV kernel's two
+split by output, one owning dV and the other dK) in two launches: dQ a block per 64 query rows (128 at D =
 128), also writing its rows' delta; dK/dV a block per 64-key tile (128
 at D = 128), KV head and batch row, the G query heads' walks over the
 query tiles that see its keys split evenly over a thread-block cluster
@@ -155,16 +156,16 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)   # the backward's; D = 256 (the hybrid
-                                    # family) waits for its training
+BWD_HEAD_DIMS = HEAD_DIMS           # the backward's
 BWD_MAX_CLUSTER = 8                 # the portable thread-block cluster size
 BWD_SLACK = 1.15                    # bwd_cluster's tolerance over the share
 
 
 def bwd_walks(Sq, Skv, D, *, causal, window, kv_len, offset):
     """The bf16 dK/dV kernel's walk over each of its key tiles (64 keys, 128
-    at D = 128): the number of 64-row query tiles that see the tile, one
-    query head's worth (``Mask::rows`` of ``flash_attention_bwd.cu``)."""
+    at D = 128; at D = 256 the block's two warpgroups share one tile of 64,
+    split by output): the number of 64-row query tiles that see the tile,
+    one query head's worth (``Mask::rows`` of ``flash_attention_bwd.cu``)."""
     rows = 128 if D == 128 else 64
     walks = []
     for k0 in range(0, Skv, rows):
@@ -184,13 +185,13 @@ def bwd_cluster(B, Sq, Skv, Hq, Hkv, D, *, causal, window, kv_len, offset,
     cluster's blocks, which then sum their dK and dV in rank order.  The
     smallest size whose longest block walk is within ``BWD_SLACK`` of the
     balanced share (every block slot of the ``sms`` SMs busy to the end;
-    two blocks an SM, one at D = 128): a longer walk leaves slots idle at
+    two blocks an SM, one at D >= 128): a longer walk leaves slots idle at
     the end, and every further block pays a start-up and its share of the
     cluster's sum."""
     G = Hq // Hkv
     walks = bwd_walks(Sq, Skv, D, causal=causal, window=window,
                       kv_len=kv_len, offset=offset)
-    share = G * sum(walks) * Hkv * B / (sms * (1 if D == 128 else 2))
+    share = G * sum(walks) * Hkv * B / (sms * (1 if D >= 128 else 2))
     top = min(G, BWD_MAX_CLUSTER)
     for c in range(1, top):
         if -(-G * max(walks, default=0) // c) <= BWD_SLACK * share:

@@ -32,6 +32,14 @@ aligned, as a TMA tensor map and a 16-byte vector need.  W = 70, W = 33
 and a view that starts off a 16-byte boundary (a storage offset that
 ``.contiguous()`` keeps) break it.  A route is chosen by shape and
 address, never after a failure: a build or launch failure raises.
+
+The gradient.  The reference differentiates its scan with XLA's autodiff;
+the port's forward is a kernel autograd cannot see through, so
+:class:`LinearScan` pairs it with :func:`linear_scan_bwd`: the gradient of
+``h_t = a_t h_{t-1} + x_t`` is the same first-order recurrence run
+backward in time, ``g_t = dh_t + a_{t+1} g_{t+1}``, so the forward kernel
+computes it on the time-reversed, shifted a and dh (``torch.flip``
+copies), and ``dx = g``, ``da_t = g_t h_{t-1}``.  No new kernel source.
 """
 from __future__ import annotations
 
@@ -43,7 +51,8 @@ import torch
 from . import build
 
 __all__ = ["linear_scan_plain", "linear_scan_ref", "linear_scan_kernel",
-           "route", "bulk_aligned", "ROUTES", "STEP_MAX_S"]
+           "linear_scan_bwd", "LinearScan", "route", "bulk_aligned",
+           "ROUTES", "STEP_MAX_S"]
 # ``linear_scan``, the reference's module-level name, is the dispatching op
 # of ``ops.py``, which binds it into this module.
 
@@ -144,3 +153,38 @@ def linear_scan_kernel(a: torch.Tensor, x: torch.Tensor, *,
 
 linear_scan_kernel.launches = 0
 linear_scan_kernel.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def linear_scan_bwd(scan, a: torch.Tensor, h: torch.Tensor,
+                    dh: torch.Tensor):
+    """The backward of ``h = scan(a, x)``: (da, dx) f32 from a, the
+    forward's h and dh, all (B, S, W) f32.  With a'_t = a_{t+1} and
+    a'_{S-1} = 0, g_t = dh_t + a'_t g_{t+1} is ``scan`` (the kernel or
+    :func:`linear_scan_plain`) over the time-reversed a' and dh; dx = g and
+    da_t = g_t h_{t-1}, h_{-1} = 0."""
+    zero = torch.zeros_like(a[:, :1])
+    a_rev = torch.cat([zero, a[:, 1:].flip(1)], dim=1).contiguous()
+    g = scan(a_rev, dh.flip(1).contiguous()).flip(1)
+    da = g * torch.cat([zero, h[:, :-1]], dim=1)
+    return da, g
+
+
+class LinearScan(torch.autograd.Function):
+    """:func:`linear_scan_kernel` under autograd: the forward kernel saving
+    a and h, the backward :func:`linear_scan_bwd` on the same kernel.
+    ``backward_launches`` counts the backward's kernel launches."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, a, x):
+        h = linear_scan_kernel(a, x)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        da, dx = linear_scan_bwd(linear_scan_kernel, a, h, dh.contiguous())
+        LinearScan.backward_launches += 1
+        return da, dx

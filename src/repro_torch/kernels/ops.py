@@ -18,9 +18,9 @@ from .chain_scan import (chain_scan_kernel, chain_scan_plain, tm_chain_kernel,
                          tm_chain_plain)
 from .csd_matvec import (csd_matvec_kernel, csd_matvec_plain,
                          csd_qsweep_kernel, csd_qsweep_plain)
-from .flash_attention import (BWD_HEAD_DIMS, FlashAttention,
-                              flash_attention_kernel, flash_attention_plain)
-from .linear_scan import linear_scan_kernel, linear_scan_plain
+from .flash_attention import (FlashAttention, flash_attention_kernel,
+                              flash_attention_plain)
+from .linear_scan import LinearScan, linear_scan_kernel, linear_scan_plain
 from .paged_attention import paged_attention_kernel, paged_attention_plain
 from .paged_gather import (paged_gather_kernel, paged_gather_pair_kernel,
                            paged_gather_plain)
@@ -80,12 +80,6 @@ def _plain_or_raise(t: torch.Tensor, what: str) -> None:
 
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-def _no_backward(what: str, family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} has no backward kernel on the card: the {family} family's "
-        f"training waits in ROADMAP.md, queue 1, item 11")
 
 
 def qmatmul(x_i8: torch.Tensor, w_i8: torch.Tensor, exp_i32: torch.Tensor,
@@ -218,9 +212,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     On CUDA tensors that need a gradient (grad mode on, an input requiring
     it) the call goes through :class:`~repro_torch.kernels.flash_attention.
     FlashAttention`, the forward kernel writing its rows' lse and the
-    backward kernels reading it (head dims below 256); otherwise it is one
-    forward launch with no lse.  On the CPU autograd differentiates the
-    plain version, as XLA differentiates the reference's scan."""
+    backward kernels reading it; otherwise it is one forward launch with
+    no lse.  On the CPU autograd differentiates the plain version, as XLA
+    differentiates the reference's scan."""
     Sq, Skv = q.shape[1], k.shape[1]
     kw = dict(causal=causal, window=window, kv_len=Skv,
               offset=Skv - Sq if offset is None else offset, bk=bk)
@@ -228,9 +222,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if not _needs_grad(q, k, v):
             return flash_attention_kernel(q, k, v, **kw)
-        if q.shape[-1] not in BWD_HEAD_DIMS:
-            raise _no_backward(f"flash attention at head dim {q.shape[-1]}",
-                               "hybrid")
         return FlashAttention.apply(q, k, v, kw)
     _plain_or_raise(q, "flash_attention")
     return flash_attention_plain(q, k, v, **kw)
@@ -242,12 +233,18 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor, *, bt=None, bw=None,
     ``h_{-1} = 0``: a, x (B, S, W) -> h (B, S, W) f32, for any B, S, W
     (nothing is padded).  The CUDA kernel is bit-identical to the plain
     version.  ``bt``, ``bw`` and ``interpret``, the reference's TPU tiling
-    and interpret switch, are accepted and ignored."""
-    if a.is_cuda and _needs_grad(a, x):
-        raise _no_backward("linear_scan", "hybrid")
+    and interpret switch, are accepted and ignored.
+
+    On CUDA tensors that need a gradient the call goes through
+    :class:`~repro_torch.kernels.linear_scan.LinearScan`, whose backward
+    runs the same kernel backward in time; on the CPU autograd
+    differentiates the plain version, as XLA differentiates the
+    reference's scan."""
     a = a.to(torch.float32).contiguous()
     x = x.to(torch.float32).contiguous()
     if a.is_cuda:
+        if _needs_grad(a, x):
+            return LinearScan.apply(a, x)
         return linear_scan_kernel(a, x)
     _plain_or_raise(a, "linear_scan")
     return linear_scan_plain(a, x)

@@ -64,7 +64,8 @@ Public surface:
 
 ``loss`` takes a gradient (``runtime/step.py``): on the card every
 attention call goes through the flash kernel, whose gradient is the flash
-backward kernel.  With ``cfg.remat`` each layer of the trunk runs under
+backward kernel, and every RG-LRU scan through the linear-scan kernel,
+whose gradient is the same kernel run backward in time.  With ``cfg.remat`` each layer of the trunk runs under
 ``torch.utils.checkpoint`` (non-reentrant), which recomputes it in the
 backward pass, as the reference wraps its scanned layer in
 ``jax.checkpoint``.  Callers that only score (the PTQ searches,

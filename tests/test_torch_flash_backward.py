@@ -19,9 +19,10 @@ CUDA cores) within ``BWD_F32_TOL`` of each gradient's largest magnitude,
 bf16 (the tensor cores) under ``bf16_grad_disagreement`` -- at causal GQA
 7:1, 8:1, 4:1, 9:1 and 16:1, windows crossing tile edges with an offset,
 non-causal, MHA, ragged and cross-length shapes at every head dim the
-backward takes; bf16 dK/dV on clusters of every size; two runs
-bit-identical; the forward's lse; the refusals under grad
-(``linear_scan``, flash at D = 256)."""
+backward takes, D = 256 (the hybrid's MQA 16:1, with and without a
+window) among them; bf16 dK/dV on clusters of every size; two runs
+bit-identical; the forward's lse; ``linear_scan`` and flash at D = 256
+under grad."""
 import math
 
 import numpy as np
@@ -52,6 +53,9 @@ CASES = [
     (1, 80, 80, 8, 1, 16, True, 0, None),       # GQA 8:1
     (1, 130, 130, 8, 1, 128, True, 0, None),    # GQA 8:1 at D = 128
     (1, 77, 129, 4, 2, 32, True, 0, None),      # ragged tiles, cross-length
+    (1, 96, 96, 16, 1, 256, True, 0, None),     # MQA 16:1 at D = 256
+    (1, 100, 100, 16, 1, 256, True, 32, None),  # the same under a window
+    (1, 70, 130, 4, 2, 256, True, 40, 60),      # window + offset at D = 256
 ]
 
 
@@ -260,6 +264,7 @@ def _dq_cover(Sq, Skv, Hq, D, kw):
     (2, 77, 200, 8, 1, 64, False, 0, None),
     (1, 333, 333, 4, 2, 128, True, 0, None),
     (1, 1024, 1024, 14, 2, 64, True, 0, None),
+    (1, 300, 300, 16, 1, 256, True, 128, None),
 ], ids=str)
 def test_bf16_schedule_covers_every_visible_pair_once(case):
     """The bf16 kernels' walks (the query tiles of a key tile, bwd_walks,
@@ -301,6 +306,20 @@ def test_bwd_cluster_rule_at_the_timed_shapes(causal, window, sizes):
     assert walks == want
 
 
+def test_bwd_cluster_rule_at_the_hybrid_shapes():
+    """recurrentgemma-9b's local attention, 16 / 1 heads of 256, causal,
+    window 2048, 4096 rows, on 132 SMs: 64 key tiles of 64 keys, each
+    seen by 33 query tiles until the last 2048 keys' walks shorten (1584
+    in all); a cluster of 1 walks 16 x 33 = 528 steps against a balanced
+    share of 384 at B = 2 (2 blocks a cluster) and 192 at B = 1 (3)."""
+    walks = bwd_walks(4096, 4096, 256, causal=True, window=2048,
+                      kv_len=4096, offset=0)
+    assert len(walks) == 64 and max(walks) == 33 and sum(walks) == 1584
+    got = [bwd_cluster(B, 4096, 4096, 16, 1, 256, causal=True, window=2048,
+                       kv_len=4096, offset=0, sms=132) for B in (2, 1)]
+    assert got == [2, 3]
+
+
 # ----------------------------------------------------------------- the card
 
 def _needs_card():
@@ -323,6 +342,10 @@ GPU_CASES = [
     (1, 150, 333, 8, 2, 128, True, 70, 120),     # window across tile edges
     (1, 150, 333, 8, 2, 64, True, 70, 120),      # the same at D = 64
     (2, 77, 200, 8, 1, 64, False, 0, None),      # non-causal cross, G = 8
+    (1, 300, 300, 16, 1, 256, True, 0, None),    # MQA 16:1 at D = 256
+    (2, 333, 333, 16, 1, 256, True, 128, None),  # the hybrid's, windowed
+    (1, 150, 333, 4, 1, 256, True, 70, 120),     # window + offset, cross
+    (2, 64, 150, 4, 4, 256, False, 0, None),     # non-causal MHA, D = 256
 ] + [(2, 77, 77, 4, 2, D, True, 0, None) for D in BWD_HEAD_DIMS]
 
 
@@ -370,11 +393,12 @@ def test_gpu_backward_vs_plain_autograd(dtype, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("heads", [(14, 2, 64), (16, 2, 128)], ids=str)
+@pytest.mark.parametrize("heads", [(14, 2, 64), (16, 2, 128), (16, 1, 256)],
+                         ids=str)
 def test_gpu_backward_is_deterministic(dtype, heads):
     """Two backward calls on the same inputs give bit-identical dq, dk,
     dv (no atomics: each output is written once; GQA's head sum in a
-    fixed order), at G = 7, D = 64 and G = 8, D = 128."""
+    fixed order), at G = 7, D = 64, G = 8, D = 128 and G = 16, D = 256."""
     _needs_card()
     dt = getattr(torch, dtype)
     Hq, Hkv, D = heads
@@ -431,6 +455,7 @@ def _bwd_on_cluster(q, k, v, out, dout, lse, kw, c):
     (1, 150, 333, 16, 2, 128, True, 70, 120),    # G = 8, window, D = 128
     (1, 129, 129, 16, 1, 64, True, 0, None),     # G = 16
     (2, 77, 200, 9, 1, 32, False, 0, None),      # G = 9, non-causal
+    (1, 200, 200, 16, 1, 256, True, 64, None),   # G = 16, window, D = 256
 ], ids=str)
 def test_gpu_backward_on_every_cluster_size(case):
     """bf16 dK/dV on clusters of every size 1..min(G, 8) (the walks split
@@ -457,16 +482,27 @@ def test_gpu_backward_on_every_cluster_size(case):
 
 
 @pytest.mark.gpu
-def test_gpu_kernels_without_a_backward_raise_under_grad():
-    """Under grad on the card linear_scan and flash at D = 256 raise
-    NotImplementedError; without grad they launch."""
+def test_gpu_hybrid_kernels_run_under_grad():
+    """Under grad on the card linear_scan and flash at D = 256 launch their
+    kernels forward and backward and return gradients of the inputs'
+    shapes (they raised NotImplementedError before their backwards)."""
+    from repro_torch.kernels.linear_scan import LinearScan, linear_scan_kernel
     _needs_card()
     a = torch.rand(1, 8, 16, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ops.linear_scan(a, torch.rand(1, 8, 16, device="cuda"))
-    q = torch.rand(1, 8, 2, 256, device="cuda", dtype=torch.bfloat16,
-                   requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ops.flash_attention(q, q.detach(), q.detach())
-    with torch.no_grad():
-        assert ops.flash_attention(q, q, q).shape == q.shape
+    x = torch.rand(1, 8, 16, device="cuda", requires_grad=True)
+    n0, b0 = linear_scan_kernel.launches, LinearScan.backward_launches
+    da, dx = torch.autograd.grad(ops.linear_scan(a, x).sum(), (a, x))
+    assert da.shape == a.shape and dx.shape == x.shape
+    assert linear_scan_kernel.launches == n0 + 2
+    assert LinearScan.backward_launches == b0 + 1
+    q, k, v = (torch.rand(1, 8, h, 256, device="cuda", dtype=torch.bfloat16,
+                          requires_grad=True) for h in (2, 1, 1))
+    f0 = flash_attention_kernel.launches
+    g0 = flash_attention_bwd_kernel.launches
+    out = ops.flash_attention(q, k, v, window=4)
+    grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert flash_attention_kernel.launches == f0 + 1
+    assert flash_attention_bwd_kernel.launches == g0 + 1
