@@ -392,7 +392,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    tokens/s, the 6 N D share and the peak memory, the checkpoint written
    to a temporary directory and removed; (e) one more step under
    ``torch.profiler``: the device busy share and the shares of the flash
-   kernels and the scan.
+   kernels and the scan;
+18. MoE training, after phase 17's memory is freed: (a) the flash
+   backward at qwen2-moe's MHA layout (16 / 16 heads of 128, G = 1) at
+   the train cell's (8, 1024) through ``FlashAttention`` against autograd
+   through the plain version, f32 and bf16, two calls bit-identical,
+   timed in bf16 beside its bound, the plain version and SDPA's
+   backward; (b) the expert dispatch's backward (``MoeDispatch``: a
+   gather and adds in k order, no scatter) at the train cell's dispatch
+   (60 experts, top 4, C = 86, d 2048): two calls bit-identical with
+   deterministic algorithms off, f32 within ``MOE_DISPATCH_TOL`` of
+   autograd through ``torch.gather``, timed beside that scatter-add
+   backward and its bytes bound; a full-width MoE layer's bf16 gradient
+   twice, bit-identical; (c) the f32 ``Model.loss`` gradient of
+   qwen2-moe-a2.7b at full width, 2 layers, 2 x 256, norms and QKV biases
+   seeded: every layer's expert ids and keep mask equal card against CPU
+   (the CPU side in the child process, after the hybrid's), remat's
+   recomputed routing equal to the forward's, then each leaf within
+   ``TRAIN_GRAD_TOL`` of its largest magnitude; (d) the train launcher's
+   ``train`` at full width and 6 of 24 layers (the cut printed beside full
+   depth's state), 8 x 1024 bf16 batches on f32 masters and f32 AdamW
+   moments, 6 steps, the flash counters zeroed just before and read just
+   after (12 forward launches and 6 backward calls a step), the first
+   loss near ln V + s2/2 + 0.01 aux, every loss and grad norm finite, no
+   restart, the step's time, tokens/s, the 6 N D share with N =
+   ``active_params_count()`` and ``params_count()``, the peak memory, the
+   checkpoint written and removed; (e) the step's parts on synchronized
+   host clocks (forward, backward, AdamW) and one step under
+   ``torch.profiler``: busy share, top kernels, the flash backward's and
+   the gather and scatter kernels' shares; (f) ``TrainLoop``'s restart at
+   full width, 2 layers, vocab 4096: every final leaf ``torch.equal`` to
+   an uninterrupted run's.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -576,11 +606,29 @@ HYB_TRAIN_BATCH, HYB_TRAIN_SEQ = 2, 4096
 # init zeros the norms and sets lam to 3 everywhere)
 HYB_GRAD_LAYERS, HYB_GRAD_VOCAB, HYB_GRAD_SEQ = 4, 4096, 2304
 # its CPU side took 337.7 s on the H100 host's 8 cores, so it runs in a
-# child process (this flag, these threads) beside phases 2-16
-CPU_REFERENCE_FLAG = "--hybrid-cpu-reference"
+# child process (this flag, these threads) beside phases 2-16, and phase
+# 18 (c)'s after it in the same child
+CPU_REFERENCE_FLAG = "--cpu-reference"
 HYB_CPU_THREADS = 4
 HYB_SEEDED = ("ln", "ln1", "ln2", "final_norm", "lam", "gate_i", "gate_r",
               "conv_k")
+# The MoE's training (phase 18): qwen2-moe-a2.7b at full width (d 2048, 16
+# / 16 heads of 128, 60 routed experts of width 1408, top 4, 4 shared,
+# vocab 151936, QKV bias) and MOE_TRAIN_LAYERS of its 24 layers through the
+# train launcher's code, the train cell's batches: 4,045,682,688 f32
+# leaves, 60.28 GiB of masters, gradients and AdamW moments (213.3 GiB at
+# full depth, more than the card).
+MOE_TRAIN_LAYERS = 6
+# (c): the f32 gradient at full width, 2 layers, 2 x 256, card against CPU
+# (in the child process, after the hybrid's) within TRAIN_GRAD_TOL, after
+# every layer's expert ids and keep mask were found equal; these leaves
+# seeded (the reference's init zeros them)
+MOE_GRAD_LAYERS, MOE_GRAD_BATCH, MOE_GRAD_SEQ = 2, 2, 256
+MOE_SEEDED = ("ln1", "ln2", "final_norm", "bq", "bk", "bv")
+# (b): the dispatch's backward against autograd through torch.gather in
+# f32, within this of the largest magnitude (sums of K = 4 terms in
+# another order)
+MOE_DISPATCH_TOL = 1e-6
 # (b): the linear scan's backward against autograd through the plain scan,
 # each gradient within this of its largest magnitude
 SCAN_BWD_TOL = 1e-5
@@ -5309,13 +5357,17 @@ def train_profile(torch):
             "flash_bwd_ms": bwd_us / 1e3}
 
 
-def train_restart_check(torch):
-    """Phase 15 (d): ``TrainLoop`` restart at full width, 2 layers, vocab
-    4096 (bf16 on f32 masters), with ``torch.use_deterministic_algorithms``
-    on (``CUBLAS_WORKSPACE_CONFIG`` was set before the first cuBLAS call):
+def train_restart_check(torch, arch=TRAIN_ARCH, label="train (d)",
+                        exact=False):
+    """Phase 15 (d) (and 18 (f), ``arch`` qwen2-moe-a2.7b): ``TrainLoop``
+    restart at ``arch``'s full width, 2 layers, vocab 4096 (bf16 on f32
+    masters), with ``torch.use_deterministic_algorithms`` on
+    (``CUBLAS_WORKSPACE_CONFIG`` was set before the first cuBLAS call):
     ``RESTART_STEPS`` steps, a checkpoint every 4, a failure injected at
     step ``RESTART_FAIL``; every final leaf, params and optimizer state,
-    ``torch.equal`` to an uninterrupted run's."""
+    ``torch.equal`` to an uninterrupted run's.  Where an op refuses
+    deterministic algorithms the runs go again without them, the leaves
+    held to rtol 1e-6, or still ``torch.equal`` when ``exact``."""
     import dataclasses
     import shutil
     import tempfile
@@ -5325,7 +5377,7 @@ def train_restart_check(torch):
     from repro_torch.runtime.step import make_train_step
     from repro_torch.runtime.train import TrainConfig, TrainLoop
     from repro_torch.tree import leaves, tree_map
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2,
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
                               vocab=RESTART_VOCAB)
     m = Model(cfg, device="cuda")
     params = m.init(0)
@@ -5369,20 +5421,21 @@ def train_restart_check(torch):
     finally:
         torch.use_deterministic_algorithms(False)
     if ends is None:
-        print(f"train (d): {mode}; again without them, leaves held to rtol "
-              f"1e-6")
+        print(f"{label}: {mode}; again without them, leaves held "
+              f"{'bit for bit' if exact else 'to rtol 1e-6'}")
         ends, restarts = runs()
-        equal = [torch.allclose(a.float(), b.float(), rtol=1e-6, atol=0)
+        equal = [torch.equal(a, b) if exact else
+                 torch.allclose(a.float(), b.float(), rtol=1e-6, atol=0)
                  for a, b in zip(*ends)]
     else:
         equal = [torch.equal(a, b) for a, b in zip(*ends)]
-    print(f"train (d): TrainLoop restart, {TRAIN_ARCH} full width, 2 "
-          f"layers, vocab {RESTART_VOCAB}, {RESTART_STEPS} steps, failure "
-          f"at step {RESTART_FAIL}, {mode}: {restarts} restart, "
-          f"{sum(equal)} of {len(equal)} final leaves equal to the "
-          f"uninterrupted run's [{CARD}]")
+    print(f"{label}: TrainLoop restart, {arch} full width, 2 layers, vocab "
+          f"{RESTART_VOCAB}, {RESTART_STEPS} steps, failure at step "
+          f"{RESTART_FAIL}, {mode}: {restarts} restart, {sum(equal)} of "
+          f"{len(equal)} final leaves equal to the uninterrupted run's "
+          f"[{CARD}]")
     check(restarts == 1 and all(equal),
-          f"train (d): restarts {restarts}, leaves equal {equal}")
+          f"{label}: restarts {restarts}, leaves equal {equal}")
 
 
 def train_tiny_check(torch):
@@ -6092,15 +6145,14 @@ def hybrid_grad_inputs(torch):
 
 
 def hybrid_cpu_reference(path):
-    """(c)'s CPU side, run in a process of its own (``HYB_CPU_THREADS``
-    threads) while the card works on the earlier phases: the f32 loss and
-    its gradient through the plain versions, without remat (the same
+    """(c)'s CPU side, run in the child process (``cpu_references``)
+    while the card works on the earlier phases: the f32 loss and its
+    gradient through the plain versions, without remat (the same
     arithmetic, a fifth less work), saved to ``path``."""
     import dataclasses
     import torch
     from repro_torch.nn import Model
     from repro_torch.tree import leaves, tree_map
-    torch.set_num_threads(HYB_CPU_THREADS)
     t0 = time.perf_counter()
     cfg, params, batch = hybrid_grad_inputs(torch)
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -6108,23 +6160,35 @@ def hybrid_cpu_reference(path):
                     device="cpu").loss(live, batch)
     grads = torch.autograd.grad(loss, leaves(live))
     torch.save({"loss": float(loss.detach()), "grads": list(grads),
-                "secs": time.perf_counter() - t0}, path)
+                "secs": time.perf_counter() - t0}, path + ".part")
+    os.replace(path + ".part", path)
     return 0
 
 
-def start_hybrid_cpu_reference():
-    """Start ``hybrid_cpu_reference`` in a child process (no card, its own
-    threads) into a temporary directory; it is stopped and the directory
-    removed when this process exits.  Returns (process, path)."""
+def cpu_references(tmp, names):
+    """The child process's work: each named CPU reference in turn, each
+    into ``tmp/<name>.pt``, each tree freed before the next is built."""
+    import torch
+    torch.set_num_threads(HYB_CPU_THREADS)
+    for name in names:
+        CPU_REFERENCES[name](os.path.join(tmp, f"{name}.pt"))
+        gc.collect()
+    return 0
+
+
+def start_cpu_references(names=("hybrid", "moe")):
+    """Start ``cpu_references`` for ``names`` in a child process (no card,
+    its own threads) into a temporary directory; it is stopped and the
+    directory removed when this process exits.  Returns (process,
+    directory)."""
     import atexit
     import shutil
     import tempfile
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_hybrid_cpu_")
-    path = os.path.join(tmp, "grads.pt")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cpu_reference_")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS=str(HYB_CPU_THREADS))
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             CPU_REFERENCE_FLAG, path], env=env)
+                             CPU_REFERENCE_FLAG, tmp, *names], env=env)
 
     def stop():
         if proc.poll() is None:
@@ -6132,7 +6196,28 @@ def start_hybrid_cpu_reference():
             proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     atexit.register(stop)
-    return proc, path
+    return proc, tmp
+
+
+def wait_cpu_reference(reference, name):
+    """The saved result of the child's ``name`` reference, once written
+    (the file appears whole, by a rename), with the seconds waited for it
+    under ``"waited"``; fails if the child exits without it.  The file is
+    removed after loading."""
+    import torch
+    proc, tmp = reference
+    path = os.path.join(tmp, f"{name}.pt")
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        rc = proc.poll()
+        if rc is not None and not os.path.exists(path):
+            check(False, f"the CPU reference {name}: the child exited with "
+                         f"{rc} without it")
+        time.sleep(0.5)
+    waited = time.perf_counter() - t0
+    out = torch.load(path)
+    os.unlink(path)
+    return dict(out, waited=waited)
 
 
 def hybrid_train_grad_check(torch, reference):
@@ -6142,17 +6227,12 @@ def hybrid_train_grad_check(torch, reference):
     the window), remat on, the ``HYB_SEEDED`` leaves seeded: the card
     (flash at D = 256 and the linear scan, forward and backward) against
     the CPU's (autograd through the plain versions, computed by
-    ``hybrid_cpu_reference`` in a child process started with the run),
+    ``hybrid_cpu_reference`` in the child process started with the run),
     each leaf within ``TRAIN_GRAD_TOL`` of its largest magnitude."""
     from repro_torch.nn import Model
     from repro_torch.tree import flatten_with_path, leaves, tree_map
-    proc, path = reference
-    t0 = time.perf_counter()
-    rc = proc.wait()
-    waited = time.perf_counter() - t0
-    check(rc == 0, f"train_hybrid (c): the CPU reference exited with {rc}")
-    cpu = torch.load(path)
-    os.unlink(path)
+    cpu = wait_cpu_reference(reference, "hybrid")
+    waited = cpu["waited"]
     cfg, params, batch = hybrid_grad_inputs(torch)
     live = tree_map(lambda p: p.detach().to("cuda").requires_grad_(), params)
     n0 = hybrid_counters()
@@ -6327,7 +6407,7 @@ def hybrid_train_profile(torch):
 
 def hybrid_train_phase(torch, reference):
     """Phase 17, the hybrid's training: (a), (b), (d), (e), then (c), whose
-    CPU side (``reference``, from ``start_hybrid_cpu_reference``) has had
+    CPU side (``reference``, from ``start_cpu_references``) has had
     the run to finish.  Returns the flash backward's D = 256 readings, the
     scan backward's reading, the launches of (d), the main path, and (d)'s
     figures."""
@@ -6349,6 +6429,507 @@ def hybrid_train_phase(torch, reference):
     figures["grad_check"] = hybrid_train_grad_check(torch, reference)
     print(f"train_hybrid (c): {time.perf_counter() - t0:.2f} s")
     return bwd, scan, launches, figures
+
+
+def moe_leaves(cfg):
+    """The leaves of ``Model(cfg).init`` for a MoE config, by its shapes:
+    per layer the attention (with the QKV bias), two norms, the router,
+    the E routed experts and the shared ones; the embedding, the head and
+    the final norm once."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    if cfg.qkv_bias:
+        attn += (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    layer = (attn + 2 * d + d * cfg.n_experts
+             + 3 * d * f * (cfg.n_experts + cfg.n_shared_experts))
+    return cfg.n_layers * layer + 2 * cfg.vocab * d + d
+
+
+def moe_bwd_readings(torch):
+    """Phase 18 (a): the flash backward at qwen2-moe's MHA layout (16 / 16
+    heads of 128, G = 1, causal) at the train cell's (8, 1024): through
+    ``FlashAttention`` against autograd through the plain version, f32 and
+    bf16 (``bwd_agreement``), two calls bit-identical; in bf16 timed beside
+    its bound, autograd through the plain version and
+    ``scaled_dot_product_attention``'s backward.  Returns the reading."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    def inputs(shape, dt):
+        B, S, Hq, Hkv, D = shape
+        return [torch.randn(s, generator=gen, device="cuda", dtype=dt)
+                for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                          (B, S, Hq, D))]
+
+    shape = (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
+    reading = {"shape": list(shape)}
+    for dt in (torch.float32, torch.bfloat16):
+        reading.update(bwd_agreement(torch, "MHA train cell", shape, dt,
+                                     inputs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    reading.update(flash_bwd_timing(torch, inputs, shape))
+    return reading
+
+
+def _dispatch_inputs(torch, gen, dt):
+    """The train cell's dispatch at qwen2-moe's widths: routing of seeded
+    probabilities (8 x 1024 tokens, 60 experts, top 4, C = 86), x (8,
+    1024, 2048) and a cotangent (8, 60 x 86, 2048) in ``dt``."""
+    from repro_torch.nn import blocks, get_config
+    cfg = get_config(MOE_ARCH)
+    B, S, E, K = TRAIN_BATCH, TRAIN_SEQ, cfg.n_experts, cfg.top_k
+    C = blocks.moe_capacity(cfg, S)
+    probs = torch.softmax(torch.randn((B, S, E), generator=gen,
+                                      device="cuda"), dim=-1)
+    _, _, keep, slot = blocks.moe_route(probs, K, C)
+    idx, filled = blocks.moe_slot_table(slot, S, E * C)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda",
+                    dtype=dt)
+    dxe = torch.randn((B, E * C, cfg.d_model), generator=gen, device="cuda",
+                      dtype=dt)
+    return x, dxe, idx, filled, slot, keep
+
+
+def moe_dispatch_readings(torch):
+    """Phase 18 (b): the expert dispatch's backward (``MoeDispatch``: each
+    token's K slot gradients gathered and added in k order) on the card at
+    the train cell's dispatch, with deterministic algorithms off: two calls
+    bit-identical in f32 and bf16; in f32 within ``MOE_DISPATCH_TOL`` of
+    the largest of autograd through ``torch.gather`` (its backward
+    scatter-adds); both timed in bf16 beside the bytes bound (dxe's K rows
+    a token read, dx written).  Then one full-width MoE layer's gradient
+    in bf16 (x and every leaf of the router, the experts and the shared
+    ones), twice: bit-identical.  Returns the figures."""
+    from repro_torch.nn import blocks, get_config
+    from repro_torch.tree import leaves, tree_map
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    out = {}
+
+    def grad_fn(x, dxe, idx, filled, slot, keep, dispatch):
+        xx = x.detach().requires_grad_()
+        if dispatch:
+            xe = blocks.MoeDispatch.apply(xx, idx, filled, slot, keep)
+        else:
+            xe = torch.where(filled[..., None], torch.gather(
+                xx, 1, idx[..., None].expand(*idx.shape, x.shape[-1])), 0)
+        return lambda: torch.autograd.grad(xe, xx, dxe, retain_graph=True)[0]
+
+    for dt in (torch.float32, torch.bfloat16):
+        args = _dispatch_inputs(torch, gen, dt)
+        run = grad_fn(*args, True)
+        got, again = run(), run()
+        plain = grad_fn(*args, False)
+        want = plain()
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        key = str(dt).replace("torch.", "")
+        out[key] = {"repeat_equal": same, "max_abs_err": err,
+                    "rel_err": rel}
+        if dt == torch.float32:
+            check(same and rel <= MOE_DISPATCH_TOL,
+                  f"train_moe (b): dispatch backward f32 repeat {same}, "
+                  f"{rel:.3e} of the largest against autograd")
+        else:
+            check(same, "train_moe (b): dispatch backward bf16 repeat "
+                        "differs")
+            x, slot = args[0], args[4]
+            # dxe's K rows a token read, dx written, slot and keep read
+            bound_ms = ((slot.numel() * x.shape[-1] + x.numel())
+                        * x.element_size() + slot.numel() * 9) \
+                / HBM_BYTES_PER_S * 1e3
+            out[key].update(ms=event_ms(torch, run, 10),
+                            scatter_ms=event_ms(torch, plain, 10),
+                            bound_ms=bound_ms)
+        del args, run, plain, got, again, want
+    b = out["bfloat16"]
+    print(f"train_moe (b): the dispatch backward at ({TRAIN_BATCH}, "
+          f"{TRAIN_SEQ}, 60 experts, top 4, C = 86, d 2048), deterministic "
+          f"algorithms off: two calls bit-identical f32 "
+          f"{out['float32']['repeat_equal']}, bf16 {b['repeat_equal']}; f32 "
+          f"against autograd through torch.gather max abs err "
+          f"{out['float32']['max_abs_err']:.3e} ({out['float32']['rel_err']:.3e}"
+          f" of the largest; <= {MOE_DISPATCH_TOL}); bf16 {b['ms']*1e3:.2f} "
+          f"us a call, the gather's scatter-add backward "
+          f"{b['scatter_ms']*1e3:.2f} us, bytes bound {b['bound_ms']*1e3:.2f}"
+          f" us (CUDA events, eager) [{CARD}]")
+    # one full-width layer's gradient, twice
+    cfg = get_config(MOE_ARCH)
+    p = blocks.init_moe(torch.Generator(device="cuda").manual_seed(0), cfg)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda", dtype=torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        live = tree_map(lambda t: t.detach().requires_grad_(), p)
+        xx = x.detach().requires_grad_()
+        y, aux = blocks.moe_apply(live, xx, cfg)
+        runs.append(torch.autograd.grad((y.float() * dy).sum() + aux,
+                                        [xx] + leaves(live)))
+    torch.cuda.synchronize()
+    layer_same = all(torch.equal(a, c) for a, c in zip(*runs))
+    print(f"train_moe (b): one full-width MoE layer's bf16 gradient (x, the "
+          f"router, the 60 experts and the shared ones) twice: "
+          f"bit-identical {layer_same}")
+    check(layer_same, "train_moe (b): the MoE layer's gradient differs on "
+                      "repeat")
+    out["layer_repeat_equal"] = layer_same
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routes(keep_on_device=False):
+    """``blocks.moe_route`` recording every call's (expert ids, keep mask,
+    slots, gates) in the list it yields, on the CPU unless
+    ``keep_on_device``."""
+    from repro_torch.nn import blocks
+    route, calls = blocks.moe_route, []
+
+    def recording(probs, K, C):
+        out = route(probs, K, C)
+        calls.append([t.detach() if keep_on_device else t.detach().cpu()
+                      for t in (out[1], out[2], out[3], out[0])])
+        return out
+    blocks.moe_route = recording
+    try:
+        yield calls
+    finally:
+        blocks.moe_route = route
+
+
+def _seed_moe_leaves(torch, params):
+    """Overwrite the ``MOE_SEEDED`` leaves (zeros in the reference's init)
+    with seeded values."""
+    from repro_torch.tree import flatten_with_path
+    rng = np.random.default_rng(0)
+    for path, leaf in flatten_with_path(params):
+        if path[-1] in MOE_SEEDED:
+            leaf.copy_(torch.from_numpy(rng.normal(
+                0.0, 0.3, tuple(leaf.shape)).astype(np.float32)))
+
+
+def moe_grad_inputs(torch):
+    """(c)'s config, parameters (on the CPU, from seed 0, the
+    ``MOE_SEEDED`` leaves seeded) and batch, the same in both processes."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.nn import Model, get_config
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_GRAD_LAYERS,
+                              dtype="float32")
+    params = Model(cfg, device="cpu").init(0)
+    _seed_moe_leaves(torch, params)
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=MOE_GRAD_SEQ,
+                          global_batch=MOE_GRAD_BATCH, seed=0).batch(0)
+    return cfg, params, batch
+
+
+def moe_cpu_reference(path):
+    """(c)'s CPU side, in the child process after the hybrid's: the f32
+    loss, its gradient through the plain versions without remat, and each
+    layer's expert ids and keep mask, saved to ``path``."""
+    import dataclasses
+    import torch
+    from repro_torch.nn import Model
+    from repro_torch.tree import leaves, tree_map
+    t0 = time.perf_counter()
+    cfg, params, batch = moe_grad_inputs(torch)
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with recorded_routes() as routes:
+        loss, _ = Model(dataclasses.replace(cfg, remat=False),
+                        device="cpu").loss(live, batch)
+    grads = torch.autograd.grad(loss, leaves(live))
+    torch.save({"loss": float(loss.detach()), "grads": list(grads),
+                "routes": [r[:2] for r in routes],
+                "secs": time.perf_counter() - t0}, path + ".part")
+    os.replace(path + ".part", path)
+    return 0
+
+
+def moe_train_grad_check(torch, reference):
+    """Phase 18 (c): the f32 ``Model.loss`` gradient of qwen2-moe-a2.7b at
+    full width, ``MOE_GRAD_LAYERS`` layers, ``MOE_GRAD_BATCH`` x
+    ``MOE_GRAD_SEQ``, remat on, the ``MOE_SEEDED`` leaves seeded: first
+    every layer's expert ids and keep mask, card against CPU (the CPU side
+    computed by ``moe_cpu_reference`` in the child process), which must be
+    equal (a flip means the two computed other functions), and the
+    backward's recomputed routing equal to the forward's on the card; then
+    each leaf within ``TRAIN_GRAD_TOL`` of its largest magnitude."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.nn import Model
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    cpu = wait_cpu_reference(reference, "moe")
+    waited = cpu["waited"]
+    cfg, params, batch = moe_grad_inputs(torch)
+    live = tree_map(lambda p: p.detach().to("cuda").requires_grad_(), params)
+    n0 = (flash_attention_kernel.launches,
+          flash_attention_bwd_kernel.launches)
+    t0 = time.perf_counter()
+    with recorded_routes(keep_on_device=True) as routes:
+        loss, _ = Model(cfg, device="cuda").loss(live, batch)
+        grads = torch.autograd.grad(loss, leaves(live))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    n = (flash_attention_kernel.launches - n0[0],
+         flash_attention_bwd_kernel.launches - n0[1])
+    L = cfg.n_layers
+    check(len(routes) == 2 * L and len(cpu["routes"]) == L,
+          f"train_moe (c): {len(routes)} routing calls on the card, "
+          f"{len(cpu['routes'])} on the CPU")
+    flips = [int((a[0].cpu() != b[0]).sum()) + int((a[1].cpu() != b[1]).sum())
+             for a, b in zip(routes[:L], cpu["routes"])]
+    recompute = all(torch.equal(a, b) for i in range(L)
+                    for a, b in zip(routes[i], routes[2 * L - 1 - i]))
+    print(f"train_moe (c): expert ids and keep masks, card against CPU, "
+          f"differing entries by layer {flips}; the backward's recomputed "
+          f"routing equal to the forward's on the card: {recompute}")
+    check(not any(flips), f"train_moe (c): routing differs between card and "
+                          f"CPU by layer {flips}: they computed different "
+                          f"functions")
+    check(recompute, "train_moe (c): remat's recompute routed otherwise")
+    worst, worst_path = 0.0, None
+    for (path_, _), c, g in zip(flatten_with_path(params), cpu["grads"],
+                                grads):
+        name = "/".join(map(str, path_))
+        rel = (g.cpu() - c).abs().max().item() / max(c.abs().max().item(),
+                                                     1e-30)
+        if rel > worst:
+            worst, worst_path = rel, name
+        check(rel <= TRAIN_GRAD_TOL, f"train_moe gradient {name}: card vs "
+              f"CPU {rel:.3e} of its largest")
+    card_loss = float(loss.detach())
+    rel_loss = abs(card_loss - cpu["loss"]) / abs(cpu["loss"])
+    print(f"train_moe (c): f32 Model.loss gradient, {MOE_ARCH} full width, "
+          f"{L} layers, {MOE_GRAD_BATCH} x {MOE_GRAD_SEQ}, seeded "
+          f"{'/'.join(MOE_SEEDED)}: loss card {card_loss!r} CPU "
+          f"{cpu['loss']!r} (rel {rel_loss:.3e}); every leaf within "
+          f"{worst:.3e} of its largest magnitude ({worst_path}; <= "
+          f"{TRAIN_GRAD_TOL}); flash launches forward / backward {n[0]} / "
+          f"{n[1]}; CPU {cpu['secs']:.2f} s in the child process (waited "
+          f"{waited:.2f} s for it here), card {card_s:.2f} s [{CARD}]")
+    check(rel_loss <= 1e-5 and n == (2 * L, L),
+          f"train_moe (c): loss rel {rel_loss}, flash launches {n}")
+    return {"worst_leaf_rel": worst, "loss_rel": rel_loss,
+            "route_flips": flips, "recompute_equal": recompute,
+            "cpu_s": cpu["secs"], "waited_s": waited}
+
+
+def moe_train_launcher_run(torch):
+    """Phase 18 (d): the train launcher's code (``launch.train.train``) at
+    qwen2-moe-a2.7b's full width and ``MOE_TRAIN_LAYERS`` of its 24 layers
+    (the cut printed beside full depth's state), ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` bf16 batches on f32 masters and f32 AdamW moments, remat
+    a layer, ``TRAIN_STEPS`` steps, the checkpoint into a temporary
+    directory, removed after.  The flash counters zeroed just before and
+    read just after (2 forward launches a layer and step, remat's
+    recompute among them, and 1 backward call); the first loss near ln V +
+    s2/2 + 0.01 aux, aux near 1 a layer; every loss and grad norm finite,
+    no restart; the step's time (its median past the first), tokens/s, the
+    6 N D share of the bf16 peak with N = ``active_params_count()`` (the
+    reference's ``model_flops_for``) and with N = ``params_count()``, and
+    the peak memory.  Returns the launches and the figures."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.nn import get_config
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    leaves_n = moe_leaves(cfg)
+    check(moe_leaves(full) == MOE_PARAMS,
+          f"train_moe (d): {moe_leaves(full)} leaves at full depth")
+    print(f"train_moe (d): {MOE_ARCH} cut to {cfg.n_layers} of "
+          f"{full.n_layers} layers, full width: {leaves_n:,} f32 leaves, "
+          f"{16 * leaves_n / 2**30:.2f} GiB of masters, gradients and AdamW "
+          f"moments (full depth's {MOE_PARAMS:,} leaves: "
+          f"{16 * MOE_PARAMS / 2**30:.2f} GiB, more than the card)")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = 0
+    flash_attention_bwd_kernel.launches = 0
+    t0 = time.perf_counter()
+    try:
+        loop = launch_train.train(
+            cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            ckpt_dir=ckpt, ckpt_every=100, log_every=1)
+        torch.cuda.synchronize()
+        n = (flash_attention_kernel.launches,
+             flash_attention_bwd_kernel.launches)
+        wall = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(ckpt) for f in fs)
+        saved = os.listdir(ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = [r for r in loop.metrics_log if "loss" in r]
+    for r in loop.metrics_log:
+        print(f"  train_moe {r}")
+    steady = sorted(r["dt"] for r in recs[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_active, n_all = cfg.active_params_count(), cfg.params_count()
+    mfu = 6 * n_active * tokens / step_s / BF16_FLOPS
+    mfu_all = 6 * n_all * tokens / step_s / BF16_FLOPS
+    s2 = 0.02 ** 2 * cfg.d_model
+    aux0 = recs[0]["aux"]
+    expect = float(np.log(cfg.vocab)) + s2 / 2 + 0.01 * aux0
+    want = (2 * cfg.n_layers * TRAIN_STEPS, cfg.n_layers * TRAIN_STEPS)
+    print(f"train_moe (d): {MOE_ARCH} full width, {cfg.n_layers} layers, "
+          f"through the launcher's train(), {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"bf16, {TRAIN_STEPS} steps: step {step_s*1e3:.2f} ms (median of "
+          f"steps 1-{TRAIN_STEPS - 1}; step 0 {recs[0]['dt']*1e3:.2f} ms), "
+          f"{tokens / step_s:,.0f} tokens/s, 6 N D {100 * mfu:.2f} % of "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s with N = active_params_count() "
+          f"= {n_active:,} ({100 * mfu_all:.2f} % with N = params_count() = "
+          f"{n_all:,}); loss {recs[0]['loss']:.4f} -> {recs[-1]['loss']:.4f}"
+          f" (step 0 expected ln V + s2/2 + 0.01 aux = {expect:.4f}, aux "
+          f"{aux0:.4f} over {cfg.n_layers} layers); peak memory {peak:.3f} "
+          f"GiB; launches flash forward {n[0]}, backward {n[1]}; "
+          f"{loop.restarts} restarts; checkpoint {saved} "
+          f"{ckpt_bytes / 2**30:.3f} GiB, removed; {wall:.2f} s with init "
+          f"and the checkpoint [{CARD}]")
+    check(len(recs) == TRAIN_STEPS and loop.restarts == 0 and all(
+        np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+        for r in recs), f"train_moe (d): records {loop.metrics_log}")
+    check(abs(recs[0]["loss"] - expect) <= 0.2
+          and 0.5 <= aux0 / cfg.n_layers <= 2.0,
+          f"train_moe (d): first loss {recs[0]['loss']} far from {expect}, "
+          f"or aux {aux0} far from {cfg.n_layers}")
+    check(n == want, f"train_moe (d): launches {n}, not {want}")
+    check(saved == [f"step_{TRAIN_STEPS - 1}"],
+          f"train_moe (d): checkpoint directory held {saved}")
+    return {"flash_attention": n[0], "flash_attention_bwd": n[1]}, {
+        "layers": cfg.n_layers, "leaves": leaves_n, "step_ms": step_s * 1e3,
+        "tokens_per_s": tokens / step_s, "mfu_6nd_active": mfu,
+        "mfu_6nd_all": mfu_all, "peak_gib": peak,
+        "losses": [r["loss"] for r in recs], "aux0": aux0,
+        "checkpoint_gib": ckpt_bytes / 2**30}
+
+
+def moe_train_profile(torch):
+    """Phase 18 (e): at (d)'s configuration (the launcher's optimizer),
+    after one untimed step, the step's parts on synchronized host clocks
+    (forward, backward with remat's forward, AdamW), then one more step
+    under ``torch.profiler``: the device's busy share, its top kernels,
+    and the shares of the flash backward's kernels and of the gather and
+    scatter kernels (the dispatch's forward and backward gathers, the
+    combine's gather and its backward's scatter-add, the slot table)."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.nn import Model, get_config
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime.step import make_train_step
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    m = Model(cfg, device="cuda")
+    params = m.init(0)
+    opt = AdamW(lr=3e-4, schedule=cosine_schedule(3e-4, 20, 100))
+    state = opt.init(params)
+    step = make_train_step(m, opt)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in pipe.batch(0).items()}
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    parts = {}
+    t0 = time.perf_counter()
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = m.loss(live, batch)
+    torch.cuda.synchronize()
+    parts["forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(loss, leaves(live))
+    torch.cuda.synchronize()
+    parts["backward (remat's forward in it)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    it = iter(grads)
+    opt.apply(params, state, tree_map(lambda _: next(it), params))
+    torch.cuda.synchronize()
+    parts["AdamW"] = time.perf_counter() - t0
+    del live, loss, grads, it
+    n0 = (flash_attention_kernel.launches,
+          flash_attention_bwd_kernel.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = (flash_attention_kernel.launches - n0[0],
+         flash_attention_bwd_kernel.launches - n0[1])
+    busy, by_name = report_profile(prof, wall * 1e6, "one qwen2-moe-a2.7b "
+                                   f"train step, {cfg.n_layers} layers", 14)
+    shares = {part: tuple(map(sum, zip((0.0, 0), *(
+        v for k, v in by_name.items() if name in k))))
+        for part, name in (("flash forward", "flash_attention_wgmma_kernel"),
+                           ("flash backward dq", FLASH_BWD_KERNELS["dq"]),
+                           ("flash backward dk/dv",
+                            FLASH_BWD_KERNELS["dkdv"]),
+                           ("gather and scatter", "scatter_gather"))}
+    total = sum(parts.values())
+    print(f"train_moe (e): the step's parts on synchronized host clocks: "
+          + ", ".join(f"{k} {v*1e3:.1f} ms ({100 * v / total:.1f} %)"
+                      for k, v in parts.items())
+          + f"; profiled step {wall*1e3:.1f} ms, device busy "
+            f"{busy/1e3:.1f} ms ({100 * busy / (wall * 1e6):.2f} %); "
+          + ", ".join(f"{p} {t/1e3:.3f} ms in {k} events "
+                      f"({100 * t / busy:.2f} % of busy)"
+                      for p, (t, k) in shares.items())
+          + f"; flash launches {n} [{CARD}]")
+    check(n == (2 * cfg.n_layers, cfg.n_layers)
+          and all(k > 0 for _, k in shares.values()),
+          f"train_moe (e): launches {n}, profiled kernels {shares}")
+    return {"parts_ms": {k: v * 1e3 for k, v in parts.items()},
+            "profiled_step_ms": wall * 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (wall * 1e6),
+            "shares": {p: t / busy for p, (t, _) in shares.items()}}
+
+
+def moe_train_phase(torch, reference):
+    """Phase 18, the MoE's training: (a), (b), (d), (e), (f), then (c),
+    whose CPU side (``reference``, from ``start_cpu_references``) has had
+    the run to finish.  Returns the flash backward's MHA reading, the
+    launches of (d), the main path, and the figures of (b)-(e)."""
+    t0 = time.perf_counter()
+    bwd = moe_bwd_readings(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    figures = {"dispatch": moe_dispatch_readings(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_moe (a), (b): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches, run = moe_train_launcher_run(torch)
+    figures.update(run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_moe (d): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    figures["profile"] = moe_train_profile(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_moe (e): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    train_restart_check(torch, MOE_ARCH, "train_moe (f)", exact=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_moe (f): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    figures["grad_check"] = moe_train_grad_check(torch, reference)
+    print(f"train_moe (c): {time.perf_counter() - t0:.2f} s")
+    return bwd, launches, figures
+
+
+CPU_REFERENCES = {"hybrid": hybrid_cpu_reference, "moe": moe_cpu_reference}
 
 
 def main() -> int:
@@ -6375,8 +6956,8 @@ def main() -> int:
     build.build(sources)
     print(f"build: {time.perf_counter()-t0:.2f} s "
           f"({', '.join(n + '.cu' for n in sources)}, in parallel)")
-    # phase 17 (c)'s CPU side runs beside the card's phases
-    hybrid_reference = start_hybrid_cpu_reference()
+    # phases 17 (c)'s and 18 (c)'s CPU sides run beside the card's phases
+    cpu_reference = start_cpu_references()
     for name in sources:
         for fn, line in ptxas_lines(build.build_log(name)):
             print(f"  ptxas {name} {fn}: {line}")
@@ -6481,8 +7062,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     hyb_bwd, scan_bwd, hyb_train_launches, hyb_train_figures = \
-        hybrid_train_phase(torch, hybrid_reference)
+        hybrid_train_phase(torch, cpu_reference)
     print(f"train_hybrid phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_bwd, moe_train_launches, moe_train_figures = moe_train_phase(
+        torch, cpu_reference)
+    print(f"train_moe phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
@@ -6494,6 +7081,7 @@ def main() -> int:
                "dense": dense_launches, "train": train_launches,
                "train_rwkv": rwkv_train_launches,
                "train_hybrid": hyb_train_launches,
+               "train_moe": moe_train_launches,
                "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
@@ -6513,6 +7101,8 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name, n in hyb_train_launches.items():
         launches[name] = launches.get(name, 0) + n
+    for name, n in moe_train_launches.items():
+        launches[name] += n
     launches["qmatmul"] = qm_launches
     launches["wkv6"] = rwkv_launches["wkv6"] + rwkv_train_launches["wkv6"]
     launches["wkv6_bwd"] = rwkv_train_launches["wkv6_bwd"]
@@ -6538,6 +7128,8 @@ def main() -> int:
             k["train_step"] = train_figures
             k["hybrid_shapes"] = hyb_bwd
             k["train_hybrid_step"] = hyb_train_figures
+            k["mha_shapes"] = {"moe train cell": moe_bwd}
+            k["train_moe_step"] = moe_train_figures
         if k["name"] == "linear_scan":
             k["backward"] = scan_bwd
             k["backward_calls"] = hyb_train_launches[
@@ -6554,5 +7146,5 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [CPU_REFERENCE_FLAG]:
         sys.path.insert(0, os.path.join(HERE, "src"))
-        sys.exit(hybrid_cpu_reference(sys.argv[2]))
+        sys.exit(cpu_references(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

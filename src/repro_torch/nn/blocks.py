@@ -266,13 +266,67 @@ def moe_route(probs: torch.Tensor, K: int, C: int):
     return gate, expert_idx, keep, slot
 
 
+def moe_slot_table(slot: torch.Tensor, S: int, n_slots: int):
+    """The token of every slot and whether a kept pair fills it, (B,
+    n_slots) int64 and bool, from ``slot`` (B, S*K) of ``moe_route``
+    (``n_slots`` = E * C; the drop slot n_slots is the only one that takes
+    duplicate writes, and it is cut off)."""
+    B, SK = slot.shape
+    token = torch.arange(S, device=slot.device).repeat_interleave(SK // S)
+    table = torch.zeros((B, n_slots + 1), dtype=torch.int64,
+                        device=slot.device)
+    table.scatter_(1, slot, token.expand(B, -1))
+    filled = torch.zeros((B, n_slots + 1), dtype=torch.bool,
+                         device=slot.device)
+    filled.scatter_(1, slot, True)
+    return table[:, :n_slots], filled[:, :n_slots]
+
+
+class MoeDispatch(torch.autograd.Function):
+    """The expert dispatch ``xe[b, j] = x[b, idx[b, j]]`` where slot j is
+    filled, else 0, with a gradient free of atomics.
+
+    Every filled slot holds one kept (token, k) pair, so the gradient of a
+    token is the sum of its K slots' gradients: ``dx[b, s] = sum_k keep[b,
+    s*K+k] * dxe[b, slot[b, s*K+k]]``, gathered through ``slot`` (the drop
+    slot clamped into range, then masked out) and added in k order.  The
+    forward is ``torch.gather`` and the mask, the same ops as without the
+    Function; autograd through that gather would scatter-add the slots'
+    gradients into dx instead, in an order that varies on the card."""
+
+    @staticmethod
+    def forward(ctx, x, idx, filled, slot, keep):
+        """x (B, S, d); idx, filled (B, E*C); slot, keep (B, S*K)."""
+        B, S, d = x.shape
+        xe = torch.gather(x, 1, idx[..., None].expand(B, idx.shape[1], d))
+        ctx.save_for_backward(slot, keep)
+        ctx.S, ctx.n_slots = S, idx.shape[1]
+        return torch.where(filled[..., None], xe, 0)
+
+    @staticmethod
+    def backward(ctx, dxe):
+        slot, keep = ctx.saved_tensors
+        B, SK = slot.shape
+        d, S = dxe.shape[-1], ctx.S
+        rows = torch.clamp(slot, max=ctx.n_slots - 1)[..., None]
+        g = torch.gather(dxe, 1, rows.expand(B, SK, d))
+        g = torch.where(keep[..., None], g, 0).reshape(B, S, SK // S, d)
+        dx = g[:, :, 0]
+        for k in range(1, SK // S):
+            dx = dx + g[:, :, k]
+        return dx, None, None, None, None
+
+
 def moe_apply(p, x, cfg: ArchConfig):
     """x: (B, S, d).  Capacity-bounded top-k dispatch by gather and
     scatter, every expert computed over its C slots (the reference's
     three einsums over all E experts); pairs past an expert's capacity
     are dropped.  Adds the shared experts' MLP and arctic's dense
     residual.  Returns (y in x.dtype, the Switch load-balance loss aux,
-    0-d f32)."""
+    0-d f32).  Under autograd the routing's integers carry no gradient:
+    the router's comes through the gates (the sort's values) and through
+    aux's importance term, as in the reference; the dispatch's is
+    ``MoeDispatch``'s."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = moe_capacity(cfg, S)
@@ -281,22 +335,16 @@ def moe_apply(p, x, cfg: ArchConfig):
     probs = torch.softmax(logits, dim=-1)
     gate, expert_idx, keep, slot = moe_route(probs, K, C)
 
-    # token index of every filled slot; the drop slot E * C is the only
-    # one that takes duplicate writes, and it is cut off
-    token = torch.arange(S, device=x.device).repeat_interleave(K)
-    table = torch.zeros((B, E * C + 1), dtype=torch.int64, device=x.device)
-    table.scatter_(1, slot, token.expand(B, -1))
-    filled = torch.zeros((B, E * C + 1), dtype=torch.bool, device=x.device)
-    filled.scatter_(1, slot, True)
-    idx = table[:, :E * C]
-    xe = torch.gather(x, 1, idx[..., None].expand(B, E * C, d))
-    xe = torch.where(filled[:, :E * C, None], xe, 0).reshape(B, E, C, d)
+    idx, filled = moe_slot_table(slot, S, E * C)
+    xe = MoeDispatch.apply(x, idx, filled, slot, keep).reshape(B, E, C, d)
     h = torch.einsum("becd,edf->becf", xe, p["wg"].to(x.dtype))
     u = torch.einsum("becd,edf->becf", xe, p["wu"].to(x.dtype))
     ye = torch.einsum("becf,efd->becd", F.silu(h) * u,
                       p["wd"].to(x.dtype))                      # (B,E,C,d)
 
-    # combine: each (token, k) gathers its slot's output (zero if dropped)
+    # combine: each (token, k) gathers its slot's output (zero if dropped);
+    # its backward scatters into one slot a kept pair, and only the drop
+    # row, cut off, takes several
     ye_flat = torch.cat([ye.reshape(B, E * C, d),
                          torch.zeros((B, 1, d), dtype=ye.dtype,
                                      device=x.device)], dim=1)

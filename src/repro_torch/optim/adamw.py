@@ -17,8 +17,12 @@ import torch
 
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["AdamW", "Sgd", "clip_by_global_norm", "global_norm",
-           "cosine_schedule"]
+__all__ = ["AdamW", "Sgd", "clip_by_global_norm", "clip_by_global_norm_",
+           "global_norm", "cosine_schedule"]
+
+# elements of a leaf that AdamW updates at a time: 256 MiB of f32, so a
+# chunk's few temporaries stay small beside the state
+CHUNK = 1 << 26
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -28,12 +32,31 @@ def global_norm(tree) -> torch.Tensor:
                           for leaf in leaves(tree)))
 
 
+def _clip_scale(norm, max_norm: float):
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled by min(1, max_norm / norm), each in its own dtype; the
     norm before clipping)."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float):
+    """:func:`clip_by_global_norm` scaling each leaf IN PLACE, bit for bit
+    the same values: a train step owns its gradients, and a scaled copy of
+    them all would be one more gradient tree at the peak."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+    for g in leaves(grads):
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            g.copy_((g.float() * scale).to(g.dtype))
+    return grads, norm
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):
@@ -71,7 +94,10 @@ class AdamW:
     @torch.no_grad()
     def apply(self, params, state, grads):
         """One step: params and the moments updated in place; returns
-        (params, the new state)."""
+        (params, the new state).  A leaf is updated ``CHUNK`` elements at a
+        time (each element's arithmetic is its own, so the bits are the
+        same), which keeps the temporaries of a multi-GiB leaf (a stack of
+        experts, an embedding) to a few chunks."""
         count = state["count"] + 1
         lr = self.schedule(count) if self.schedule else self.lr
         b1, b2 = self.b1, self.b2
@@ -79,19 +105,24 @@ class AdamW:
         bias1, bias2 = 1 - b1 ** c, 1 - b2 ** c
         for p, m, v, g in zip(leaves(params), leaves(state["m"]),
                               leaves(state["v"]), leaves(grads)):
-            g32 = g.float()
-            # f32 moments are updated in place (``.float()`` is the tensor
-            # itself), the same roundings as m * b1 + (1 - b1) g: two leaf-
-            # sized temporaries fewer, which a 256000 x 4096 leaf needs
-            m32 = m.float().mul_(b1).add_((1 - b1) * g32)
-            v32 = v.float().mul_(b2).add_((1 - b2) * g32 * g32)
-            step = (m32 / bias1) / (torch.sqrt(v32 / bias2) + self.eps)
-            if p.ndim >= 2:   # decoupled weight decay on matrices only
-                step = step + self.weight_decay * p.float()
-            p.copy_(p.float() - lr * step)
-            if m32 is not m:
-                m.copy_(m32)
-                v.copy_(v32)
+            decay = p.ndim >= 2   # decoupled weight decay on matrices only
+            # views of the leaves (``view`` refuses a strided leaf, which
+            # a copy would leave un-updated)
+            for pc, mc, vc, gc in zip(*(
+                    t.view(-1).split(CHUNK) for t in (p, m, v)),
+                    g.reshape(-1).split(CHUNK)):
+                g32 = gc.float()
+                # f32 moments are updated in place (``.float()`` is the
+                # tensor itself), the same roundings as m * b1 + (1 - b1) g
+                m32 = mc.float().mul_(b1).add_((1 - b1) * g32)
+                v32 = vc.float().mul_(b2).add_((1 - b2) * g32 * g32)
+                step = (m32 / bias1) / (torch.sqrt(v32 / bias2) + self.eps)
+                if decay:
+                    step = step + self.weight_decay * pc.float()
+                pc.copy_(pc.float() - lr * step)
+                if m32 is not mc:
+                    mc.copy_(m32)
+                    vc.copy_(v32)
         return params, {"m": state["m"], "v": state["v"], "count": count}
 
 

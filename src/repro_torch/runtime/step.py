@@ -5,7 +5,8 @@
 opt_state, metrics): the loss and its gradient through autograd (on the card
 every attention call of the loss runs the flash kernel forward and its
 gradient the flash backward kernels), then the optional compressor,
-``clip_by_global_norm`` and the optimizer.  The parameter and optimizer
+``clip_by_global_norm_`` (in place: the step owns its gradients) and the
+optimizer.  The parameter and optimizer
 trees are updated in place and returned (the reference donates them to its
 jitted step).  The reference's ``jit_cell`` binds a step to a device mesh
 through its sharding rules; it waits for the port's parallelism (ROADMAP.md,
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.nn.model import Model
 from repro_torch.nn.types import ArchConfig
-from repro_torch.optim.adamw import AdamW, clip_by_global_norm
+from repro_torch.optim.adamw import AdamW, clip_by_global_norm_
 from repro_torch.tree import leaves, tree_map
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
@@ -51,7 +52,7 @@ def make_train_step(model: Model, opt, *, clip: float = 1.0,
                                   for p, g in zip(flat, grads)])
         if compressor is not None:
             grads = compressor(grads)
-        grads, gnorm = clip_by_global_norm(grads, clip)
+        grads, gnorm = clip_by_global_norm_(grads, clip)
         params, opt_state = opt.apply(params, opt_state, grads)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm,
                                    **{k: v.detach() for k, v in mets.items()}}
