@@ -174,17 +174,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``numpy`` (identical); the kernels' counters zeroed just before and
    read just after; then a ``torch.profiler`` window over a few steps
    of the mixed engine;
-9. the hybrid family, full width: recurrentgemma-9b (38 layers, d_model
-   4096, 16 / 1 heads of 256, window 2048, vocab 256000; 9,572,462,592
-   parameters, 35.66 GiB of f32 masters, after the earlier phases free
-   theirs) with random weights from seed 0: the f32 decode of token 2101
-   after ``prefill(2100)`` against ``prefill(2101)`` (the ring wraps), a
-   bf16 ``Model.loss`` on one 4096-token ``TokenPipeline`` row, and
+9. the hybrid family, full width: recurrentgemma-9b (d_model 4096, 16 / 1
+   heads of 256, window 2048, vocab 256000) at ``HYB_LAYERS`` (20) of its
+   38 layers (6,036,172,800 parameters, 22.49 GiB of f32 masters, after the
+   earlier phases free theirs) with random weights from seed 0: the f32 decode
+   of token 2101 after ``prefill(2100)`` against ``prefill(2101)`` (the ring
+   wraps), a bf16 ``Model.loss`` on one 4096-token ``TokenPipeline`` row, and
    ``ReferenceEngine`` (4 rows x 2048 context) serving 8 seeded prompts of
    256-1536 tokens, 32 new tokens each, then one more batch under the
    profiler.  The counters are zeroed before the loss and read after the
-   serving: 26 linear-scan and 12 flash launches per prefill or loss
-   forward, 26 linear-scan and no flash launches per decode step; the
+   serving: 14 linear-scan and 6 flash launches per prefill or loss
+   forward at 20 layers, 14 linear-scan and no flash launches per decode
+   step; the
    loss's scans all on the ring route, the serving's on the ring
    (prefill) and step (decode) routes;
 10. the MoE family, after the hybrid's memory is freed: first the three
@@ -192,11 +193,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    and timed (the K+V pair gather bit for bit and the split paged
    attention, bf16 and f32, at 16 / 16 and 56 / 8 heads of 128, flash
    at qwen2-moe's loss and first ReferenceEngine prefill shapes under
-   ``bf16_disagreement``); then qwen2-moe-a2.7b at full width and depth
-   (14,315,735,040 f32 parameters from seed 0, each leaf cast to bf16
-   once): ``ServeEngine`` at the serving cell's settings on its 16
-   requests on the fused route (counters zeroed just before and read just
-   after: one K+V pair gather a layer and prefill dispatch, one attention
+   ``bf16_disagreement``); then qwen2-moe-a2.7b at full width and
+   ``MOE_SERVE_LAYERS`` (12) of its 24 layers (7,469,033,472 f32
+   parameters from seed 0, full depth's 14,315,735,040 held by shape,
+   each leaf cast to bf16 once): ``ServeEngine`` at the serving cell's
+   settings on its 16 requests on the fused route (counters zeroed just
+   before and read just after: one K+V pair gather a layer and prefill
+   dispatch, one attention
    and one combine launch a layer and decode step), then take/dense
    (first decode logits within ``LOGIT_REL_TOL``) and cuda/dense (tokens
    and logits identical to take/dense); the fused run's first prefill
@@ -218,17 +221,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    and at the first three with bf16 r, k, v (as the bf16 path gives
    them); timed at the first three, bf16 and f32, beside both bounds
    (FP32 issue slots, ``wkv_slots``; bytes, ``wkv_bytes``) and the plain
-   version; then rwkv6-3b at full width and depth (32 layers, d_model
-   2560, 40 heads of 64, d_ff 8960, vocab 65536; 2,863,434,240 f32
-   parameters from seed 0): (b) the f32 decode of token 2101 after
+   version; then rwkv6-3b at full width and ``RWKV_LAYERS`` (16) of its 32
+   layers (d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536; 1,599,490,560
+   f32 parameters from seed 0): (b) the f32 decode of token 2101 after
    ``prefill(2100)`` against ``prefill(2101)``; the int8-PoT engine built
    from the f32 masters, which are then cast to bf16 once; (c) a bf16
    ``Model.loss`` on one 8 x 1024 ``TokenPipeline`` batch; (d)
    ``ReferenceEngine`` (4 rows x 2048) on the hybrid phase's 8 prompts,
    32 new tokens each; (e) the int8-PoT engine on the same prompts (its
    serving ledger and its share of greedy tokens equal to bf16's); the
-   ``wkv6`` counter zeroed just before (c) and read after (e): 32 launches
-   a loss forward, prefill and decode step; (f) a ``torch.profiler``
+   ``wkv6`` counter zeroed just before (c) and read after (e): one launch
+   a layer (16) a loss forward, prefill and decode step; (f) a
+   ``torch.profiler``
    window over one more bf16 batch (``wkv6``'s share of the busy time,
    the direct copies' count);
 12. the audio family, after the RWKV6's memory is freed: (a) the flash
@@ -260,8 +264,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``bf16_disagreement``, each timed beside the bound, the plain version
    and ``scaled_dot_product_attention``; the f32 check's prefill (1,
    2945) within ``FLASH_F32_TOL``, timed on its own; then llava-next-34b
-   at full width and 16 of its 60 layers (d_model 7168, d_ff 20480,
-   vocab 64000; 9,850,559,488 f32 parameters from seed 0, patch
+   at full width and ``VLM_LAYERS`` (8) of its 60 layers (d_model 7168,
+   d_ff 20480, vocab 64000; 5,387,705,344 f32 parameters from seed 0, patch
    embeddings (B, 2880, 1024) from a seeded numpy generator, the vision
    tower a stub): (b) the f32 decode of token 65 after a prefill of the
    2880 patches and 64 tokens (k and v padded to the 3072-position
@@ -273,8 +277,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (4 rows, 16-token prompts after the patches, 64 new tokens, context
    3072), bf16 and int8-PoT (dequantized every dispatch), with the
    int8-PoT tokens' share equal to bf16's and each loop's peak memory;
-   the flash counter zeroed just before (c) and read just after (d): 16
-   launches a forward and none a decode step; (e) a ``torch.profiler``
+   the flash counter zeroed just before (c) and read just after (d): one
+   launch a layer (8) a forward and none a decode step; (e) a
+   ``torch.profiler``
    window over 16 bf16 decode steps;
 14. the dense configs, after the VLM phase's memory is freed: (a) the
    attention path's kernels at their head layouts, D = 128 -- the K+V
@@ -286,10 +291,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    under ``bf16_disagreement``; each timed beside the bound, the plain
    version and the library call (``index_select`` x 2, SDPA); then
    qwen2.5-3b, internlm2-1.8b and qwen1.5-4b in turn, each at full width
-   and depth (3,397,103,616, 1,889,110,016 and 3,950,369,280 f32
-   parameters from seed 0) and freed before the next: (b) ``ServeEngine``
-   in f32 on the fused and take/dense routes (8 requests, 2 new tokens:
-   equal greedy tokens, first decode logits within ``LOGIT_REL_TOL``);
+   and half its depth (``DENSE_SERVE_LAYERS``: 18, 12 and 20 layers; full
+   depth's 3,397,103,616, 1,889,110,016 and 3,950,369,280 f32 parameters
+   held by shape; random weights from seed 0) and freed before the next:
+   (b) ``ServeEngine`` in f32 on the fused and take/dense routes (8
+   requests, 2 new tokens: equal greedy tokens, first decode logits within
+   ``LOGIT_REL_TOL``);
    for qwen2.5-3b the int8-PoT ``ReferenceEngine`` from the f32 masters;
    one cast to bf16; (c) ``ServeEngine`` on the serving cell's settings and 16
    requests: the fused route with the cuda gather, its counters zeroed
@@ -383,13 +390,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    vocab 4096, 1 x 2304, norms, ``lam``, gates and conv seeded, card
    against CPU, each leaf within ``TRAIN_GRAD_TOL`` of its largest
    magnitude; (d) the train launcher's ``train`` at recurrentgemma-9b's
-   full width and 8 of its 38 layers (two units and the two tail layers;
-   the cut printed), 2 x 4096 bf16 batches on f32 masters and f32 AdamW
-   moments, remat a unit, 6 steps, the counters zeroed just before and
-   read just after (a step: 4 flash forward launches and 2 backward
-   calls, 10 forward and 6 backward scans), the first loss near ln V +
-   s2/2, every loss and grad norm finite, no restart, the step's time,
-   tokens/s, the 6 N D share and the peak memory, the checkpoint written
+   full width and ``HYB_TRAIN_LAYERS`` (5) of its 38 layers (a unit and the two
+   tail layers; the cut printed), 2 x 4096 bf16 batches on f32 masters and f32
+   AdamW moments, remat a unit, 6 steps, the counters zeroed just before and
+   read just after (a step at 5 layers: 2 flash forward launches and 1 backward
+   call, 6 forward and 4 backward scans), the first loss near ln V + s2/2,
+   every loss and grad norm finite, no restart, the step's time, tokens/s, the
+   6 N D share and the peak memory, the checkpoint written
    to a temporary directory and removed; (e) one more step under
    ``torch.profiler``: the device busy share and the shares of the flash
    kernels and the scan;
@@ -410,19 +417,48 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (the CPU side in the child process, after the hybrid's), remat's
    recomputed routing equal to the forward's, then each leaf within
    ``TRAIN_GRAD_TOL`` of its largest magnitude; (d) the train launcher's
-   ``train`` at full width and 6 of 24 layers (the cut printed beside full
-   depth's state), 8 x 1024 bf16 batches on f32 masters and f32 AdamW
+   ``train`` at full width and ``MOE_TRAIN_LAYERS`` (5) of 24 layers (the
+   cut printed beside full depth's state and the checkpoint one more layer
+   would write), 8 x 1024 bf16 batches on f32 masters and f32 AdamW
    moments, 6 steps, the flash counters zeroed just before and read just
-   after (12 forward launches and 6 backward calls a step), the first
-   loss near ln V + s2/2 + 0.01 aux, every loss and grad norm finite, no
+   after (2 forward launches a layer and 1 backward call a step), the
+   first loss near ln V + s2/2 + 0.01 aux, every loss and grad norm finite, no
    restart, the step's time, tokens/s, the 6 N D share with N =
    ``active_params_count()`` and ``params_count()``, the peak memory, the
    checkpoint written and removed; (e) the step's parts on synchronized
    host clocks (forward, backward, AdamW) and one step under
    ``torch.profiler``: busy share, top kernels, the flash backward's and
    the gather and scatter kernels' shares; (f) ``TrainLoop``'s restart at
-   full width, 2 layers, vocab 4096: every final leaf ``torch.equal`` to
-   an uninterrupted run's.
+   full width, ``MOE_RESTART_LAYERS`` layer, vocab 4096: every final leaf
+   ``torch.equal`` to an uninterrupted run's.
+19. VLM training, after phase 18's memory is freed: (a) the flash
+   backward at llava-next-34b's train cell, (2, 4096, 56 / 8 heads of
+   128), GQA 7:1, causal, before the model's state is on the card: through
+   ``FlashAttention`` against autograd through the plain version, f32 and
+   bf16, two calls bit-identical, timed in bf16 beside its bound, the
+   plain version and SDPA's backward; the forward with and without lse
+   timed beside its bound, the plain version and SDPA; (c) the f32
+   ``Model.loss`` gradient of llava-next-34b at full width, 2 layers,
+   vocab 4096, one row of the 2880 patches and 128 tokens, norms seeded,
+   card against CPU (the CPU side in the child process, after the MoE's),
+   each leaf within ``TRAIN_GRAD_TOL`` of its largest magnitude; (d)
+   ``VLM_TRAIN_LAYERS`` (5) of 60 layers at full width (the cut printed
+   beside full depth's state and the checkpoint one more layer would
+   write) through ``make_train_step`` and ``TrainLoop`` built as the train
+   launcher builds them, on ``VlmBatches`` (2 rows of 2880 patches and
+   1216 tokens a step, the reference's train-cell layout; the launcher
+   feeds no patches), bf16 on f32 masters and f32 AdamW moments, remat a
+   layer, 6 steps, the flash counters zeroed just before and read just
+   after (2 forward launches a layer and 1 backward call a step), the
+   first loss near ln V + s2/2, every loss and grad norm finite, no
+   restart, the step's time, positions/s, text tokens/s, the 6 N D share,
+   the peak memory, the checkpoint written and removed; (e) the step's
+   parts on synchronized host clocks and one step under
+   ``torch.profiler``: busy share, top kernels, the flash kernels'
+   shares.  The CPU sides of
+   phases 17-19 (c) come from the child process through a pipe, and no
+   training checkpoint shares the disk with another: a run may keep
+   ``RUN_DISK_GIB`` on disk at once.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -460,12 +496,14 @@ FLASH_F32_TOL = 2e-5               # the reference's kernel-vs-oracle bound
 # softmax in another order and round p to bf16 at other places, and the
 # difference passes through the bf16 residual stream of the layers above
 LOGIT_REL_TOL = 5e-2
-# The hybrid path: recurrentgemma-9b at full width, random weights from
-# seed 0; ReferenceEngine serves 8 seeded prompts of 256-1536 tokens, 4
-# rows x 2048 context (= local_window, so the padded K/V ring never meets
-# the reference's ring fault), 32 new tokens each.
+# The hybrid path: recurrentgemma-9b at full width and 20 of its 38
+# layers (six units and the two tail layers; full depth's 9,572,462,592
+# leaves) to keep the whole run within its time budget, random weights
+# from seed 0; ReferenceEngine serves 8 seeded prompts of 256-1536 tokens,
+# 4 rows x 2048 context (= local_window, so the padded K/V ring never
+# meets the reference's ring fault), 32 new tokens each.
 HYB_ARCH = "recurrentgemma-9b"
-HYB_PARAMS = 9_572_462_592     # leaves of the reference's Model.init
+HYB_LAYERS, HYB_PARAMS = 20, 6_036_172_800   # the reference's leaves
 HYB_REQUESTS, HYB_PROMPT_LENS = 8, (256, 1536)
 HYB_BATCH, HYB_CONTEXT, HYB_NEW = 4, 2048, 32
 HYB_LOSS_SEQ = 4096
@@ -479,7 +517,7 @@ HYB_LOSS_SEQ = 4096
 # a lost recurrent or conv state moves them by a large share of it.
 HYB_DECODE_PROMPT = 2100
 HYB_DECODE_REL = 2e-3          # x max |logit|
-# The MoE path: qwen2-moe-a2.7b at full width and depth (24 layers,
+# The MoE path: qwen2-moe-a2.7b at full width (24 layers,
 # d_model 2048, 16 / 16 heads of 128, 60 routed experts of width 1408, top
 # 4, and 4 shared, vocab 151936) with random weights from seed 0, f32
 # masters cast to bf16 once; the serving cell's engine and 16 requests,
@@ -491,19 +529,25 @@ HYB_DECODE_REL = 2e-3          # x max |logit|
 # 128 experts of width 4864, top 2, a dense residual of width 4864) is
 # 14.07 B parameters a layer, 52.41 GiB in f32: one layer of 35, on 8 of
 # the serving cell's requests.
+# Its serving phase runs 12 of the 24 layers (7,469,033,472 leaves,
+# ``moe_leaves``; full depth's are held against MOE_PARAMS) to keep the
+# whole run within its time budget: a decode step's host time grows with
+# the layers, and deeper layers run the same code.
 MOE_ARCH = "qwen2-moe-a2.7b"
 MOE_PARAMS = 14_315_735_040        # leaves of the reference's Model.init
+MOE_SERVE_LAYERS = 12
 MOE_QUANT_LAYERS, MOE_QUANT_PARAMS = 8, 5_186_799_616
 MOE_LOSS_BATCH, MOE_LOSS_SEQ = 8, 1024
 ARCTIC_ARCH = "arctic-480b"
 ARCTIC_LAYERS, ARCTIC_PARAMS = 1, 14_069_945_344
 ARCTIC_REQUESTS = 8
-# The RWKV6 path: rwkv6-3b at full width and depth (32 layers, d_model
-# 2560, 40 heads of 64, d_ff 8960, vocab 65536), random weights from seed
-# 0; the hybrid cell's ReferenceEngine batch and prompts, one 8 x 1024
-# loss.
+# The RWKV6 path: rwkv6-3b at full width (d_model 2560, 40 heads of 64,
+# d_ff 8960, vocab 65536) and 16 of its 32 layers (full depth's
+# 2,863,434,240 leaves) to keep the whole run within its time budget,
+# random weights from seed 0; the hybrid cell's ReferenceEngine batch and
+# prompts, one 8 x 1024 loss.  Phase 16 trains it at full depth.
 RWKV_ARCH = "rwkv6-3b"
-RWKV_PARAMS = 2_863_434_240        # leaves of the reference's Model.init
+RWKV_LAYERS, RWKV_PARAMS = 16, 1_599_490_560   # the reference's leaves
 RWKV_LOSS_BATCH, RWKV_LOSS_SEQ = 8, 1024
 # f32 decode of token 2101 against prefill(2101): the WKV state steps the
 # same f32 operations either way, but the projections are products of
@@ -533,17 +577,14 @@ AUD_DECODE_REL = 2e-3          # x max |logit|
 # of 128, d_ff 20480, vocab 64000), random weights from seed 0, patch
 # embeddings (B, 2880, 1024) from a seeded numpy generator (the vision
 # tower is a stub in both packages; 2880 patches are LLaVA-NeXT's anyres
-# tiling, 5 tiles x 576).  Depth is cut to 16 of 60 layers: a layer is
+# tiling, 5 tiles x 576).  Depth is cut to 8 of 60 layers: a layer is
 # 557,856,768 parameters (2.08 GiB in f32), and the reference's init tree
-# at 60 layers is 34,396,257,280 parameters, 128.1 GiB in f32.  At 16
-# layers it is 9,850,559,488, 36.70 GiB of f32 masters; beside them fit
-# the f32 check, the int8-PoT tree quantized from them (6.98 GiB of
-# mantissas; ``wu`` stays float and shares the masters' tensor) and its
-# quantization's f32 transients (2 x 9.40 GB for an MLP leaf), and, after
-# one cast, the 18.35 GiB bf16 tree beside the int8 tree and its
-# dequantized bf16 transient a dispatch.  Deeper layers run the same code.
+# at 60 layers is 34,396,257,280 parameters, 128.1 GiB in f32.  16 layers
+# (9,850,559,488, 36.70 GiB of f32 masters) fit beside the f32 check, the
+# int8-PoT tree and its transients; 8 (5,387,705,344, 20.07 GiB) keep the
+# whole run within its time budget.  Deeper layers run the same code.
 VLM_ARCH = "llava-next-34b"
-VLM_LAYERS, VLM_PARAMS = 16, 9_850_559_488   # the reference's leaves
+VLM_LAYERS, VLM_PARAMS = 8, 5_387_705_344   # the reference's leaves
 VLM_LOSS_BATCH, VLM_LOSS_SEQ = 2, 1024
 VLM_SERVE_BATCH, VLM_PROMPT, VLM_NEW, VLM_CONTEXT = 4, 16, 64, 3072
 VLM_PROFILE_STEPS = 16
@@ -551,7 +592,7 @@ VLM_PROFILE_STEPS = 16
 # prefill of the patches and 65: the same f32 operations on other shapes
 # (1 row against 2945: other cuBLAS kernels and summation orders, ~sqrt(K)
 # 2^-24 relative at K = 20480; decode's softmax over the cache against
-# the flash kernel's online one) through 16 layers; a wrong position,
+# the flash kernel's online one) through the layers; a wrong position,
 # a patch left out of the cache or a lost K/V row moves the logits by a
 # large share of their scale.
 VLM_DECODE_PROMPT = 64
@@ -564,13 +605,17 @@ VLM_DECODE_REL = 2e-3          # x max |logit|
 # and qwen1.5-4b (40 layers, 2560, 20 / 20 heads, d_ff 6912, vocab 151936,
 # QKV bias).  The serving cell's engine and 16 requests, the hybrid
 # cell's ReferenceEngine batch and prompts, one 8 x 1024 loss and the
-# serve launcher.  Nothing is cut: the largest, qwen1.5-4b, is 14.72 GiB
-# of f32 masters.
+# serve launcher (at full depth).  In the process the configs run half
+# their depth (DENSE_SERVE_LAYERS; ``dense_leaves``, full depth's held
+# against DENSE_PARAMS) to keep the run within its time budget, as the
+# MoE's serving does.
 DENSE_ARCHS = ("qwen2.5-3b", "internlm2-1.8b", "qwen1.5-4b")
 DENSE_PARAMS = {"qwen2.5-3b": 3_397_103_616,   # the reference's leaves
                 "internlm2-1.8b": 1_889_110_016,
                 "qwen1.5-4b": 3_950_369_280}
 DENSE_LOSS_BATCH, DENSE_LOSS_SEQ = 8, 1024
+DENSE_SERVE_LAYERS = {"qwen2.5-3b": 18, "internlm2-1.8b": 12,
+                      "qwen1.5-4b": 20}
 DENSE_PROFILE_STEPS = 8
 DENSE_LAUNCHER = ["--quantized", "--kv-block-size", "32", "--kv-gather",
                   "cuda", "--decode-kernel", "fused", "--batch", "8",
@@ -593,12 +638,14 @@ TRAIN_GRAD_TOL = 1e-4
 # batches, 8 steps, a checkpoint every 4, a failure injected at step 6.
 RESTART_VOCAB, RESTART_STEPS, RESTART_FAIL = 4096, 8, 6
 # The hybrid's training (phase 17): recurrentgemma-9b at full width and
-# HYB_TRAIN_LAYERS of its 38 layers -- two scanned units and the config's
-# two unrolled tail layers (n_layers % 3 == 2, as 38 = 12 x 3 + 2) --
-# through the train launcher's code: 3,678,646,272 f32 leaves, 54.8 GiB of
-# masters, gradients and AdamW moments (142.6 GiB at full depth).  Two
-# TokenPipeline rows of 4096 tokens a step, past the 2048 window.
-HYB_TRAIN_LAYERS = 8
+# HYB_TRAIN_LAYERS of its 38 layers -- a scanned unit and the config's two
+# unrolled tail layers (n_layers % 3 == 2, as 38 = 12 x 3 + 2) -- through
+# the train launcher's code: 3,089,264,640 f32 leaves, 46.03 GiB of
+# masters, gradients and AdamW moments, a 34.53 GiB checkpoint (142.6 GiB
+# of state at full depth; 8 layers, 54.8 GiB, ran until the run needed
+# the time).  Two TokenPipeline rows of 4096 tokens a step, past the 2048
+# window.
+HYB_TRAIN_LAYERS = 5
 HYB_TRAIN_BATCH, HYB_TRAIN_SEQ = 2, 4096
 # (c): the f32 gradient at full width, one unit and one tail layer, vocab
 # 4096, one row of 2304 positions (the window bites on 256 rows), card
@@ -612,23 +659,58 @@ CPU_REFERENCE_FLAG = "--cpu-reference"
 HYB_CPU_THREADS = 4
 HYB_SEEDED = ("ln", "ln1", "ln2", "final_norm", "lam", "gate_i", "gate_r",
               "conv_k")
+# The disk a run of this script may fill at once on the H100 machines it
+# runs on.  A training checkpoint is 12 B a leaf (f32 masters and two f32
+# AdamW moments), so a training cell's depth is cut until its checkpoint,
+# written and removed while nothing else of the run is on disk, fits.
+RUN_DISK_GIB = 45
 # The MoE's training (phase 18): qwen2-moe-a2.7b at full width (d 2048, 16
 # / 16 heads of 128, 60 routed experts of width 1408, top 4, 4 shared,
 # vocab 151936, QKV bias) and MOE_TRAIN_LAYERS of its 24 layers through the
-# train launcher's code, the train cell's batches: 4,045,682,688 f32
-# leaves, 60.28 GiB of masters, gradients and AdamW moments (213.3 GiB at
-# full depth, more than the card).
-MOE_TRAIN_LAYERS = 6
+# train launcher's code, the train cell's batches: 3,475,124,224 f32
+# leaves, 51.78 GiB of masters, gradients and AdamW moments, a 38.84 GiB
+# checkpoint (213.3 GiB of state at full depth, more than the card; 6
+# layers fit the card, 60.28 GiB, but their 45.21 GiB checkpoint not the
+# disk).
+MOE_TRAIN_LAYERS = 5
 # (c): the f32 gradient at full width, 2 layers, 2 x 256, card against CPU
 # (in the child process, after the hybrid's) within TRAIN_GRAD_TOL, after
 # every layer's expert ids and keep mask were found equal; these leaves
 # seeded (the reference's init zeros them)
 MOE_GRAD_LAYERS, MOE_GRAD_BATCH, MOE_GRAD_SEQ = 2, 2, 256
 MOE_SEEDED = ("ln1", "ln2", "final_norm", "bq", "bk", "bv")
+# (f): the restart at full width and this many layers (at 2 it took 50-77
+# s of the run's budget; one layer runs the same loop and checkpoints)
+MOE_RESTART_LAYERS = 1
 # (b): the dispatch's backward against autograd through torch.gather in
 # f32, within this of the largest magnitude (sums of K = 4 terms in
 # another order)
 MOE_DISPATCH_TOL = 1e-6
+# The VLM's training (phase 19): llava-next-34b at full width (d 7168, 56
+# / 8 heads of 128, d_ff 20480, vocab 64000, 2880 patches of 1024) and
+# VLM_TRAIN_LAYERS of its 60 layers through the port's make_train_step
+# and TrainLoop, built as launch.train.train builds them (its command line
+# feeds no patches, as the reference's does not).  A layer is 557,856,768
+# f32 leaves; the embedding, the head, vision_proj (1024 x 7168) and the
+# final norm 924,851,200 more (``vlm_leaves``).  At 6 layers that is
+# 4,271,991,808 leaves, 63.66 GiB of masters, gradients and AdamW moments
+# at 16 B a leaf (5 layers 55.34 GiB, 7 layers 71.97 GiB, which leaves
+# under 8 GiB for activations and a layer's bf16 casts; full depth's
+# 34,396,257,280 leaves 512.5 GiB).  Two rows a step, laid out as the
+# reference's train cell (``launch/specs.py::input_specs`` at
+# ``SHAPES["train_4k"]``): 2880 patches, then 1216 tokens.  6 layers fit
+# the card (67.0-67.1 GiB at the peak) but their 47.74 GiB checkpoint not
+# ``RUN_DISK_GIB``, so the cell runs 5: 3,714,135,040 leaves, 55.34 GiB of
+# state, a 41.51 GiB checkpoint.
+VLM_TRAIN_LAYERS = 5
+VLM_FULL_LEAVES = 34_396_257_280
+VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 2, 4096
+# (c): the f32 gradient at full width, 2 layers, vocab 4096, one row of the
+# 2880 patches and 128 tokens (1,181,780,992 leaves, 4.40 GiB a copy), card
+# against CPU (in the child process, after the MoE's) within
+# TRAIN_GRAD_TOL; these leaves seeded (the reference's init zeros them)
+VLM_GRAD_LAYERS, VLM_GRAD_VOCAB, VLM_GRAD_TOKENS = 2, 4096, 128
+VLM_SEEDED = ("ln1", "ln2", "final_norm")
 # (b): the linear scan's backward against autograd through the plain scan,
 # each gradient within this of its largest magnitude
 SCAN_BWD_TOL = 1e-5
@@ -1841,11 +1923,12 @@ def device_time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(torch, fn, name, reps, tries=3):
+def kernel_device_ms(torch, fn, name, reps, tries=6):
     """Device milliseconds a launch of the kernel whose name holds
     ``name``, from ``torch.profiler`` over ``reps`` calls of ``fn`` (one
     launch each) after one untimed call.  A window whose trace lost a
-    launch's record is profiled again, up to ``tries`` windows."""
+    launch's record is profiled again, up to ``tries`` windows (a chain
+    kernel's trace has lost a record in three windows in a row)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2943,9 +3026,10 @@ def _numel(tree):
 
 
 def hybrid_phase(torch):
-    """recurrentgemma-9b at full width on the card, random weights from
-    seed 0: (a) the f32 decode of token 2101 against prefill(2101), past
-    the window; (b) a 4096-token bf16 ``Model.loss``; (c) ReferenceEngine
+    """recurrentgemma-9b at full width and ``HYB_LAYERS`` of its 38 layers
+    on the card, random weights from seed 0: (a) the f32 decode of token
+    2101 against prefill(2101), past the window; (b) a 4096-token bf16
+    ``Model.loss``; (c) ReferenceEngine
     serving 8 requests in bf16, then one more batch under the profiler.
     The kernel counters are zeroed just before (b) and read just after
     (c): the path's launches."""
@@ -2956,16 +3040,18 @@ def hybrid_phase(torch):
     from repro_torch.kernels.linear_scan import linear_scan_kernel
     from repro_torch.nn import Model, get_config
     from repro_torch.runtime.serve import ReferenceEngine, Request
-    cfg = get_config(HYB_ARCH)
+    cfg = dataclasses.replace(get_config(HYB_ARCH), n_layers=HYB_LAYERS)
     n_units, rem = divmod(cfg.n_layers, 3)
     n_scan, n_flash = 2 * n_units + rem, n_units      # per forward
     t0 = time.perf_counter()
     params = Model(cfg, device="cuda").init(0)
     torch.cuda.synchronize()
     n = _numel(params)
-    print(f"{HYB_ARCH} params: {n:,} (f32 masters, "
+    print(f"{HYB_ARCH} cut to {HYB_LAYERS} of 38 layers to keep the run "
+          f"within its time budget: params {n:,} (f32 masters, "
           f"{n * 4 / 2**30:.2f} GiB), init {time.perf_counter()-t0:.2f} s")
-    check(n == HYB_PARAMS, f"{n} parameters, the reference has {HYB_PARAMS}")
+    check(n == HYB_PARAMS, f"{n} parameters, the reference has {HYB_PARAMS} "
+                           f"at {HYB_LAYERS} layers")
 
     def counts():
         return {"linear_scan": linear_scan_kernel.launches,
@@ -3509,7 +3595,8 @@ def numpy_route(probs, K, C):
 
 def moe_phase(torch):
     """The MoE family on the card: the kernels at its new shapes, then
-    qwen2-moe-a2.7b at full width and depth, random weights from seed 0
+    qwen2-moe-a2.7b at full width and ``MOE_SERVE_LAYERS`` of its 24
+    layers, random weights from seed 0
     ((a) init and counts; (b) ServeEngine on three routes; (c) the
     routing of the first prefill dispatch's layer 0 against numpy; (d)
     ReferenceEngine; (e) one Model.loss), (f) the int8-PoT engine at 8 of
@@ -3530,18 +3617,22 @@ def moe_phase(torch):
         for k, v in n.items():
             launches[k] += v
 
-    # (a) init at full width and depth in f32, then bf16 once
-    cfg = get_config(MOE_ARCH)
+    # (a) init at full width and MOE_SERVE_LAYERS in f32, then bf16 once
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = Model(cfg, device="cuda").init(0)
     torch.cuda.synchronize()
     n = _numel(params)
-    print(f"{MOE_ARCH} params: {n:,} (f32 masters {n * 4 / 2**30:.2f} GiB, "
-          f"init {time.perf_counter() - t0:.2f} s); params_count() "
-          f"{cfg.params_count():,}, active_params_count() "
-          f"{cfg.active_params_count():,} [{CARD}]")
-    check(n == MOE_PARAMS, f"{n} parameters, the reference has {MOE_PARAMS}")
+    print(f"{MOE_ARCH} cut to {cfg.n_layers} of {full.n_layers} layers to "
+          f"keep the run within its time budget: params {n:,} (f32 masters "
+          f"{n * 4 / 2**30:.2f} GiB, init {time.perf_counter() - t0:.2f} "
+          f"s); params_count() {cfg.params_count():,}, "
+          f"active_params_count() {cfg.active_params_count():,} [{CARD}]")
+    check(n == moe_leaves(cfg) and moe_leaves(full) == MOE_PARAMS,
+          f"{n} parameters, by the reference's shapes {moe_leaves(cfg)}; "
+          f"full depth {moe_leaves(full)}, the reference has {MOE_PARAMS}")
     spec = serving_spec(cfg.vocab)
     moe_routes_f32(torch, cfg, params, spec, MOE_ARCH)
     torch.cuda.reset_peak_memory_stats()
@@ -3664,7 +3755,7 @@ def moe_phase(torch):
     params = Model(qcfg, device="cuda").init(0)
     torch.cuda.synchronize()
     n = _numel(params)
-    print(f"{MOE_ARCH} cut to {MOE_QUANT_LAYERS} of {cfg.n_layers} layers "
+    print(f"{MOE_ARCH} cut to {MOE_QUANT_LAYERS} of {full.n_layers} layers "
           f"for int8-PoT: {n:,} params ({n * 4 / 2**30:.2f} GiB f32), init "
           f"{time.perf_counter()-t0:.2f} s")
     check(n == MOE_QUANT_PARAMS,
@@ -3860,9 +3951,10 @@ def wkv6_kernel_readings(torch):
 
 
 def rwkv_phase(torch):
-    """rwkv6-3b at full width and depth on the card, random weights from
-    seed 0: (b) the f32 decode of token 2101 against prefill(2101); the
-    int8-PoT engine built from the f32 masters, then one cast to bf16; (c)
+    """rwkv6-3b at full width and ``RWKV_LAYERS`` of its 32 layers on the
+    card, random weights from seed 0: (b) the f32 decode of token 2101
+    against prefill(2101); the int8-PoT engine built from the f32 masters,
+    then one cast to bf16; (c)
     a bf16 8 x 1024 ``Model.loss``; (d) ReferenceEngine serving the hybrid
     phase's 8 prompts; (e) the int8-PoT engine on them; (f) one more bf16
     batch under the profiler.  The wkv6 counter is zeroed just before (c)
@@ -3873,18 +3965,19 @@ def rwkv_phase(torch):
     from repro_torch.kernels.wkv6 import wkv6_kernel
     from repro_torch.nn import Model, get_config
     from repro_torch.runtime.serve import ReferenceEngine, Request
-    cfg = get_config(RWKV_ARCH)
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), n_layers=RWKV_LAYERS)
     L = cfg.n_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = Model(cfg, device="cuda").init(0)
     torch.cuda.synchronize()
     n = _numel(params)
-    print(f"{RWKV_ARCH} params: {n:,} (f32 masters {n * 4 / 2**30:.2f} GiB, "
+    print(f"{RWKV_ARCH} cut to {L} of 32 layers to keep the run within its "
+          f"time budget: params {n:,} (f32 masters {n * 4 / 2**30:.2f} GiB, "
           f"init {time.perf_counter() - t0:.2f} s); params_count() "
           f"{cfg.params_count():,} [{CARD}]")
     check(n == RWKV_PARAMS, f"{n} parameters, the reference has "
-                            f"{RWKV_PARAMS}")
+                            f"{RWKV_PARAMS} at {L} layers")
 
     # (b) f32 decode vs prefill
     m32 = Model(dataclasses.replace(cfg, dtype="float32"), device="cuda")
@@ -4397,10 +4490,11 @@ def vlm_kernel_readings(torch):
 
 
 def vlm_phase(torch):
-    """llava-next-34b at full width and 16 of its 60 layers on the card,
-    random weights from seed 0 and seeded patch embeddings: (b) the f32
-    decode of token 65 after a prefill of the patches and 64 tokens (k
-    and v padded to the context) against a prefill of the patches and 65;
+    """llava-next-34b at full width and ``VLM_LAYERS`` of its 60 layers on
+    the card, random weights from seed 0 and seeded patch embeddings: (b)
+    the f32 decode of token 65 after a prefill of the patches and 64
+    tokens (k and v padded to the context) against a prefill of the
+    patches and 65;
     the int8-PoT tree from the f32 masters, then one cast to bf16; (c) a
     bf16 2 x 1024 ``Model.loss`` after the 2880 patches of each row; (d) a
     greedy loop through ``prefill`` / ``decode_step``, bf16 and int8-PoT;
@@ -4796,10 +4890,23 @@ def dense_launcher(torch, arch):
     return {"paged_gather": n["pairs"], "paged_attention": n["attention"]}
 
 
+def dense_leaves(cfg):
+    """The leaves of ``Model(cfg).init`` for a dense config, by its shapes:
+    per layer the attention (with the QKV bias where the config has it),
+    the gated MLP and two norms; the embedding, the head and the final
+    norm once."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    if cfg.qkv_bias:
+        attn += (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    return cfg.n_layers * (attn + 3 * d * f + 2 * d) + 2 * cfg.vocab * d + d
+
+
 def dense_phase(torch):
-    """The dense configs on the card, each at full width and depth with
-    random weights from seed 0, alone and freed before the next: (b) init
-    (the reference's leaf count), ``ServeEngine`` in f32 on the fused and
+    """The dense configs on the card, each at full width and
+    ``DENSE_SERVE_LAYERS`` (half its depth) with random weights from seed
+    0, alone and freed before the next: (b) init (the reference's leaf
+    count by its shapes), ``ServeEngine`` in f32 on the fused and
     take/dense routes (equal greedy tokens), the int8-PoT
     ``ReferenceEngine`` from the f32 masters, one cast to bf16; (c)
     ``ServeEngine`` in bf16 on three routes (``dense_routes``); (d)
@@ -4808,7 +4915,9 @@ def dense_phase(torch):
     the int8-PoT ``ReferenceEngine`` run on qwen2.5-3b alone (G = 8, the
     layout new to the tensor-core route), to keep the run's time; the
     other two run the fused route with its counts, ``ReferenceEngine``,
-    the loss and the launcher.  Returns the path's launches."""
+    the loss and the launcher (at full depth).  Returns the path's
+    launches."""
+    import dataclasses
     from repro_torch.nn import Model, get_config
     from repro_torch.runtime.serve import ReferenceEngine
     launches = {"paged_gather": 0, "paged_attention": 0,
@@ -4820,7 +4929,8 @@ def dense_phase(torch):
 
     for i, arch in enumerate(DENSE_ARCHS):
         t_arch = time.perf_counter()
-        cfg = get_config(arch)
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=DENSE_SERVE_LAYERS[arch])
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = Model(cfg, device="cuda").init(0)
@@ -4828,13 +4938,16 @@ def dense_phase(torch):
         n = _numel(params)
         print(f"{arch} params: {n:,} (f32 masters {n * 4 / 2**30:.2f} GiB, "
               f"init {time.perf_counter() - t0:.2f} s); params_count() "
-              f"{cfg.params_count():,}; {cfg.n_layers} layers, heads "
-              f"{cfg.n_heads} / {cfg.n_kv_heads} of {cfg.head_dim_}, "
-              f"rope theta {cfg.rope_theta:g}, QKV bias {cfg.qkv_bias} "
-              f"[{CARD}]")
-        check(n == DENSE_PARAMS[arch],
-              f"{arch}: {n} parameters, the reference has "
-              f"{DENSE_PARAMS[arch]}")
+              f"{cfg.params_count():,}; cut to {cfg.n_layers} of "
+              f"{full.n_layers} layers to keep the run within its time "
+              f"budget, heads {cfg.n_heads} / {cfg.n_kv_heads} of "
+              f"{cfg.head_dim_}, rope theta {cfg.rope_theta:g}, QKV bias "
+              f"{cfg.qkv_bias} [{CARD}]")
+        check(n == dense_leaves(cfg)
+              and dense_leaves(full) == DENSE_PARAMS[arch],
+              f"{arch}: {n} parameters, by the reference's shapes "
+              f"{dense_leaves(cfg)}; full depth {dense_leaves(full)}, the "
+              f"reference has {DENSE_PARAMS[arch]}")
         spec = serving_spec(cfg.vocab)
         moe_routes_f32(torch, cfg, params, spec, arch)
         qeng = None
@@ -4889,6 +5002,20 @@ def flash_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, offset,
                + 4 * B * Hq * Sq) / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def bwd_inputs(torch, seed):
+    """``inputs(shape, dt)``: q, k, v and dout at ``shape`` (B, S, Hq, Hkv,
+    D) in ``dt`` from a card generator seeded with ``seed``, as
+    ``bwd_agreement`` and ``flash_bwd_timing`` take them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def inputs(shape, dt):
+        B, S, Hq, Hkv, D = shape
+        return [torch.randn(s, generator=gen, device="cuda", dtype=dt)
+                for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                          (B, S, Hq, D))]
+    return inputs
 
 
 def bwd_agreement(torch, name, shape, dt, inputs, window=0):
@@ -4975,13 +5102,7 @@ def train_kernel_readings(torch):
         check(not any(spills), f"flash_attention_bwd {fn} spills: {lines}")
     check(len(ptxas) == 25, f"flash_attention_bwd: {len(ptxas)} "
                             f"instantiations in ptxas's log, not 25")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def inputs(shape, dt):
-        B, S, Hq, Hkv, D = shape
-        return [torch.randn(s, generator=gen, device="cuda", dtype=dt)
-                for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
-                          (B, S, Hq, D))]
+    inputs = bwd_inputs(torch, 0)
 
     shapes = {"qwen2-0.5b loss": (8, 1024, 14, 2, 64),
               "D = 128 GQA 8:1 loss": (8, 1024, 16, 2, 128)}
@@ -5158,6 +5279,29 @@ def flash_bwd_timing(torch, inputs, shape, window=0):
             "bound_ms": bound_ms, "bound_by": bound_by, "sets": len(sets)}
 
 
+def grads_card_vs_cpu(label, params, cpu_grads, card_grads):
+    """Each leaf's largest difference between its gradient on the card
+    and on the CPU, over the CPU's largest magnitude, computed on the card
+    a leaf at a time; fails where one passes ``TRAIN_GRAD_TOL``.  Returns
+    (the worst ratio, its leaf's path, every leaf's path)."""
+    from repro_torch.tree import flatten_with_path
+    worst, worst_path, names = 0.0, None, []
+    for (path, _), c, g in zip(flatten_with_path(params), cpu_grads,
+                               card_grads):
+        name = "/".join(map(str, path))
+        names.append(name)
+        c = c.to(g.device)
+        rel = (g - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_path = rel, name
+        check(rel <= TRAIN_GRAD_TOL, f"{label} gradient {name}: card vs CPU "
+              f"{rel:.3e} of its largest")
+    check(len(names) == len(cpu_grads) == len(card_grads),
+          f"{label}: {len(names)} leaves, {len(cpu_grads)} CPU gradients, "
+          f"{len(card_grads)} card gradients")
+    return worst, worst_path, names
+
+
 def train_grad_check(torch):
     """Phase 15 (b): the f32 ``Model.loss`` gradient of qwen2-0.5b at full
     width and 2 layers (norms and biases seeded), B = 2, S = 256: the
@@ -5196,14 +5340,8 @@ def train_grad_check(torch):
                  flash_attention_bwd_kernel.launches - b0)
         secs[dev] = time.perf_counter() - t0
         losses[dev] = float(loss.detach())
-    worst = 0.0
-    for (path, _), c, g in zip(flatten_with_path(params), grads["cpu"],
-                               grads["cuda"]):
-        rel = (g.cpu() - c).abs().max().item() / max(c.abs().max().item(),
-                                                     1e-30)
-        worst = max(worst, rel)
-        check(rel <= TRAIN_GRAD_TOL, f"train gradient {'/'.join(path)}: "
-              f"card vs CPU {rel:.3e} of the largest magnitude")
+    worst, _, _ = grads_card_vs_cpu("train (b)", params, grads["cpu"],
+                                    grads["cuda"])
     rel_loss = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     print(f"train (b): f32 Model.loss gradient, {TRAIN_ARCH} full width, 2 "
           f"layers, 2 x 256: loss card {losses['cuda']!r} CPU "
@@ -5358,10 +5496,10 @@ def train_profile(torch):
 
 
 def train_restart_check(torch, arch=TRAIN_ARCH, label="train (d)",
-                        exact=False):
+                        exact=False, layers=2):
     """Phase 15 (d) (and 18 (f), ``arch`` qwen2-moe-a2.7b): ``TrainLoop``
-    restart at ``arch``'s full width, 2 layers, vocab 4096 (bf16 on f32
-    masters), with ``torch.use_deterministic_algorithms`` on
+    restart at ``arch``'s full width, ``layers`` layers, vocab 4096 (bf16
+    on f32 masters), with ``torch.use_deterministic_algorithms`` on
     (``CUBLAS_WORKSPACE_CONFIG`` was set before the first cuBLAS call):
     ``RESTART_STEPS`` steps, a checkpoint every 4, a failure injected at
     step ``RESTART_FAIL``; every final leaf, params and optimizer state,
@@ -5377,7 +5515,7 @@ def train_restart_check(torch, arch=TRAIN_ARCH, label="train (d)",
     from repro_torch.runtime.step import make_train_step
     from repro_torch.runtime.train import TrainConfig, TrainLoop
     from repro_torch.tree import leaves, tree_map
-    cfg = dataclasses.replace(get_config(arch), n_layers=2,
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               vocab=RESTART_VOCAB)
     m = Model(cfg, device="cuda")
     params = m.init(0)
@@ -5429,8 +5567,8 @@ def train_restart_check(torch, arch=TRAIN_ARCH, label="train (d)",
                  for a, b in zip(*ends)]
     else:
         equal = [torch.equal(a, b) for a, b in zip(*ends)]
-    print(f"{label}: TrainLoop restart, {arch} full width, 2 layers, vocab "
-          f"{RESTART_VOCAB}, {RESTART_STEPS} steps, failure at step "
+    print(f"{label}: TrainLoop restart, {arch} full width, {layers} layers, "
+          f"vocab {RESTART_VOCAB}, {RESTART_STEPS} steps, failure at step "
           f"{RESTART_FAIL}, {mode}: {restarts} restart, {sum(equal)} of "
           f"{len(equal)} final leaves equal to the uninterrupted run's "
           f"[{CARD}]")
@@ -5777,7 +5915,7 @@ def rwkv_train_grad_check(torch):
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels.wkv6 import wkv6_bwd_kernel, wkv6_kernel
     from repro_torch.nn import Model, get_config
-    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    from repro_torch.tree import leaves, tree_map
     cfg = dataclasses.replace(get_config(RWKV_ARCH), n_layers=2,
                               dtype="float32")
     params = Model(cfg, device="cpu").init(0)
@@ -5797,15 +5935,8 @@ def rwkv_train_grad_check(torch):
             n = (wkv6_kernel.launches - f0, wkv6_bwd_kernel.launches - b0)
         secs[dev] = time.perf_counter() - t0
         losses[dev] = float(loss.detach())
-    worst, worst_path = 0.0, None
-    for (path, _), c, g in zip(flatten_with_path(params), grads["cpu"],
-                               grads["cuda"]):
-        rel = (g.cpu() - c).abs().max().item() / max(c.abs().max().item(),
-                                                     1e-30)
-        if rel > worst:
-            worst, worst_path = rel, "/".join(path)
-        check(rel <= TRAIN_GRAD_TOL, f"rwkv train gradient "
-              f"{'/'.join(path)}: card vs CPU {rel:.3e} of its largest")
+    worst, worst_path, _ = grads_card_vs_cpu(
+        "train_rwkv (b)", params, grads["cpu"], grads["cuda"])
     rel_loss = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     print(f"train_rwkv (b): f32 Model.loss gradient, {RWKV_ARCH} full width, "
           f"2 layers, 2 x 256, seeded u / mu / cm_mu / ln_x / w0: loss card "
@@ -5990,13 +6121,7 @@ def hybrid_bwd_readings(torch):
     serial = build.build_log("flash_attention_bwd").count("C7515")
     print(f"flash_attention_bwd: ptxas reports {serial} kernels whose wgmma "
           f"are serialized (C7515)")
-    gen = torch.Generator(device="cuda").manual_seed(17)
-
-    def inputs(shape, dt):
-        B, S, Hq, Hkv, D = shape
-        return [torch.randn(s, generator=gen, device="cuda", dtype=dt)
-                for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
-                          (B, S, Hq, D))]
+    inputs = bwd_inputs(torch, 17)
 
     W = 2048                                   # the config's local_window
     cases = [("train cell", (HYB_TRAIN_BATCH, HYB_TRAIN_SEQ, 16, 1, 256), W),
@@ -6144,11 +6269,11 @@ def hybrid_grad_inputs(torch):
     return cfg, params, batch
 
 
-def hybrid_cpu_reference(path):
+def hybrid_cpu_reference():
     """(c)'s CPU side, run in the child process (``cpu_references``)
     while the card works on the earlier phases: the f32 loss and its
     gradient through the plain versions, without remat (the same
-    arithmetic, a fifth less work), saved to ``path``."""
+    arithmetic, a fifth less work)."""
     import dataclasses
     import torch
     from repro_torch.nn import Model
@@ -6159,65 +6284,84 @@ def hybrid_cpu_reference(path):
     loss, _ = Model(dataclasses.replace(cfg, remat=False),
                     device="cpu").loss(live, batch)
     grads = torch.autograd.grad(loss, leaves(live))
-    torch.save({"loss": float(loss.detach()), "grads": list(grads),
-                "secs": time.perf_counter() - t0}, path + ".part")
-    os.replace(path + ".part", path)
-    return 0
+    return {"loss": float(loss.detach()), "grads": list(grads),
+            "secs": time.perf_counter() - t0}
 
 
-def cpu_references(tmp, names):
-    """The child process's work: each named CPU reference in turn, each
-    into ``tmp/<name>.pt``, each tree freed before the next is built."""
+def _as_arrays(obj):
+    """``obj`` (dicts and lists walked) with every tensor as numpy."""
+    if isinstance(obj, dict):
+        return {k: _as_arrays(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_as_arrays(v) for v in obj]
+    return obj.numpy() if hasattr(obj, "numpy") else obj
+
+
+def _as_tensors(torch, obj):
+    """``obj`` (dicts and lists walked) with every numpy array as a
+    tensor."""
+    if isinstance(obj, dict):
+        return {k: _as_tensors(torch, v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_as_tensors(torch, v) for v in obj]
+    return torch.from_numpy(obj) if isinstance(obj, np.ndarray) else obj
+
+
+def cpu_references(names):
+    """The child process's work: each named CPU reference in turn (each
+    tree freed before the next is built), its result held in memory; then,
+    for each name read from stdin, that result pickled to stdout.  Nothing
+    goes to the disk, whose writes the machine caps, and which the
+    training phases' checkpoints need; the child's prints go to stderr."""
+    import pickle
     import torch
+    out, sys.stdout = sys.stdout.buffer, sys.stderr
     torch.set_num_threads(HYB_CPU_THREADS)
+    results = {}
     for name in names:
-        CPU_REFERENCES[name](os.path.join(tmp, f"{name}.pt"))
+        results[name] = _as_arrays(CPU_REFERENCES[name]())
         gc.collect()
+    for line in sys.stdin:
+        pickle.dump(results.pop(line.strip()), out, protocol=5)
+        out.flush()
     return 0
 
 
-def start_cpu_references(names=("hybrid", "moe")):
+def start_cpu_references(names=("hybrid", "moe", "vlm")):
     """Start ``cpu_references`` for ``names`` in a child process (no card,
-    its own threads) into a temporary directory; it is stopped and the
-    directory removed when this process exits.  Returns (process,
-    directory)."""
+    its own threads), stopped when this process exits.  Returns the
+    process."""
     import atexit
-    import shutil
-    import tempfile
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cpu_reference_")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS=str(HYB_CPU_THREADS))
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             CPU_REFERENCE_FLAG, tmp, *names], env=env)
+                             CPU_REFERENCE_FLAG, *names], env=env,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE)
 
     def stop():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
     atexit.register(stop)
-    return proc, tmp
+    return proc
 
 
-def wait_cpu_reference(reference, name):
-    """The saved result of the child's ``name`` reference, once written
-    (the file appears whole, by a rename), with the seconds waited for it
-    under ``"waited"``; fails if the child exits without it.  The file is
-    removed after loading."""
+def wait_cpu_reference(proc, name):
+    """The child's ``name`` reference (``start_cpu_references``), asked for
+    on its stdin and read from its stdout, with the seconds it took under
+    ``"waited"`` (the child answers once it has computed every reference);
+    fails if the child exits without it."""
+    import pickle
     import torch
-    proc, tmp = reference
-    path = os.path.join(tmp, f"{name}.pt")
     t0 = time.perf_counter()
-    while not os.path.exists(path):
-        rc = proc.poll()
-        if rc is not None and not os.path.exists(path):
-            check(False, f"the CPU reference {name}: the child exited with "
-                         f"{rc} without it")
-        time.sleep(0.5)
-    waited = time.perf_counter() - t0
-    out = torch.load(path)
-    os.unlink(path)
-    return dict(out, waited=waited)
+    try:
+        proc.stdin.write(f"{name}\n".encode())
+        proc.stdin.flush()
+        out = pickle.load(proc.stdout)
+    except (BrokenPipeError, EOFError, pickle.UnpicklingError) as e:
+        check(False, f"the CPU reference {name}: the child exited with "
+                     f"{proc.poll()} without it ({type(e).__name__})")
+    return dict(_as_tensors(torch, out), waited=time.perf_counter() - t0)
 
 
 def hybrid_train_grad_check(torch, reference):
@@ -6230,7 +6374,7 @@ def hybrid_train_grad_check(torch, reference):
     ``hybrid_cpu_reference`` in the child process started with the run),
     each leaf within ``TRAIN_GRAD_TOL`` of its largest magnitude."""
     from repro_torch.nn import Model
-    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    from repro_torch.tree import leaves, tree_map
     cpu = wait_cpu_reference(reference, "hybrid")
     waited = cpu["waited"]
     cfg, params, batch = hybrid_grad_inputs(torch)
@@ -6242,16 +6386,8 @@ def hybrid_train_grad_check(torch, reference):
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     n = tuple(b - a for a, b in zip(n0, hybrid_counters()))
-    worst, worst_path = 0.0, None
-    for (path_, _), c, g in zip(flatten_with_path(params), cpu["grads"],
-                                grads):
-        name = "/".join(map(str, path_))
-        rel = (g.cpu() - c).abs().max().item() / max(c.abs().max().item(),
-                                                     1e-30)
-        if rel > worst:
-            worst, worst_path = rel, name
-        check(rel <= TRAIN_GRAD_TOL, f"hybrid train gradient {name}: card "
-              f"vs CPU {rel:.3e} of its largest")
+    worst, worst_path, _ = grads_card_vs_cpu(
+        "train_hybrid (c)", params, cpu["grads"], grads)
     card_loss = float(loss.detach())
     rel_loss = abs(card_loss - cpu["loss"]) / abs(cpu["loss"])
     want = hybrid_step_launches(cfg, 1)
@@ -6452,13 +6588,7 @@ def moe_bwd_readings(torch):
     bf16 (``bwd_agreement``), two calls bit-identical; in bf16 timed beside
     its bound, autograd through the plain version and
     ``scaled_dot_product_attention``'s backward.  Returns the reading."""
-    gen = torch.Generator(device="cuda").manual_seed(18)
-
-    def inputs(shape, dt):
-        B, S, Hq, Hkv, D = shape
-        return [torch.randn(s, generator=gen, device="cuda", dtype=dt)
-                for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
-                          (B, S, Hq, D))]
+    inputs = bwd_inputs(torch, 18)
 
     shape = (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
     reading = {"shape": list(shape)}
@@ -6599,13 +6729,13 @@ def recorded_routes(keep_on_device=False):
         blocks.moe_route = route
 
 
-def _seed_moe_leaves(torch, params):
-    """Overwrite the ``MOE_SEEDED`` leaves (zeros in the reference's init)
-    with seeded values."""
+def _seed_leaves(torch, params, names):
+    """Overwrite the leaves named in ``names`` (zeros in the reference's
+    init) with seeded values."""
     from repro_torch.tree import flatten_with_path
     rng = np.random.default_rng(0)
     for path, leaf in flatten_with_path(params):
-        if path[-1] in MOE_SEEDED:
+        if path[-1] in names:
             leaf.copy_(torch.from_numpy(rng.normal(
                 0.0, 0.3, tuple(leaf.shape)).astype(np.float32)))
 
@@ -6619,16 +6749,16 @@ def moe_grad_inputs(torch):
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_GRAD_LAYERS,
                               dtype="float32")
     params = Model(cfg, device="cpu").init(0)
-    _seed_moe_leaves(torch, params)
+    _seed_leaves(torch, params, MOE_SEEDED)
     batch = TokenPipeline(vocab=cfg.vocab, seq_len=MOE_GRAD_SEQ,
                           global_batch=MOE_GRAD_BATCH, seed=0).batch(0)
     return cfg, params, batch
 
 
-def moe_cpu_reference(path):
+def moe_cpu_reference():
     """(c)'s CPU side, in the child process after the hybrid's: the f32
     loss, its gradient through the plain versions without remat, and each
-    layer's expert ids and keep mask, saved to ``path``."""
+    layer's expert ids and keep mask."""
     import dataclasses
     import torch
     from repro_torch.nn import Model
@@ -6640,11 +6770,9 @@ def moe_cpu_reference(path):
         loss, _ = Model(dataclasses.replace(cfg, remat=False),
                         device="cpu").loss(live, batch)
     grads = torch.autograd.grad(loss, leaves(live))
-    torch.save({"loss": float(loss.detach()), "grads": list(grads),
-                "routes": [r[:2] for r in routes],
-                "secs": time.perf_counter() - t0}, path + ".part")
-    os.replace(path + ".part", path)
-    return 0
+    return {"loss": float(loss.detach()), "grads": list(grads),
+            "routes": [r[:2] for r in routes],
+            "secs": time.perf_counter() - t0}
 
 
 def moe_train_grad_check(torch, reference):
@@ -6659,7 +6787,7 @@ def moe_train_grad_check(torch, reference):
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_kernel, flash_attention_kernel)
     from repro_torch.nn import Model
-    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    from repro_torch.tree import leaves, tree_map
     cpu = wait_cpu_reference(reference, "moe")
     waited = cpu["waited"]
     cfg, params, batch = moe_grad_inputs(torch)
@@ -6689,16 +6817,8 @@ def moe_train_grad_check(torch, reference):
                           f"CPU by layer {flips}: they computed different "
                           f"functions")
     check(recompute, "train_moe (c): remat's recompute routed otherwise")
-    worst, worst_path = 0.0, None
-    for (path_, _), c, g in zip(flatten_with_path(params), cpu["grads"],
-                                grads):
-        name = "/".join(map(str, path_))
-        rel = (g.cpu() - c).abs().max().item() / max(c.abs().max().item(),
-                                                     1e-30)
-        if rel > worst:
-            worst, worst_path = rel, name
-        check(rel <= TRAIN_GRAD_TOL, f"train_moe gradient {name}: card vs "
-              f"CPU {rel:.3e} of its largest")
+    worst, worst_path, _ = grads_card_vs_cpu(
+        "train_moe (c)", params, cpu["grads"], grads)
     card_loss = float(loss.detach())
     rel_loss = abs(card_loss - cpu["loss"]) / abs(cpu["loss"])
     print(f"train_moe (c): f32 Model.loss gradient, {MOE_ARCH} full width, "
@@ -6742,11 +6862,18 @@ def moe_train_launcher_run(torch):
     leaves_n = moe_leaves(cfg)
     check(moe_leaves(full) == MOE_PARAMS,
           f"train_moe (d): {moe_leaves(full)} leaves at full depth")
+    deeper = moe_leaves(dataclasses.replace(cfg, n_layers=cfg.n_layers + 1))
     print(f"train_moe (d): {MOE_ARCH} cut to {cfg.n_layers} of "
           f"{full.n_layers} layers, full width: {leaves_n:,} f32 leaves, "
           f"{16 * leaves_n / 2**30:.2f} GiB of masters, gradients and AdamW "
-          f"moments (full depth's {MOE_PARAMS:,} leaves: "
-          f"{16 * MOE_PARAMS / 2**30:.2f} GiB, more than the card)")
+          f"moments, a {12 * leaves_n / 2**30:.2f} GiB checkpoint (full "
+          f"depth's {MOE_PARAMS:,} leaves: {16 * MOE_PARAMS / 2**30:.2f} "
+          f"GiB, more than the card; {cfg.n_layers + 1} layers' checkpoint, "
+          f"{12 * deeper / 2**30:.2f} GiB, is more than the {RUN_DISK_GIB} "
+          f"GiB a run may keep on disk)")
+    check(12 * leaves_n / 2**30 < RUN_DISK_GIB < 12 * deeper / 2**30,
+          f"train_moe (d): {cfg.n_layers} layers is not the deepest cut "
+          f"whose checkpoint fits {RUN_DISK_GIB} GiB")
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     torch.cuda.reset_peak_memory_stats()
     flash_attention_kernel.launches = 0
@@ -6811,33 +6938,27 @@ def moe_train_launcher_run(torch):
         "checkpoint_gib": ckpt_bytes / 2**30}
 
 
-def moe_train_profile(torch):
-    """Phase 18 (e): at (d)'s configuration (the launcher's optimizer),
-    after one untimed step, the step's parts on synchronized host clocks
+def train_step_profile(torch, cfg, batch, label, extra=()):
+    """At ``cfg`` on the card with the launcher's optimizer, after one
+    untimed step on ``batch``: the step's parts on synchronized host clocks
     (forward, backward with remat's forward, AdamW), then one more step
-    under ``torch.profiler``: the device's busy share, its top kernels,
-    and the shares of the flash backward's kernels and of the gather and
-    scatter kernels (the dispatch's forward and backward gathers, the
-    combine's gather and its backward's scatter-add, the slot table)."""
-    import dataclasses
+    under ``torch.profiler``: the device's busy share, its top kernels, and
+    the shares of the flash kernels and of ``extra``'s ((part, a substring
+    of its kernels' names) pairs).  A step launches the flash forward twice
+    a layer (remat's recompute) and its backward once."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_kernel, flash_attention_kernel)
-    from repro_torch.nn import Model, get_config
+    from repro_torch.nn import Model
     from repro_torch.optim.adamw import AdamW, cosine_schedule
     from repro_torch.runtime.step import make_train_step
     from repro_torch.tree import leaves, tree_map
-    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
     m = Model(cfg, device="cuda")
     params = m.init(0)
     opt = AdamW(lr=3e-4, schedule=cosine_schedule(3e-4, 20, 100))
     state = opt.init(params)
     step = make_train_step(m, opt)
-    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                         global_batch=TRAIN_BATCH)
-    batch = {k: torch.as_tensor(v, device="cuda")
-             for k, v in pipe.batch(0).items()}
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
     params, state, _ = step(params, state, batch)
     torch.cuda.synchronize()
     parts = {}
@@ -6866,17 +6987,16 @@ def moe_train_profile(torch):
         wall = time.perf_counter() - t0
     n = (flash_attention_kernel.launches - n0[0],
          flash_attention_bwd_kernel.launches - n0[1])
-    busy, by_name = report_profile(prof, wall * 1e6, "one qwen2-moe-a2.7b "
+    busy, by_name = report_profile(prof, wall * 1e6, f"one {cfg.name} "
                                    f"train step, {cfg.n_layers} layers", 14)
     shares = {part: tuple(map(sum, zip((0.0, 0), *(
         v for k, v in by_name.items() if name in k))))
         for part, name in (("flash forward", "flash_attention_wgmma_kernel"),
                            ("flash backward dq", FLASH_BWD_KERNELS["dq"]),
                            ("flash backward dk/dv",
-                            FLASH_BWD_KERNELS["dkdv"]),
-                           ("gather and scatter", "scatter_gather"))}
+                            FLASH_BWD_KERNELS["dkdv"]), *extra)}
     total = sum(parts.values())
-    print(f"train_moe (e): the step's parts on synchronized host clocks: "
+    print(f"{label}: the step's parts on synchronized host clocks: "
           + ", ".join(f"{k} {v*1e3:.1f} ms ({100 * v / total:.1f} %)"
                       for k, v in parts.items())
           + f"; profiled step {wall*1e3:.1f} ms, device busy "
@@ -6887,11 +7007,26 @@ def moe_train_profile(torch):
           + f"; flash launches {n} [{CARD}]")
     check(n == (2 * cfg.n_layers, cfg.n_layers)
           and all(k > 0 for _, k in shares.values()),
-          f"train_moe (e): launches {n}, profiled kernels {shares}")
+          f"{label}: launches {n}, profiled kernels {shares}")
     return {"parts_ms": {k: v * 1e3 for k, v in parts.items()},
             "profiled_step_ms": wall * 1e3, "busy_ms": busy / 1e3,
             "busy_share": busy / (wall * 1e6),
             "shares": {p: t / busy for p, (t, _) in shares.items()}}
+
+
+def moe_train_profile(torch):
+    """Phase 18 (e): ``train_step_profile`` at (d)'s configuration and
+    batch, with the share of the gather and scatter kernels (the
+    dispatch's forward and backward gathers, the combine's gather and its
+    backward's scatter-add, the slot table)."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.nn import get_config
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH).batch(0)
+    return train_step_profile(torch, cfg, batch, "train_moe (e)",
+                              (("gather and scatter", "scatter_gather"),))
 
 
 def moe_train_phase(torch, reference):
@@ -6919,7 +7054,10 @@ def moe_train_phase(torch, reference):
     torch.cuda.empty_cache()
     print(f"train_moe (e): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    train_restart_check(torch, MOE_ARCH, "train_moe (f)", exact=True)
+    print(f"train_moe (f): the restart cut to {MOE_RESTART_LAYERS} layer "
+          f"to keep the run within its time budget")
+    train_restart_check(torch, MOE_ARCH, "train_moe (f)", exact=True,
+                        layers=MOE_RESTART_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"train_moe (f): {time.perf_counter() - t0:.2f} s")
@@ -6929,7 +7067,319 @@ def moe_train_phase(torch, reference):
     return bwd, launches, figures
 
 
-CPU_REFERENCES = {"hybrid": hybrid_cpu_reference, "moe": moe_cpu_reference}
+def vlm_leaves(cfg):
+    """The leaves of ``Model(cfg).init`` for a VLM config, by its shapes:
+    the dense decoder's (``dense_leaves``) and ``vision_proj`` (1024, d)."""
+    return dense_leaves(cfg) + 1024 * cfg.d_model
+
+
+class VlmBatches:
+    """A VLM's batches laid out as the reference's train cell
+    (``launch/specs.py::input_specs``): ``TokenPipeline``'s tokens and
+    labels of ``seq - n_patches`` positions after patch embeddings
+    ``(batch, n_patches, 1024)``, drawn in f32 from a numpy generator
+    seeded by (seed, step).  Deterministic in the step, so a restarted
+    loop replays the stream; the model casts the patches to its dtype."""
+
+    def __init__(self, vocab, batch, seq, n_patches, seed=0):
+        from repro_torch.data.tokens import TokenPipeline
+        self.text = TokenPipeline(vocab=vocab, seq_len=seq - n_patches,
+                                  global_batch=batch, seed=seed)
+        self.n_patches, self.seed = n_patches, seed
+
+    def batch(self, step):
+        out = self.text.batch(step)
+        rng = np.random.default_rng((self.seed, step))
+        out["patch_embeds"] = rng.standard_normal(
+            (self.text.local_batch, self.n_patches, 1024), dtype=np.float32)
+        return out
+
+
+def vlm_train_loop(cfg, pipe, *, steps, ckpt_dir, lr=3e-4, log_every=1,
+                   failure_hook=None, device="cuda"):
+    """The VLM's training loop built as ``launch.train.train`` builds one,
+    with ``pipe`` (a ``VlmBatches``) in place of its ``TokenPipeline``:
+    ``cfg`` from seed 0, AdamW on a cosine schedule (20 warm-up steps) with
+    ``cfg.opt_state_dtype`` moments, ``make_train_step``, ``TrainLoop``;
+    run to ``steps`` and returned."""
+    from repro_torch.nn import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime.step import make_train_step
+    from repro_torch.runtime.train import TrainConfig, TrainLoop
+    model = Model(cfg, device=device)
+    params = model.init(0)
+    opt = AdamW(lr=lr, state_dtype=cfg.opt_state_dtype,
+                schedule=cosine_schedule(lr, 20, steps))
+    state = opt.init(params)
+    loop = TrainLoop(TrainConfig(total_steps=steps, ckpt_every=100,
+                                 ckpt_dir=ckpt_dir, log_every=log_every),
+                     make_train_step(model, opt), pipe,
+                     failure_hook=failure_hook)
+    del model
+    loop.run(params, state)
+    return loop
+
+
+def vlm_bwd_readings(torch):
+    """Phase 19 (a): row 4b at llava-next-34b's train cell, (2, 4096, 56 /
+    8 heads of 128), GQA 7:1, causal, before the model's state is on the
+    card (autograd through the plain version holds several (2, 56, 4096,
+    4096) f32 tensors): through ``FlashAttention`` against autograd
+    through the plain version, f32 and bf16 (``bwd_agreement``), two calls
+    bit-identical, the peak memory printed; in bf16 timed beside its bound,
+    autograd through the plain version and SDPA's backward
+    (``flash_bwd_timing``); the forward with lse and without it timed
+    beside its bound, the plain version and SDPA (``flash_timing``).
+    Returns the reading, the forward's under ``"forward"``."""
+    from repro_torch.kernels.flash_attention import (KEY_TILE,
+                                                     flash_attention_kernel)
+    inputs = bwd_inputs(torch, 19)
+    shape = (VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, 56, 8, 128)
+    reading = {"shape": list(shape)}
+    for dt in (torch.float32, torch.bfloat16):
+        torch.cuda.reset_peak_memory_stats()
+        reading.update(bwd_agreement(torch, "VLM train cell", shape, dt,
+                                     inputs))
+        key = str(dt).replace("torch.", "")
+        reading[f"{key}_check_peak_gib"] = peak = \
+            torch.cuda.max_memory_allocated() / 2**30
+        print(f"train_vlm (a): {key} check's peak memory {peak:.2f} GiB")
+        gc.collect()
+        torch.cuda.empty_cache()
+    reading.update(flash_bwd_timing(torch, inputs, shape))
+    B, S, Hq, Hkv, D = shape
+    kw = dict(causal=True, offset=0, bk=KEY_TILE)
+    fwd = flash_timing(torch, lambda s, dt: inputs(shape, dt)[:3],
+                       (B, S, S, Hq, Hkv, D), kw, 2, torch.bfloat16)
+    sets = [inputs(shape, torch.bfloat16)[:3] for _ in range(fwd["sets"])]
+    fwd["with_lse_ms"], _ = time_calls(
+        torch, lambda q, k, v: flash_attention_kernel(q, k, v, lse=True,
+                                                      **kw), sets, 2)
+    del sets
+    print(f"train_vlm (a): flash forward {shape} bf16: "
+          f"{fwd['with_lse_ms']*1e3:.2f} us with lse, {fwd['ms']*1e3:.2f} "
+          f"us without, bound {fwd['bound_ms']*1e3:.2f} us "
+          f"({fwd['bound_by']}), plain {fwd['plain_ms']*1e3:.2f} us, "
+          f"scaled_dot_product_attention {fwd['library_ms']*1e3:.2f} us "
+          f"[{CARD}]")
+    reading["forward"] = fwd
+    return reading
+
+
+def vlm_grad_inputs(torch):
+    """(c)'s config, parameters (on the CPU, from seed 0, the
+    ``VLM_SEEDED`` leaves seeded) and batch, the same in both processes."""
+    import dataclasses
+    from repro_torch.nn import Model, get_config
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_GRAD_LAYERS,
+                              vocab=VLM_GRAD_VOCAB, dtype="float32")
+    params = Model(cfg, device="cpu").init(0)
+    _seed_leaves(torch, params, VLM_SEEDED)
+    batch = VlmBatches(cfg.vocab, 1, cfg.n_patches + VLM_GRAD_TOKENS,
+                       cfg.n_patches).batch(0)
+    return cfg, params, batch
+
+
+def vlm_cpu_reference():
+    """(c)'s CPU side, in the child process after the MoE's: the f32 loss
+    and its gradient through the plain versions without remat."""
+    import dataclasses
+    import torch
+    from repro_torch.nn import Model
+    from repro_torch.tree import leaves, tree_map
+    t0 = time.perf_counter()
+    cfg, params, batch = vlm_grad_inputs(torch)
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = Model(dataclasses.replace(cfg, remat=False),
+                    device="cpu").loss(live, batch)
+    grads = torch.autograd.grad(loss, leaves(live))
+    return {"loss": float(loss.detach()), "grads": list(grads),
+            "secs": time.perf_counter() - t0}
+
+
+def vlm_train_grad_check(torch, reference):
+    """Phase 19 (c): the f32 ``Model.loss`` gradient of llava-next-34b at
+    full width, ``VLM_GRAD_LAYERS`` layers, vocab ``VLM_GRAD_VOCAB``, one
+    row of the 2880 patches and ``VLM_GRAD_TOKENS`` tokens, remat on, the
+    ``VLM_SEEDED`` leaves seeded: the card (flash forward and backward on
+    their f32 routes) against the CPU (``vlm_cpu_reference`` in the child
+    process), each leaf, ``vision_proj`` among them, within
+    ``TRAIN_GRAD_TOL`` of its largest magnitude."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.nn import Model
+    from repro_torch.tree import leaves, tree_map
+    cpu = wait_cpu_reference(reference, "vlm")
+    cfg, params, batch = vlm_grad_inputs(torch)
+    live = tree_map(lambda p: p.detach().to("cuda").requires_grad_(), params)
+    n0 = (flash_attention_kernel.launches,
+          flash_attention_bwd_kernel.launches)
+    t0 = time.perf_counter()
+    loss, _ = Model(cfg, device="cuda").loss(live, batch)
+    grads = torch.autograd.grad(loss, leaves(live))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    n = (flash_attention_kernel.launches - n0[0],
+         flash_attention_bwd_kernel.launches - n0[1])
+    worst, worst_path, names = grads_card_vs_cpu(
+        "train_vlm (c)", params, cpu["grads"], grads)
+    card_loss = float(loss.detach())
+    rel_loss = abs(card_loss - cpu["loss"]) / abs(cpu["loss"])
+    L = cfg.n_layers
+    print(f"train_vlm (c): f32 Model.loss gradient, {VLM_ARCH} full width, "
+          f"{L} layers, vocab {VLM_GRAD_VOCAB}, 1 x ({cfg.n_patches} patches "
+          f"+ {VLM_GRAD_TOKENS} tokens), seeded {'/'.join(VLM_SEEDED)}: loss "
+          f"card {card_loss!r} CPU {cpu['loss']!r} (rel {rel_loss:.3e}); "
+          f"every leaf of {len(names)} within {worst:.3e} of its largest "
+          f"magnitude ({worst_path}; <= {TRAIN_GRAD_TOL}); flash launches "
+          f"forward / backward {n[0]} / {n[1]}; CPU {cpu['secs']:.2f} s in "
+          f"the child process (waited {cpu['waited']:.2f} s for it here), "
+          f"card {card_s:.2f} s [{CARD}]")
+    check("vision_proj" in names, f"train_vlm (c): leaves {names}")
+    check(rel_loss <= 1e-5 and n == (2 * L, L),
+          f"train_vlm (c): loss rel {rel_loss}, flash launches {n}")
+    return {"worst_leaf_rel": worst, "loss_rel": rel_loss,
+            "cpu_s": cpu["secs"], "waited_s": cpu["waited"]}
+
+
+def vlm_train_run(torch):
+    """Phase 19 (d): llava-next-34b at full width and ``VLM_TRAIN_LAYERS``
+    of its 60 layers (the cut printed beside full depth's state) through
+    ``vlm_train_loop``: ``VLM_TRAIN_BATCH`` rows of 2880 patches and 1216
+    tokens a step, bf16 on f32 masters and f32 AdamW moments, remat a
+    layer, ``TRAIN_STEPS`` steps, the checkpoint into a temporary
+    directory, removed after.  The flash counters zeroed just before and
+    read just after (2 forward launches a layer and step, remat's
+    recompute among them, and 1 backward call); the first loss near ln V +
+    s2/2; every loss and grad norm finite, no restart; the step's time (its
+    median past the first), positions/s and text tokens/s, the 6 N D share
+    of the bf16 peak with N = ``params_count()`` and D the positions (the
+    reference's ``model_flops_for``), the peak memory and the checkpoint's
+    size.  Returns the launches and the figures."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.nn import get_config
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS)
+    leaves_n = vlm_leaves(cfg)
+    check(vlm_leaves(full) == VLM_FULL_LEAVES,
+          f"train_vlm (d): {vlm_leaves(full)} leaves at full depth")
+    deeper = vlm_leaves(dataclasses.replace(cfg, n_layers=cfg.n_layers + 1))
+    print(f"train_vlm (d): {VLM_ARCH} cut to {cfg.n_layers} of "
+          f"{full.n_layers} layers, full width: {leaves_n:,} f32 leaves, "
+          f"{16 * leaves_n / 2**30:.2f} GiB of masters, gradients and AdamW "
+          f"moments, a {12 * leaves_n / 2**30:.2f} GiB checkpoint (full "
+          f"depth's {VLM_FULL_LEAVES:,} leaves: "
+          f"{16 * VLM_FULL_LEAVES / 2**30:.1f} GiB, more than the card; "
+          f"{cfg.n_layers + 1} layers' checkpoint, "
+          f"{12 * deeper / 2**30:.2f} GiB, is more than the {RUN_DISK_GIB} "
+          f"GiB a run may keep on disk)")
+    check(12 * leaves_n / 2**30 < RUN_DISK_GIB < 12 * deeper / 2**30,
+          f"train_vlm (d): {cfg.n_layers} layers is not the deepest cut "
+          f"whose checkpoint fits {RUN_DISK_GIB} GiB")
+    P = cfg.n_patches
+    pipe = VlmBatches(cfg.vocab, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, P)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = 0
+    flash_attention_bwd_kernel.launches = 0
+    t0 = time.perf_counter()
+    try:
+        loop = vlm_train_loop(cfg, pipe, steps=TRAIN_STEPS, ckpt_dir=ckpt)
+        torch.cuda.synchronize()
+        n = (flash_attention_kernel.launches,
+             flash_attention_bwd_kernel.launches)
+        wall = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(ckpt) for f in fs)
+        saved = os.listdir(ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = [r for r in loop.metrics_log if "loss" in r]
+    for r in loop.metrics_log:
+        print(f"  train_vlm {r}")
+    steady = sorted(r["dt"] for r in recs[1:])
+    step_s = steady[len(steady) // 2]
+    positions = VLM_TRAIN_BATCH * VLM_TRAIN_SEQ
+    text = VLM_TRAIN_BATCH * (VLM_TRAIN_SEQ - P)
+    n_all = cfg.params_count()
+    mfu = 6 * n_all * positions / step_s / BF16_FLOPS
+    s2 = 0.02 ** 2 * cfg.d_model
+    expect = float(np.log(cfg.vocab)) + s2 / 2
+    want = (2 * cfg.n_layers * TRAIN_STEPS, cfg.n_layers * TRAIN_STEPS)
+    print(f"train_vlm (d): {VLM_ARCH} full width, {cfg.n_layers} layers, "
+          f"through make_train_step and TrainLoop, {VLM_TRAIN_BATCH} x "
+          f"({P} patches + {VLM_TRAIN_SEQ - P} tokens) bf16, {TRAIN_STEPS} "
+          f"steps: step {step_s*1e3:.2f} ms (median of steps "
+          f"1-{TRAIN_STEPS - 1}; step 0 {recs[0]['dt']*1e3:.2f} ms), "
+          f"{positions / step_s:,.0f} positions/s, {text / step_s:,.0f} text "
+          f"tokens/s, 6 N D {100 * mfu:.2f} % of {BF16_FLOPS / 1e12:.0f} "
+          f"TFLOP/s (N = params_count() = {n_all:,}, D = {positions} "
+          f"positions); loss {recs[0]['loss']:.4f} -> {recs[-1]['loss']:.4f} "
+          f"(step 0 expected ln V + s2/2 = {expect:.4f}); peak memory "
+          f"{peak:.3f} GiB; launches flash forward {n[0]}, backward {n[1]}; "
+          f"{loop.restarts} restarts; checkpoint {saved} "
+          f"{ckpt_bytes / 2**30:.3f} GiB, removed; {wall:.2f} s with init "
+          f"and the checkpoint [{CARD}]")
+    check(len(recs) == TRAIN_STEPS and loop.restarts == 0 and all(
+        np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+        for r in recs), f"train_vlm (d): records {loop.metrics_log}")
+    check(abs(recs[0]["loss"] - expect) <= 0.2,
+          f"train_vlm (d): first loss {recs[0]['loss']} far from {expect}")
+    check(n == want, f"train_vlm (d): launches {n}, not {want}")
+    check(saved == [f"step_{TRAIN_STEPS - 1}"],
+          f"train_vlm (d): checkpoint directory held {saved}")
+    return {"flash_attention": n[0], "flash_attention_bwd": n[1]}, {
+        "layers": cfg.n_layers, "leaves": leaves_n, "step_ms": step_s * 1e3,
+        "positions_per_s": positions / step_s,
+        "text_tokens_per_s": text / step_s, "mfu_6nd": mfu,
+        "peak_gib": peak, "losses": [r["loss"] for r in recs],
+        "checkpoint_gib": ckpt_bytes / 2**30}
+
+
+def vlm_train_profile(torch):
+    """Phase 19 (e): ``train_step_profile`` at (d)'s configuration and
+    first batch."""
+    import dataclasses
+    from repro_torch.nn import get_config
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_TRAIN_LAYERS)
+    batch = VlmBatches(cfg.vocab, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ,
+                       cfg.n_patches).batch(0)
+    return train_step_profile(torch, cfg, batch, "train_vlm (e)")
+
+
+def vlm_train_phase(torch, reference):
+    """Phase 19, the VLM's training: (a), (d), (e), then (c), whose CPU
+    side (``reference``, from ``start_cpu_references``) has had the run to
+    finish.  Returns the flash reading at the train cell, the launches of
+    (d), the main path, and the figures of (c)-(e)."""
+    t0 = time.perf_counter()
+    bwd = vlm_bwd_readings(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_vlm (a): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches, figures = vlm_train_run(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_vlm (d): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    figures["profile"] = vlm_train_profile(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_vlm (e): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    figures["grad_check"] = vlm_train_grad_check(torch, reference)
+    print(f"train_vlm (c): {time.perf_counter() - t0:.2f} s")
+    return bwd, launches, figures
+
+
+CPU_REFERENCES = {"hybrid": hybrid_cpu_reference, "moe": moe_cpu_reference,
+                  "vlm": vlm_cpu_reference}
 
 
 def main() -> int:
@@ -6956,7 +7406,8 @@ def main() -> int:
     build.build(sources)
     print(f"build: {time.perf_counter()-t0:.2f} s "
           f"({', '.join(n + '.cu' for n in sources)}, in parallel)")
-    # phases 17 (c)'s and 18 (c)'s CPU sides run beside the card's phases
+    # phases 17 (c)'s, 18 (c)'s and 19 (c)'s CPU sides run beside the
+    # card's phases
     cpu_reference = start_cpu_references()
     for name in sources:
         for fn, line in ptxas_lines(build.build_log(name)):
@@ -7007,7 +7458,7 @@ def main() -> int:
     t0 = time.perf_counter()
     mixed_launches, mixed_run = mixed_phase(torch)
     print(f"mixed phase: {time.perf_counter()-t0:.2f} s")
-    del eng, spec, mixed_run            # the hybrid's 35.66 GiB need room
+    del eng, spec, mixed_run            # the hybrid's 22.49 GiB need room
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -7070,6 +7521,12 @@ def main() -> int:
     moe_bwd, moe_train_launches, moe_train_figures = moe_train_phase(
         torch, cpu_reference)
     print(f"train_moe phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vlm_bwd, vlm_train_launches, vlm_train_figures = vlm_train_phase(
+        torch, cpu_reference)
+    print(f"train_vlm phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
@@ -7082,6 +7539,7 @@ def main() -> int:
                "train_rwkv": rwkv_train_launches,
                "train_hybrid": hyb_train_launches,
                "train_moe": moe_train_launches,
+               "train_vlm": vlm_train_launches,
                "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
@@ -7103,7 +7561,10 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name, n in moe_train_launches.items():
         launches[name] += n
+    for name, n in vlm_train_launches.items():
+        launches[name] += n
     launches["qmatmul"] = qm_launches
+    vlm_fwd = vlm_bwd.pop("forward")
     launches["wkv6"] = rwkv_launches["wkv6"] + rwkv_train_launches["wkv6"]
     launches["wkv6_bwd"] = rwkv_train_launches["wkv6_bwd"]
     for k in kernels:
@@ -7124,12 +7585,15 @@ def main() -> int:
             k["audio_shapes"] = audio_readings
             k["vlm_shapes"] = vlm_readings
             k["forward_lse"] = bwd_row.pop("forward_lse")
+            k["vlm_train_cell"] = vlm_fwd
         if k["name"] == "flash_attention_bwd":
             k["train_step"] = train_figures
             k["hybrid_shapes"] = hyb_bwd
             k["train_hybrid_step"] = hyb_train_figures
             k["mha_shapes"] = {"moe train cell": moe_bwd}
             k["train_moe_step"] = moe_train_figures
+            k["vlm_train_cell"] = vlm_bwd
+            k["train_vlm_step"] = vlm_train_figures
         if k["name"] == "linear_scan":
             k["backward"] = scan_bwd
             k["backward_calls"] = hyb_train_launches[
@@ -7146,5 +7610,5 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [CPU_REFERENCE_FLAG]:
         sys.path.insert(0, os.path.join(HERE, "src"))
-        sys.exit(cpu_references(sys.argv[2], sys.argv[3:]))
+        sys.exit(cpu_references(sys.argv[2:]))
     sys.exit(main())

@@ -8,6 +8,7 @@ f32, so the contraction is the reference's up to summation order.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,14 +31,24 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return x * inv * (1.0 + scale)
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(half: int, theta: float, device: torch.device):
+    """exp(-i ln(theta) / half) for i < half in f32, computed on the CPU
+    and moved to ``device``.  The card's ``expf`` and the CPU's differ in
+    the last bit for some i, and at position p that ulp moves the angle p
+    times as far (2e-4 of q's and k's largest at p ~ 3000), so every device
+    rotates by the one table."""
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32)
+                      * (math.log(theta) / half))
+    return freqs.to(device)
+
+
 def rope(x, positions, theta: float = 1e4):
     """Rotary embedding in f32, cast back.  x: (..., S, H, D), positions:
     (..., S)."""
     d = x.shape[-1]
     half = d // 2
-    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device)
-                      * (math.log(theta) / half))
+    freqs = _rope_freqs(half, theta, x.device)
     ang = positions[..., :, None].to(torch.float32) * freqs   # (..., S, half)
     cos = torch.cos(ang)[..., None, :]                        # over heads
     sin = torch.sin(ang)[..., None, :]
