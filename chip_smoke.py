@@ -445,7 +445,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``VLM_TRAIN_LAYERS`` (5) of 60 layers at full width (the cut printed
    beside full depth's state and the checkpoint one more layer would
    write) through ``make_train_step`` and ``TrainLoop`` built as the train
-   launcher builds them, on ``VlmBatches`` (2 rows of 2880 patches and
+   launcher builds them, on ``SpecBatches`` (2 rows of 2880 patches and
    1216 tokens a step, the reference's train-cell layout; the launcher
    feeds no patches), bf16 on f32 masters and f32 AdamW moments, remat a
    layer, 6 steps, the flash counters zeroed just before and read just
@@ -455,10 +455,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the peak memory, the checkpoint written and removed; (e) the step's
    parts on synchronized host clocks and one step under
    ``torch.profiler``: busy share, top kernels, the flash kernels'
-   shares.  The CPU sides of
-   phases 17-19 (c) come from the child process through a pipe, and no
-   training checkpoint shares the disk with another: a run may keep
-   ``RUN_DISK_GIB`` on disk at once.
+   shares.
+20. Audio training, last: whisper-base at full width and depth (6
+   encoder and 6 decoder layers, 109,749,248 leaves), on ``SpecBatches``
+   at the train cell's layout (``launch/specs.py::input_specs`` at
+   ``SHAPES["train_4k"]``: 4096 tokens and 1500 frames a row). (a) The
+   flash backward at whisper's three training layouts, 16 rows, 8 / 8
+   heads of 64 -- encoder (1500, non-causal), decoder (4096, causal),
+   cross (4096 against 1500, non-causal) --, against autograd through the
+   plain version, f32 and bf16, bit-identical on repeat, timed beside its
+   bound, the plain version and SDPA's backward, and the forward beside
+   SDPA; (c) one step's peak at 16 rows picks the run's rows (32 where it
+   stays under ``AUD_TRAIN_PEAK_GIB``), then ``make_train_step`` and
+   ``TrainLoop`` built as the train launcher builds them (it feeds no
+   frames), bf16 on f32 masters, remat a layer, ``AUD_TRAIN_STEPS``
+   steps, 36 flash forward launches and 18 backward calls a step (6
+   encoder, 6 decoder, 6 cross, each recomputed once), the loss finite
+   and falling, the step's time, tokens/s, the 6 N D share, the peak, the
+   checkpoint written and removed; (e) a profiled step: busy share, the
+   flash kernels' shares; (d) ``TrainLoop``'s restart on ``SpecBatches``:
+   every final leaf and every step's loss equal to an uninterrupted run's;
+   (b) the f32 gradient at full width, depth and vocabulary, one row of
+   512 tokens and 1500 frames, every norm seeded, card against CPU within
+   ``TRAIN_GRAD_TOL``.  The CPU sides of phases 17-19 (c) and 20 (b) come
+   from the child process through a pipe, each as soon as it is computed,
+   and no training checkpoint shares the disk with another: a run may
+   keep ``RUN_DISK_GIB`` on disk at once.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Needs one CUDA card; without one it exits non-zero and prints no
@@ -711,6 +733,31 @@ VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 2, 4096
 # TRAIN_GRAD_TOL; these leaves seeded (the reference's init zeros them)
 VLM_GRAD_LAYERS, VLM_GRAD_VOCAB, VLM_GRAD_TOKENS = 2, 4096, 128
 VLM_SEEDED = ("ln1", "ln2", "final_norm")
+# The audio family's training (phase 20): whisper-base at full width and
+# depth (6 encoder and 6 decoder layers, d 512, 8 / 8 heads of 64, d_ff
+# 2048, vocab 51865): AUD_PARAMS f32 leaves (``audio_leaves``), 1.64 GiB
+# of masters, gradients and AdamW moments, a 1.23 GiB checkpoint.  Neither
+# train launcher feeds frames, so it trains through make_train_step and
+# TrainLoop built as launch.train.train builds them, on ``SpecBatches``
+# at the train cell's layout (``SHAPES["train_4k"]``: 4096 tokens and
+# 1500 frames a row).  AUD_TRAIN_BATCH rows a step, raised to
+# AUD_TRAIN_BATCH_MAX where one step's peak at AUD_TRAIN_BATCH stays under
+# AUD_TRAIN_PEAK_GIB (the loss's saved f32 logits, 4 x 51865 B a
+# position, set the peak: 12.7 GiB at 16 rows).  AUD_TRAIN_STEPS steps:
+# the schedule warms up over 20, so step 0 runs at lr 0 and the loss has
+# a dozen steps to fall.
+AUD_TRAIN_BATCH, AUD_TRAIN_BATCH_MAX, AUD_TRAIN_PEAK_GIB = 16, 32, 45
+AUD_TRAIN_STEPS = 12
+# (b): the f32 gradient at full width, depth and vocabulary, one row of
+# AUD_GRAD_TOKENS tokens and the 1500 frames, card against CPU (in the
+# child process, after the VLM's) within TRAIN_GRAD_TOL; every norm
+# seeded (the reference's init zeros them, which would hide a swapped
+# norm)
+AUD_GRAD_TOKENS = 512
+AUD_SEEDED = ("ln1", "ln2", "ln_x", "enc_norm", "final_norm")
+# (d): the restart at full width and depth, AUD_RESTART_BATCH rows of the
+# train cell's layout a step, phase 15 (d)'s steps and failure
+AUD_RESTART_BATCH = 2
 # (b): the linear scan's backward against autograd through the plain scan,
 # each gradient within this of its largest magnitude
 SCAN_BWD_TOL = 1e-5
@@ -5004,23 +5051,33 @@ def flash_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, offset,
                                        else "operations")
 
 
+def bwd_shape(shape):
+    """A backward reading's ``shape`` as (B, Sq, Skv, Hq, Hkv, D): (B, S,
+    Hq, Hkv, D) is self-attention, Sq = Skv = S."""
+    if len(shape) == 5:
+        B, S, Hq, Hkv, D = shape
+        return B, S, S, Hq, Hkv, D
+    return tuple(shape)
+
+
 def bwd_inputs(torch, seed):
-    """``inputs(shape, dt)``: q, k, v and dout at ``shape`` (B, S, Hq, Hkv,
-    D) in ``dt`` from a card generator seeded with ``seed``, as
+    """``inputs(shape, dt)``: q, k, v and dout at ``shape`` (``bwd_shape``)
+    in ``dt`` from a card generator seeded with ``seed``, as
     ``bwd_agreement`` and ``flash_bwd_timing`` take them."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def inputs(shape, dt):
-        B, S, Hq, Hkv, D = shape
+        B, Sq, Skv, Hq, Hkv, D = bwd_shape(shape)
         return [torch.randn(s, generator=gen, device="cuda", dtype=dt)
-                for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
-                          (B, S, Hq, D))]
+                for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D),
+                          (B, Sq, Hq, D))]
     return inputs
 
 
-def bwd_agreement(torch, name, shape, dt, inputs, window=0):
+def bwd_agreement(torch, name, shape, dt, inputs, window=0, causal=True):
     """The flash backward through ``FlashAttention`` (``ops.flash_attention``
-    under grad, causal, ``window``) at ``shape`` (B, S, Hq, Hkv, D) in
+    under grad, ``causal``, ``window``, query row 0 at key position Skv -
+    Sq as the model's attention places it) at ``shape`` (``bwd_shape``) in
     ``dt`` against autograd through the plain version: f32 within
     ``BWD_F32_TOL`` of each gradient's largest magnitude, bf16 under
     ``bf16_grad_disagreement``; two calls bit-identical.  Returns the
@@ -5030,10 +5087,12 @@ def bwd_agreement(torch, name, shape, dt, inputs, window=0):
         BWD_BF16_MAX, BWD_BF16_MEAN, BWD_F32_TOL, KEY_TILE,
         bf16_grad_disagreement, flash_attention_plain)
     reading = {}
+    _, Sq, Skv = bwd_shape(shape)[:3]
+    kw = dict(causal=causal, window=window, offset=Skv - Sq)
 
     def kernel_grads(q, k, v, dout):
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-        out = ops.flash_attention(q, k, v, bk=512, offset=0, window=window)
+        out = ops.flash_attention(q, k, v, bk=512, **kw)
         return torch.autograd.grad(out, (q, k, v), dout)
 
     q, k, v, dout = inputs(shape, dt)
@@ -5041,8 +5100,7 @@ def bwd_agreement(torch, name, shape, dt, inputs, window=0):
     again = kernel_grads(q, k, v, dout)
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
     out = flash_attention_plain(
-        qq, kk, vv, offset=0, window=window,
-        bk=512 if dt == torch.float32 else KEY_TILE)
+        qq, kk, vv, bk=512 if dt == torch.float32 else KEY_TILE, **kw)
     want = torch.autograd.grad(out, (qq, kk, vv), dout)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -5066,7 +5124,8 @@ def bwd_agreement(torch, name, shape, dt, inputs, window=0):
     reading[f"{key}_max_abs_err"] = max(errs)
     reading[f"{key}_deterministic"] = same
     print(f"flash_attention_bwd {name} {shape}"
-          f"{f' window {window}' if window else ''} {key}: max abs err "
+          f"{f' window {window}' if window else ''}"
+          f"{'' if causal else ' non-causal'} {key}: max abs err "
           f"dq / dk / dv {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} "
           f"against autograd through the plain version ({tol}); two runs "
           f"bit-identical: {same}")
@@ -5163,9 +5222,10 @@ FLASH_BWD_KERNELS = {"dq": "flash_bwd_dq_wgmma_kernel",
                      "dkdv": "flash_bwd_dkdv_wgmma_kernel"}
 
 
-def sdpa_bwd_device_ms(torch, sets, reps, mask=None):
-    """``scaled_dot_product_attention``'s backward (is_causal, or ``mask``
-    as its boolean ``attn_mask``; enable_gqa) as device time: ``reps`` rounds of ``torch.autograd.grad`` over the
+def sdpa_bwd_device_ms(torch, sets, reps, mask=None, causal=True):
+    """``scaled_dot_product_attention``'s backward (``is_causal=causal``,
+    or ``mask`` as its boolean ``attn_mask``; enable_gqa) as device time:
+    ``reps`` rounds of ``torch.autograd.grad`` over the
     input sets (q, k, v, out, dout, lse), every kernel it launches (GQA's
     expand and sum included) timed by ``device_time_ms``; also the same
     calls timed eagerly with CUDA events (autograd's host time inside),
@@ -5175,7 +5235,7 @@ def sdpa_bwd_device_ms(torch, sets, reps, mask=None):
     from torch.nn.attention import SDPBackend
     from torch.profiler import ProfilerActivity, profile
     calls = []
-    sdpa = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+    sdpa = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
     for q, k, v, _, dout, _ in sets:
         lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
@@ -5200,9 +5260,10 @@ def sdpa_bwd_device_ms(torch, sets, reps, mask=None):
     return device_ms, eager_ms, backend, names
 
 
-def flash_bwd_timing(torch, inputs, shape, window=0):
-    """The backward's time in bf16 at ``shape`` (B, S, Hq, Hkv, D), causal
-    under ``window`` (SDPA takes it as a mask):
+def flash_bwd_timing(torch, inputs, shape, window=0, causal=True):
+    """The backward's time in bf16 at ``shape`` (``bwd_shape``), ``causal``
+    under ``window`` (SDPA takes it as a mask; query row 0 at key position
+    Skv - Sq):
     the kernels over input sets together twice the L2, each kernel's
     device time (``device_time_ms`` of its launches through the C entry
     point on the first set), autograd's backward through the plain version
@@ -5212,9 +5273,9 @@ def flash_bwd_timing(torch, inputs, shape, window=0):
     from repro_torch.kernels.flash_attention import (
         _bwd_entry, bwd_cluster, flash_attention_bwd_kernel,
         flash_attention_kernel, flash_attention_plain)
-    B, S, Hq, Hkv, D = shape
-    kw = dict(causal=True, window=window, kv_len=S, offset=0)
-    one = 2 * (4 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
+    B, Sq, S, Hq, Hkv, D = bwd_shape(shape)
+    kw = dict(causal=causal, window=window, kv_len=S, offset=S - Sq)
+    one = 2 * (4 * B * Sq * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * Sq
     sets = []
     for _ in range(max(2, -(-2 * L2_BYTES // one))):
         q, k, v, dout = inputs(shape, torch.bfloat16)
@@ -5226,7 +5287,7 @@ def flash_bwd_timing(torch, inputs, shape, window=0):
 
     ms, eager_ms = time_calls(torch, bwd, sets, 3)
     cluster = bwd_cluster(
-        B, S, S, Hq, Hkv, D, sms=torch.cuda.get_device_properties(0)
+        B, Sq, S, Hq, Hkv, D, sms=torch.cuda.get_device_properties(0)
         .multi_processor_count, **kw)
     # each kernel alone, launched as the wrapper launches it: dq (which
     # writes delta) first, then dk/dv
@@ -5239,14 +5300,15 @@ def flash_bwd_timing(torch, inputs, shape, window=0):
     def launch(which):
         build.check(lib, "flash_attention_bwd", fn(
             which, *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta)),
-            *(g.data_ptr() for g in grads), B, S, S, Hq, Hkv, D, S, 0, 1,
-            window, D ** -0.5, 1, cluster, stream))
+            *(g.data_ptr() for g in grads), B, Sq, S, Hq, Hkv, D, S,
+            S - Sq, int(causal), window, D ** -0.5, 1, cluster, stream))
 
     parts = {"dq": device_time_ms(torch, lambda: launch(2), 10),
              "dkdv": device_time_ms(torch, lambda: launch(1), 10)}
     del delta, grads
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-    out = flash_attention_plain(qq, kk, vv, offset=0, bk=64, window=window)
+    out = flash_attention_plain(qq, kk, vv, bk=64, causal=causal,
+                                window=window, offset=S - Sq)
     plain_ms = event_ms(torch, lambda: torch.autograd.grad(
         out, (qq, kk, vv), dout, retain_graph=True), 1)
     del out, qq, kk, vv
@@ -5256,12 +5318,13 @@ def flash_bwd_timing(torch, inputs, shape, window=0):
         mask = (pos[None, :] <= pos[:, None]) \
             & (pos[None, :] > pos[:, None] - window)
     lib_ms, lib_eager_ms, backend, lib_names = sdpa_bwd_device_ms(
-        torch, sets, 3, mask)
+        torch, sets, 3, mask, causal)
     del mask
-    bound_ms, bound_by = flash_bwd_bound_ms(B, S, S, Hq, Hkv, D, True,
-                                            window, 0, 2)
+    bound_ms, bound_by = flash_bwd_bound_ms(B, Sq, S, Hq, Hkv, D, causal,
+                                            window, S - Sq, 2)
     print(f"flash_attention_bwd {shape}"
-          f"{f' window {window}' if window else ''} bf16: {ms*1e3:.2f} us "
+          f"{f' window {window}' if window else ''}"
+          f"{'' if causal else ' non-causal'} bf16: {ms*1e3:.2f} us "
           f"on the card "
           f"({eager_ms*1e3:.2f} us per eager call; dq with delta / dk,dv "
           f"{parts['dq']*1e3:.2f} / {parts['dkdv']*1e3:.2f} us, clusters of "
@@ -5496,16 +5559,19 @@ def train_profile(torch):
 
 
 def train_restart_check(torch, arch=TRAIN_ARCH, label="train (d)",
-                        exact=False, layers=2):
+                        exact=False, layers=2, cfg=None, pipe=None):
     """Phase 15 (d) (and 18 (f), ``arch`` qwen2-moe-a2.7b): ``TrainLoop``
     restart at ``arch``'s full width, ``layers`` layers, vocab 4096 (bf16
-    on f32 masters), with ``torch.use_deterministic_algorithms`` on
+    on f32 masters), on 4 x 256 ``TokenPipeline`` batches -- or at
+    ``cfg`` on ``pipe`` where given (phase 20 (d)) --, with
+    ``torch.use_deterministic_algorithms`` on
     (``CUBLAS_WORKSPACE_CONFIG`` was set before the first cuBLAS call):
     ``RESTART_STEPS`` steps, a checkpoint every 4, a failure injected at
     step ``RESTART_FAIL``; every final leaf, params and optimizer state,
-    ``torch.equal`` to an uninterrupted run's.  Where an op refuses
-    deterministic algorithms the runs go again without them, the leaves
-    held to rtol 1e-6, or still ``torch.equal`` when ``exact``."""
+    and the loss of every step the restored run took, ``torch.equal`` to
+    an uninterrupted run's.  Where an op refuses deterministic algorithms
+    the runs go again without them, held to rtol 1e-6, or still exactly
+    when ``exact``."""
     import dataclasses
     import shutil
     import tempfile
@@ -5515,14 +5581,15 @@ def train_restart_check(torch, arch=TRAIN_ARCH, label="train (d)",
     from repro_torch.runtime.step import make_train_step
     from repro_torch.runtime.train import TrainConfig, TrainLoop
     from repro_torch.tree import leaves, tree_map
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
-                              vocab=RESTART_VOCAB)
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  vocab=RESTART_VOCAB)
+        pipe = TokenPipeline(vocab=cfg.vocab, seq_len=256, global_batch=4)
     m = Model(cfg, device="cuda")
     params = m.init(0)
     opt = AdamW(lr=1e-3)
     state = opt.init(params)
     step = make_train_step(m, opt)
-    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=256, global_batch=4)
     boom = {"armed": True}
 
     def failure_hook(s):
@@ -5531,16 +5598,23 @@ def train_restart_check(torch, arch=TRAIN_ARCH, label="train (d)",
             raise RuntimeError("simulated node failure")
 
     def runs():
+        """Each run's final leaves, then a tensor of each step's loss (the
+        restored run's last record of a step, which it took after the
+        restore), and the second run's restarts."""
         out, restarts = [], None
         for hook in (None, failure_hook):
             d = tempfile.mkdtemp(prefix="chip_smoke_restart_")
             try:
                 loop = TrainLoop(TrainConfig(
                     total_steps=RESTART_STEPS, ckpt_every=4, ckpt_dir=d,
-                    log_every=100), step, pipe, failure_hook=hook)
+                    log_every=1), step, pipe, failure_hook=hook)
                 p, o = loop.run(tree_map(torch.clone, params),
                                 tree_map(torch.clone, state))
-                out.append(leaves({"p": p, "o": o}))
+                losses = {r["step"]: r["loss"] for r in loop.metrics_log
+                          if "loss" in r}
+                out.append(leaves({"p": p, "o": o}) + [torch.tensor(
+                    [losses.get(i, float("nan"))
+                     for i in range(RESTART_STEPS)], dtype=torch.float64)])
                 restarts = loop.restarts
             finally:
                 shutil.rmtree(d, ignore_errors=True)
@@ -5567,11 +5641,15 @@ def train_restart_check(torch, arch=TRAIN_ARCH, label="train (d)",
                  for a, b in zip(*ends)]
     else:
         equal = [torch.equal(a, b) for a, b in zip(*ends)]
-    print(f"{label}: TrainLoop restart, {arch} full width, {layers} layers, "
-          f"vocab {RESTART_VOCAB}, {RESTART_STEPS} steps, failure at step "
-          f"{RESTART_FAIL}, {mode}: {restarts} restart, {sum(equal)} of "
-          f"{len(equal)} final leaves equal to the uninterrupted run's "
-          f"[{CARD}]")
+    print(f"{label}: TrainLoop restart, {cfg.name} full width, "
+          f"{cfg.n_layers} layers, vocab {cfg.vocab}, "
+          f"{getattr(pipe, 'text', pipe).local_batch} rows a "
+          f"step, {RESTART_STEPS} steps, failure at step {RESTART_FAIL}, "
+          f"{mode}: {restarts} restart, {sum(equal[:-1])} of "
+          f"{len(equal) - 1} final leaves and the losses of steps "
+          f"0-{RESTART_STEPS - 1} (last {ends[1][-1][-1].item()!r}) "
+          f"{'equal' if equal[-1] else 'NOT equal'} to the uninterrupted "
+          f"run's [{CARD}]")
     check(restarts == 1 and all(equal),
           f"{label}: restarts {restarts}, leaves equal {equal}")
 
@@ -6309,25 +6387,43 @@ def _as_tensors(torch, obj):
 
 def cpu_references(names):
     """The child process's work: each named CPU reference in turn (each
-    tree freed before the next is built), its result held in memory; then,
-    for each name read from stdin, that result pickled to stdout.  Nothing
-    goes to the disk, whose writes the machine caps, and which the
-    training phases' checkpoints need; the child's prints go to stderr."""
+    tree freed before the next is built), its result held in memory; a
+    thread answers each name read from stdin with that result pickled to
+    stdout as soon as it is computed, so a later reference delays no
+    earlier one.  Nothing goes to the disk, whose writes the machine caps,
+    and which the training phases' checkpoints need; the child's prints go
+    to stderr.  A reference that raises ends the child, and the parent
+    reads the end of its stdout."""
     import pickle
+    import threading
     import torch
     out, sys.stdout = sys.stdout.buffer, sys.stderr
     torch.set_num_threads(HYB_CPU_THREADS)
-    results = {}
+    results, ready = {}, threading.Condition()
+
+    def answer():
+        for line in sys.stdin:
+            name = line.strip()
+            with ready:
+                ready.wait_for(lambda: name in results)
+                result = results.pop(name)
+            pickle.dump(result, out, protocol=5)
+            out.flush()
+
+    server = threading.Thread(target=answer, daemon=True)
+    server.start()
     for name in names:
-        results[name] = _as_arrays(CPU_REFERENCES[name]())
+        result = _as_arrays(CPU_REFERENCES[name]())
+        with ready:
+            results[name] = result
+            ready.notify_all()
+        del result
         gc.collect()
-    for line in sys.stdin:
-        pickle.dump(results.pop(line.strip()), out, protocol=5)
-        out.flush()
+    server.join()
     return 0
 
 
-def start_cpu_references(names=("hybrid", "moe", "vlm")):
+def start_cpu_references(names=("hybrid", "moe", "vlm", "audio")):
     """Start ``cpu_references`` for ``names`` in a child process (no card,
     its own threads), stopped when this process exits.  Returns the
     process."""
@@ -6349,8 +6445,8 @@ def start_cpu_references(names=("hybrid", "moe", "vlm")):
 def wait_cpu_reference(proc, name):
     """The child's ``name`` reference (``start_cpu_references``), asked for
     on its stdin and read from its stdout, with the seconds it took under
-    ``"waited"`` (the child answers once it has computed every reference);
-    fails if the child exits without it."""
+    ``"waited"`` (the child answers once it has computed it); fails if the
+    child exits without it."""
     import pickle
     import torch
     t0 = time.perf_counter()
@@ -6938,14 +7034,15 @@ def moe_train_launcher_run(torch):
         "checkpoint_gib": ckpt_bytes / 2**30}
 
 
-def train_step_profile(torch, cfg, batch, label, extra=()):
+def train_step_profile(torch, cfg, batch, label, extra=(), want=None):
     """At ``cfg`` on the card with the launcher's optimizer, after one
     untimed step on ``batch``: the step's parts on synchronized host clocks
     (forward, backward with remat's forward, AdamW), then one more step
     under ``torch.profiler``: the device's busy share, its top kernels, and
     the shares of the flash kernels and of ``extra``'s ((part, a substring
     of its kernels' names) pairs).  A step launches the flash forward twice
-    a layer (remat's recompute) and its backward once."""
+    a layer (remat's recompute) and its backward once, or ``want`` (forward,
+    backward) times."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_kernel, flash_attention_kernel)
@@ -7005,7 +7102,7 @@ def train_step_profile(torch, cfg, batch, label, extra=()):
                       f"({100 * t / busy:.2f} % of busy)"
                       for p, (t, k) in shares.items())
           + f"; flash launches {n} [{CARD}]")
-    check(n == (2 * cfg.n_layers, cfg.n_layers)
+    check(n == (want or (2 * cfg.n_layers, cfg.n_layers))
           and all(k > 0 for _, k in shares.values()),
           f"{label}: launches {n}, profiled kernels {shares}")
     return {"parts_ms": {k: v * 1e3 for k, v in parts.items()},
@@ -7073,32 +7170,44 @@ def vlm_leaves(cfg):
     return dense_leaves(cfg) + 1024 * cfg.d_model
 
 
-class VlmBatches:
-    """A VLM's batches laid out as the reference's train cell
-    (``launch/specs.py::input_specs``): ``TokenPipeline``'s tokens and
-    labels of ``seq - n_patches`` positions after patch embeddings
-    ``(batch, n_patches, 1024)``, drawn in f32 from a numpy generator
+class SpecBatches:
+    """Batches of ``cfg`` laid out as the port's ``launch/specs.py::
+    input_specs`` of the train cell ``shape`` at ``batch`` rows (the
+    reference's layout): ``TokenPipeline``'s tokens and labels at the
+    specs' token length (a VLM's ``seq_len - n_patches``), then each
+    modality stub the specs hold (``patch_embeds`` (B, P, 1024), audio's
+    ``frames`` (B, n_frames, d_model)) drawn in f32 from a numpy generator
     seeded by (seed, step).  Deterministic in the step, so a restarted
-    loop replays the stream; the model casts the patches to its dtype."""
+    loop replays the stream; the model casts the stubs to its dtype."""
+    STUBS = ("patch_embeds", "frames")
 
-    def __init__(self, vocab, batch, seq, n_patches, seed=0):
+    def __init__(self, cfg, shape, batch, seed=0):
+        import dataclasses
         from repro_torch.data.tokens import TokenPipeline
-        self.text = TokenPipeline(vocab=vocab, seq_len=seq - n_patches,
+        from repro_torch.launch.specs import input_specs
+        self.specs = input_specs(
+            cfg, dataclasses.replace(shape, global_batch=batch),
+            with_labels=True)
+        self.text = TokenPipeline(vocab=cfg.vocab,
+                                  seq_len=self.specs["tokens"].shape[1],
                                   global_batch=batch, seed=seed)
-        self.n_patches, self.seed = n_patches, seed
+        self.seed = seed
 
     def batch(self, step):
         out = self.text.batch(step)
         rng = np.random.default_rng((self.seed, step))
-        out["patch_embeds"] = rng.standard_normal(
-            (self.text.local_batch, self.n_patches, 1024), dtype=np.float32)
+        for name in self.STUBS:
+            if name in self.specs:
+                out[name] = rng.standard_normal(
+                    tuple(self.specs[name].shape), dtype=np.float32)
         return out
 
 
-def vlm_train_loop(cfg, pipe, *, steps, ckpt_dir, lr=3e-4, log_every=1,
-                   failure_hook=None, device="cuda"):
-    """The VLM's training loop built as ``launch.train.train`` builds one,
-    with ``pipe`` (a ``VlmBatches``) in place of its ``TokenPipeline``:
+def spec_train_loop(cfg, pipe, *, steps, ckpt_dir, lr=3e-4, log_every=1,
+                    failure_hook=None, device="cuda"):
+    """The training loop of a VLM or audio config built as
+    ``launch.train.train`` builds one,
+    with ``pipe`` (a ``SpecBatches``) in place of its ``TokenPipeline``:
     ``cfg`` from seed 0, AdamW on a cosine schedule (20 warm-up steps) with
     ``cfg.opt_state_dtype`` moments, ``make_train_step``, ``TrainLoop``;
     run to ``steps`` and returned."""
@@ -7171,12 +7280,14 @@ def vlm_grad_inputs(torch):
     ``VLM_SEEDED`` leaves seeded) and batch, the same in both processes."""
     import dataclasses
     from repro_torch.nn import Model, get_config
+    from repro_torch.nn.types import ShapeSpec
     cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_GRAD_LAYERS,
                               vocab=VLM_GRAD_VOCAB, dtype="float32")
     params = Model(cfg, device="cpu").init(0)
     _seed_leaves(torch, params, VLM_SEEDED)
-    batch = VlmBatches(cfg.vocab, 1, cfg.n_patches + VLM_GRAD_TOKENS,
-                       cfg.n_patches).batch(0)
+    batch = SpecBatches(cfg, ShapeSpec("vlm grad", cfg.n_patches
+                                       + VLM_GRAD_TOKENS, 1, "train"),
+                        1).batch(0)
     return cfg, params, batch
 
 
@@ -7245,7 +7356,7 @@ def vlm_train_grad_check(torch, reference):
 def vlm_train_run(torch):
     """Phase 19 (d): llava-next-34b at full width and ``VLM_TRAIN_LAYERS``
     of its 60 layers (the cut printed beside full depth's state) through
-    ``vlm_train_loop``: ``VLM_TRAIN_BATCH`` rows of 2880 patches and 1216
+    ``spec_train_loop``: ``VLM_TRAIN_BATCH`` rows of 2880 patches and 1216
     tokens a step, bf16 on f32 masters and f32 AdamW moments, remat a
     layer, ``TRAIN_STEPS`` steps, the checkpoint into a temporary
     directory, removed after.  The flash counters zeroed just before and
@@ -7262,6 +7373,7 @@ def vlm_train_run(torch):
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_kernel, flash_attention_kernel)
     from repro_torch.nn import get_config
+    from repro_torch.nn.types import SHAPES
     full = get_config(VLM_ARCH)
     cfg = dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS)
     leaves_n = vlm_leaves(cfg)
@@ -7281,14 +7393,14 @@ def vlm_train_run(torch):
           f"train_vlm (d): {cfg.n_layers} layers is not the deepest cut "
           f"whose checkpoint fits {RUN_DISK_GIB} GiB")
     P = cfg.n_patches
-    pipe = VlmBatches(cfg.vocab, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, P)
+    pipe = SpecBatches(cfg, SHAPES["train_4k"], VLM_TRAIN_BATCH)
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     torch.cuda.reset_peak_memory_stats()
     flash_attention_kernel.launches = 0
     flash_attention_bwd_kernel.launches = 0
     t0 = time.perf_counter()
     try:
-        loop = vlm_train_loop(cfg, pipe, steps=TRAIN_STEPS, ckpt_dir=ckpt)
+        loop = spec_train_loop(cfg, pipe, steps=TRAIN_STEPS, ckpt_dir=ckpt)
         torch.cuda.synchronize()
         n = (flash_attention_kernel.launches,
              flash_attention_bwd_kernel.launches)
@@ -7346,9 +7458,9 @@ def vlm_train_profile(torch):
     first batch."""
     import dataclasses
     from repro_torch.nn import get_config
+    from repro_torch.nn.types import SHAPES
     cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_TRAIN_LAYERS)
-    batch = VlmBatches(cfg.vocab, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ,
-                       cfg.n_patches).batch(0)
+    batch = SpecBatches(cfg, SHAPES["train_4k"], VLM_TRAIN_BATCH).batch(0)
     return train_step_profile(torch, cfg, batch, "train_vlm (e)")
 
 
@@ -7378,8 +7490,333 @@ def vlm_train_phase(torch, reference):
     return bwd, launches, figures
 
 
+def audio_leaves(cfg):
+    """The leaves of ``Model(cfg).init`` for an audio config, by its
+    shapes: per encoder layer the attention (with the QKV bias where the
+    config has it), the gated MLP and two norms; per decoder layer two
+    attentions (self and cross), the MLP and three norms; the embedding,
+    the head, the encoder's and the final norm once."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    if cfg.qkv_bias:
+        attn += (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    return (cfg.n_enc_layers * (attn + 3 * d * f + 2 * d)
+            + cfg.n_layers * (2 * attn + 3 * d * f + 3 * d)
+            + 2 * cfg.vocab * d + 2 * d)
+
+
+def audio_bwd_readings(torch):
+    """Phase 20 (a): row 4b at whisper-base's three training layouts,
+    ``AUD_TRAIN_BATCH`` rows, 8 / 8 heads of 64 -- the encoder's
+    self-attention (1500 x 1500, non-causal), the decoder's (4096, causal)
+    and the cross-attention (4096 queries against 1500 frames, non-causal,
+    query row 0 at key position 1500 - 4096 as the model places it; 1500 =
+    23 x 64 + 28 ends in a ragged key tile) -- before the model's state is
+    on the card: through ``FlashAttention`` against autograd through the
+    plain version, f32 and bf16 (``bwd_agreement``), two calls
+    bit-identical; in bf16 timed beside its bound, autograd through the
+    plain version and SDPA's backward (``flash_bwd_timing``); the forward
+    timed beside its bound, the plain version and SDPA (``flash_timing``).
+    Returns {layout: reading}, each with its forward's under
+    ``"forward"``."""
+    from repro_torch.kernels.flash_attention import KEY_TILE
+    from repro_torch.nn import get_config
+    from repro_torch.nn.types import SHAPES
+    cfg = get_config(AUD_ARCH)
+    S, F_ = SHAPES["train_4k"].seq_len, cfg.n_frames
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
+    layouts = {"encoder": ((AUD_TRAIN_BATCH, F_, F_, *heads), False),
+               "decoder": ((AUD_TRAIN_BATCH, S, S, *heads), True),
+               "cross": ((AUD_TRAIN_BATCH, S, F_, *heads), False)}
+    inputs = bwd_inputs(torch, 20)
+    out = {}
+    for name, (shape, causal) in layouts.items():
+        label = f"whisper-base train {name}"
+        reading = {"shape": list(shape), "causal": causal}
+        for dt in (torch.float32, torch.bfloat16):
+            torch.cuda.reset_peak_memory_stats()
+            reading.update(bwd_agreement(torch, label, shape, dt, inputs,
+                                         causal=causal))
+            key = str(dt).replace("torch.", "")
+            reading[f"{key}_check_peak_gib"] = peak = \
+                torch.cuda.max_memory_allocated() / 2**30
+            print(f"train_audio (a): {name} {key} check's peak memory "
+                  f"{peak:.2f} GiB")
+            gc.collect()
+            torch.cuda.empty_cache()
+        reading.update(flash_bwd_timing(torch, inputs, shape, causal=causal))
+        B, Sq, Skv = shape[:3]
+        fwd = flash_timing(torch, lambda s, dt: inputs(s, dt)[:3], shape,
+                           dict(causal=causal, offset=Skv - Sq, bk=KEY_TILE),
+                           2, torch.bfloat16)
+        print(f"train_audio (a): flash forward {name} {shape} bf16"
+              f"{'' if causal else ' non-causal'}: {fwd['ms']*1e3:.2f} us, "
+              f"bound {fwd['bound_ms']*1e3:.2f} us ({fwd['bound_by']}), plain "
+              f"{fwd['plain_ms']*1e3:.2f} us, scaled_dot_product_attention "
+              f"{fwd['library_ms']*1e3:.2f} us [{CARD}]")
+        reading["forward"] = fwd
+        out[name] = reading
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def audio_flash_calls(cfg):
+    """(forward, backward) flash calls of one ``Model.loss`` gradient with
+    remat: the encoder's, the decoder's self- and cross-attention a layer,
+    each forward run twice (remat's recompute) and differentiated once."""
+    n = cfg.n_enc_layers + 2 * cfg.n_layers
+    return 2 * n, n
+
+
+def audio_grad_inputs(torch):
+    """(b)'s config (full width, depth and vocabulary, f32), parameters
+    (on the CPU, from seed 0, the ``AUD_SEEDED`` leaves seeded) and batch
+    (one row of ``AUD_GRAD_TOKENS`` tokens and the frames), the same in
+    both processes."""
+    import dataclasses
+    from repro_torch.nn import Model, get_config
+    from repro_torch.nn.types import ShapeSpec
+    cfg = dataclasses.replace(get_config(AUD_ARCH), dtype="float32")
+    params = Model(cfg, device="cpu").init(0)
+    _seed_leaves(torch, params, AUD_SEEDED)
+    batch = SpecBatches(cfg, ShapeSpec("audio grad", AUD_GRAD_TOKENS, 1,
+                                       "train"), 1).batch(0)
+    return cfg, params, batch
+
+
+def audio_cpu_reference():
+    """(b)'s CPU side, in the child process after the VLM's: the f32 loss
+    and its gradient through the plain versions without remat."""
+    import dataclasses
+    import torch
+    from repro_torch.nn import Model
+    from repro_torch.tree import leaves, tree_map
+    t0 = time.perf_counter()
+    cfg, params, batch = audio_grad_inputs(torch)
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = Model(dataclasses.replace(cfg, remat=False),
+                    device="cpu").loss(live, batch)
+    grads = torch.autograd.grad(loss, leaves(live))
+    return {"loss": float(loss.detach()), "grads": list(grads),
+            "secs": time.perf_counter() - t0}
+
+
+def audio_train_grad_check(torch, reference):
+    """Phase 20 (b): the f32 ``Model.loss`` gradient of whisper-base at
+    full width, depth and vocabulary, one row of ``AUD_GRAD_TOKENS`` tokens
+    and 1500 frames, remat on, the ``AUD_SEEDED`` norms seeded: the card
+    (flash forward and backward on their f32 routes) against the CPU
+    (``audio_cpu_reference`` in the child process), each leaf -- the
+    encoder's and the cross-attention's among them -- within
+    ``TRAIN_GRAD_TOL`` of its largest magnitude; the flash calls those of
+    ``audio_flash_calls``."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.nn import Model
+    from repro_torch.tree import leaves, tree_map
+    cpu = wait_cpu_reference(reference, "audio")
+    cfg, params, batch = audio_grad_inputs(torch)
+    live = tree_map(lambda p: p.detach().to("cuda").requires_grad_(), params)
+    n0 = (flash_attention_kernel.launches,
+          flash_attention_bwd_kernel.launches)
+    t0 = time.perf_counter()
+    loss, _ = Model(cfg, device="cuda").loss(live, batch)
+    grads = torch.autograd.grad(loss, leaves(live))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    n = (flash_attention_kernel.launches - n0[0],
+         flash_attention_bwd_kernel.launches - n0[1])
+    worst, worst_path, names = grads_card_vs_cpu(
+        "train_audio (b)", params, cpu["grads"], grads)
+    card_loss = float(loss.detach())
+    rel_loss = abs(card_loss - cpu["loss"]) / abs(cpu["loss"])
+    print(f"train_audio (b): f32 Model.loss gradient, {AUD_ARCH} full width "
+          f"and depth ({cfg.n_enc_layers} + {cfg.n_layers} layers), vocab "
+          f"{cfg.vocab}, 1 x ({cfg.n_frames} frames, {AUD_GRAD_TOKENS} "
+          f"tokens), seeded {'/'.join(AUD_SEEDED)}: loss card {card_loss!r} "
+          f"CPU {cpu['loss']!r} (rel {rel_loss:.3e}); every leaf of "
+          f"{len(names)} within {worst:.3e} of its largest magnitude "
+          f"({worst_path}; <= {TRAIN_GRAD_TOL}); flash launches forward / "
+          f"backward {n[0]} / {n[1]}; CPU {cpu['secs']:.2f} s in the child "
+          f"process (waited {cpu['waited']:.2f} s for it here), card "
+          f"{card_s:.2f} s [{CARD}]")
+    check({"enc_layers/attn/wq", "layers/xattn/wk", "enc_norm"}
+          <= set(names), f"train_audio (b): leaves {names}")
+    check(rel_loss <= 1e-5 and n == audio_flash_calls(cfg),
+          f"train_audio (b): loss rel {rel_loss}, flash launches {n}")
+    return {"worst_leaf_rel": worst, "worst_leaf": worst_path,
+            "loss_rel": rel_loss, "cpu_s": cpu["secs"],
+            "waited_s": cpu["waited"]}
+
+
+def audio_train_rows(torch, cfg):
+    """(c)'s rows a step: ``AUD_TRAIN_BATCH_MAX`` where the peak memory of
+    one ``make_train_step`` step at ``AUD_TRAIN_BATCH`` rows of the train
+    cell's layout (from the state's allocation on: the model, AdamW as the
+    launcher builds it, the step) stays under ``AUD_TRAIN_PEAK_GIB``, else
+    ``AUD_TRAIN_BATCH``; printed with why.  Returns (rows, the peak)."""
+    from repro_torch.nn import Model
+    from repro_torch.nn.types import SHAPES
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.step import make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    m = Model(cfg, device="cuda")
+    params = m.init(0)
+    opt = AdamW(lr=3e-4, state_dtype=cfg.opt_state_dtype)
+    state = opt.init(params)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in SpecBatches(
+        cfg, SHAPES["train_4k"], AUD_TRAIN_BATCH).batch(0).items()}
+    make_train_step(m, opt)(params, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del m, params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = (AUD_TRAIN_BATCH_MAX if peak < AUD_TRAIN_PEAK_GIB
+            else AUD_TRAIN_BATCH)
+    print(f"train_audio (c): one step at {AUD_TRAIN_BATCH} rows peaked at "
+          f"{peak:.3f} GiB, {'under' if rows > AUD_TRAIN_BATCH else 'not under'}"
+          f" {AUD_TRAIN_PEAK_GIB} GiB, so the run takes {rows} rows a step "
+          f"[{CARD}]")
+    return rows, peak
+
+
+def audio_train_run(torch, rows):
+    """Phase 20 (c): whisper-base at full width and depth through
+    ``spec_train_loop`` on ``SpecBatches`` at the train cell's layout,
+    ``rows`` rows of 4096 tokens and 1500 frames a step, bf16 on f32
+    masters and f32 AdamW moments, remat a layer, ``AUD_TRAIN_STEPS``
+    steps, the checkpoint into a temporary directory, removed after.  The
+    flash counters zeroed just before and read just after (each step
+    ``audio_flash_calls``); the first loss near ln V + s2/2, every loss and
+    grad norm finite, the last loss below the first, no restart; the
+    step's time (its median past the first), tokens/s and frames/s, the 6 N
+    D share of the bf16 peak with the reference's ``model_flops_for`` (N =
+    ``active_params_count()``, D the decoder's tokens; the frames are not
+    counted), the peak memory and the checkpoint's size.  Returns the
+    launches and the figures."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.nn import get_config
+    from repro_torch.nn.types import SHAPES
+    cfg = get_config(AUD_ARCH)
+    leaves_n = audio_leaves(cfg)
+    print(f"train_audio (c): {AUD_ARCH} at full width and depth "
+          f"({cfg.n_enc_layers} encoder and {cfg.n_layers} decoder layers): "
+          f"{leaves_n:,} f32 leaves, {16 * leaves_n / 2**30:.2f} GiB of "
+          f"masters, gradients and AdamW moments, a "
+          f"{12 * leaves_n / 2**30:.2f} GiB checkpoint; nothing cut")
+    check(leaves_n == AUD_PARAMS, f"train_audio (c): {leaves_n} leaves")
+    pipe = SpecBatches(cfg, SHAPES["train_4k"], rows)
+    S, F_ = pipe.specs["tokens"].shape[1], pipe.specs["frames"].shape[1]
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = 0
+    flash_attention_bwd_kernel.launches = 0
+    t0 = time.perf_counter()
+    try:
+        loop = spec_train_loop(cfg, pipe, steps=AUD_TRAIN_STEPS,
+                               ckpt_dir=ckpt)
+        torch.cuda.synchronize()
+        n = (flash_attention_kernel.launches,
+             flash_attention_bwd_kernel.launches)
+        wall = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(ckpt) for f in fs)
+        saved = os.listdir(ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = [r for r in loop.metrics_log if "loss" in r]
+    for r in loop.metrics_log:
+        print(f"  train_audio {r}")
+    steady = sorted(r["dt"] for r in recs[1:])
+    step_s = steady[len(steady) // 2]
+    tokens, frames = rows * S, rows * F_
+    n_act = cfg.active_params_count()
+    mfu = 6 * n_act * tokens / step_s / BF16_FLOPS
+    expect = float(np.log(cfg.vocab)) + 0.02 ** 2 * cfg.d_model / 2
+    fwd, bwd = audio_flash_calls(cfg)
+    want = (fwd * AUD_TRAIN_STEPS, bwd * AUD_TRAIN_STEPS)
+    print(f"train_audio (c): {AUD_ARCH} full width and depth, through "
+          f"make_train_step and TrainLoop, {rows} x ({F_} frames, {S} "
+          f"tokens) bf16, {AUD_TRAIN_STEPS} steps: step {step_s*1e3:.2f} ms "
+          f"(median of steps 1-{AUD_TRAIN_STEPS - 1}; step 0 "
+          f"{recs[0]['dt']*1e3:.2f} ms), {tokens / step_s:,.0f} tokens/s "
+          f"and {frames / step_s:,.0f} frames/s, 6 N D {100 * mfu:.2f} % of "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s (the reference's "
+          f"model_flops_for: N = active_params_count() = {n_act:,}, D = "
+          f"{tokens} tokens; the frames are not counted); loss "
+          f"{recs[0]['loss']:.4f} -> {recs[-1]['loss']:.4f} (step 0 expected "
+          f"ln V + s2/2 = {expect:.4f}); peak memory {peak:.3f} GiB; "
+          f"launches flash forward {n[0]}, backward {n[1]} (predicted "
+          f"{want[0]}, {want[1]}); {loop.restarts} restarts; checkpoint "
+          f"{saved} {ckpt_bytes / 2**30:.3f} GiB, removed; {wall:.2f} s with "
+          f"init and the checkpoint [{CARD}]")
+    check(len(recs) == AUD_TRAIN_STEPS and loop.restarts == 0 and all(
+        np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+        for r in recs), f"train_audio (c): records {loop.metrics_log}")
+    check(abs(recs[0]["loss"] - expect) <= 0.2,
+          f"train_audio (c): first loss {recs[0]['loss']} far from {expect}")
+    check(recs[-1]["loss"] < recs[0]["loss"],
+          f"train_audio (c): the loss did not fall: {recs}")
+    check(n == want, f"train_audio (c): launches {n}, not {want}")
+    check(saved == [f"step_{AUD_TRAIN_STEPS - 1}"],
+          f"train_audio (c): checkpoint directory held {saved}")
+    return {"flash_attention": n[0], "flash_attention_bwd": n[1]}, {
+        "rows": rows, "leaves": leaves_n, "step_ms": step_s * 1e3,
+        "tokens_per_s": tokens / step_s, "frames_per_s": frames / step_s,
+        "mfu_6nd": mfu, "peak_gib": peak,
+        "losses": [r["loss"] for r in recs],
+        "checkpoint_gib": ckpt_bytes / 2**30}
+
+
+def audio_train_phase(torch, reference):
+    """Phase 20, the audio family's training: (a); (c) with its rows
+    chosen by one step's peak; (e) ``train_step_profile`` at (c)'s rows and
+    first batch; (d) the restart (``train_restart_check`` at full width and
+    depth on ``SpecBatches``); then (b), whose CPU side (``reference``,
+    from ``start_cpu_references``) has had the run to finish.  Returns the
+    flash readings at the three layouts, the launches of (c), the main
+    path, and the figures of (b)-(e)."""
+    from repro_torch.nn import get_config
+    from repro_torch.nn.types import SHAPES
+    cfg = get_config(AUD_ARCH)
+    t0 = time.perf_counter()
+    bwd = audio_bwd_readings(torch)
+    print(f"train_audio (a): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rows, probe_peak = audio_train_rows(torch, cfg)
+    launches, figures = audio_train_run(torch, rows)
+    figures["probe_peak_gib"] = probe_peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_audio (c): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    figures["profile"] = train_step_profile(
+        torch, cfg, SpecBatches(cfg, SHAPES["train_4k"], rows).batch(0),
+        "train_audio (e)", want=audio_flash_calls(cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_audio (e): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    train_restart_check(torch, AUD_ARCH, "train_audio (d)", cfg=cfg,
+                        pipe=SpecBatches(cfg, SHAPES["train_4k"],
+                                         AUD_RESTART_BATCH))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_audio (d): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    figures["grad_check"] = audio_train_grad_check(torch, reference)
+    print(f"train_audio (b): {time.perf_counter() - t0:.2f} s")
+    return bwd, launches, figures
+
+
 CPU_REFERENCES = {"hybrid": hybrid_cpu_reference, "moe": moe_cpu_reference,
-                  "vlm": vlm_cpu_reference}
+                  "vlm": vlm_cpu_reference, "audio": audio_cpu_reference}
 
 
 def main() -> int:
@@ -7406,8 +7843,8 @@ def main() -> int:
     build.build(sources)
     print(f"build: {time.perf_counter()-t0:.2f} s "
           f"({', '.join(n + '.cu' for n in sources)}, in parallel)")
-    # phases 17 (c)'s, 18 (c)'s and 19 (c)'s CPU sides run beside the
-    # card's phases
+    # phases 17-19 (c)'s and 20 (b)'s CPU sides run beside the card's
+    # phases
     cpu_reference = start_cpu_references()
     for name in sources:
         for fn, line in ptxas_lines(build.build_log(name)):
@@ -7527,6 +7964,12 @@ def main() -> int:
     vlm_bwd, vlm_train_launches, vlm_train_figures = vlm_train_phase(
         torch, cpu_reference)
     print(f"train_vlm phase: {time.perf_counter()-t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    aud_bwd, aud_train_launches, aud_train_figures = audio_train_phase(
+        torch, cpu_reference)
+    print(f"train_audio phase: {time.perf_counter()-t0:.2f} s")
     by_path = {"serving": {k: launches[k]
                            for k in ("paged_gather", "paged_attention")},
                "paper": paper_launches, "chains": chain_launches,
@@ -7540,6 +7983,7 @@ def main() -> int:
                "train_hybrid": hyb_train_launches,
                "train_moe": moe_train_launches,
                "train_vlm": vlm_train_launches,
+               "train_audio": aud_train_launches,
                "op": {"qmatmul": qm_launches}}
     for name, n in hybrid_launches.items():
         launches[name] = launches.get(name, 0) + n
@@ -7563,8 +8007,11 @@ def main() -> int:
         launches[name] += n
     for name, n in vlm_train_launches.items():
         launches[name] += n
+    for name, n in aud_train_launches.items():
+        launches[name] += n
     launches["qmatmul"] = qm_launches
     vlm_fwd = vlm_bwd.pop("forward")
+    aud_fwd = {name: r.pop("forward") for name, r in aud_bwd.items()}
     launches["wkv6"] = rwkv_launches["wkv6"] + rwkv_train_launches["wkv6"]
     launches["wkv6_bwd"] = rwkv_train_launches["wkv6_bwd"]
     for k in kernels:
@@ -7586,6 +8033,7 @@ def main() -> int:
             k["vlm_shapes"] = vlm_readings
             k["forward_lse"] = bwd_row.pop("forward_lse")
             k["vlm_train_cell"] = vlm_fwd
+            k["audio_train_cell"] = aud_fwd
         if k["name"] == "flash_attention_bwd":
             k["train_step"] = train_figures
             k["hybrid_shapes"] = hyb_bwd
@@ -7594,6 +8042,8 @@ def main() -> int:
             k["train_moe_step"] = moe_train_figures
             k["vlm_train_cell"] = vlm_bwd
             k["train_vlm_step"] = vlm_train_figures
+            k["audio_train_cell"] = aud_bwd
+            k["train_audio_step"] = aud_train_figures
         if k["name"] == "linear_scan":
             k["backward"] = scan_bwd
             k["backward_calls"] = hyb_train_launches[

@@ -18,6 +18,7 @@ import repro_torch.kernels as K  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa
 from repro_torch.nn import Model  # noqa: E402
+from repro_torch.nn.types import ShapeSpec  # noqa: E402
 from repro_torch.tree import flatten_with_path, leaves, tree_map  # noqa
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -71,8 +72,9 @@ def compare(label, got, truth, names):
 
 for T in (128, 192):
     cfg, params, _ = chip_smoke.vlm_grad_inputs(torch)
-    batch = chip_smoke.VlmBatches(cfg.vocab, 1, cfg.n_patches + T,
-                                  cfg.n_patches).batch(0)
+    batch = chip_smoke.SpecBatches(
+        cfg, ShapeSpec("vlm grad", cfg.n_patches + T, 1, "train"),
+        1).batch(0)
     names = ["/".join(map(str, p)) for p, _ in flatten_with_path(params)]
     t0 = time.time()
     E = grads(cfg, params, batch, f64_op, torch.float64)

@@ -10,6 +10,7 @@ instead).
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -19,11 +20,22 @@ from .layers import (_gather_kv_rows, chunked_attention, decode_attention,
 from .types import ArchConfig
 
 
+# ``Model.init``'s stand-in for a generator on the meta device, where no
+# ``torch.Generator`` lives: draws there make shapes and dtypes only
+META_DRAWS = SimpleNamespace(device=torch.device("meta"))
+
+
+def randn(gen, shape):
+    """f32 standard normal draws of ``shape`` from ``gen`` on its device
+    (``META_DRAWS``: meta tensors, nothing drawn)."""
+    return torch.randn(shape, generator=None if gen is META_DRAWS else gen,
+                       device=gen.device, dtype=torch.float32)
+
+
 def _dense(gen, shape, lead=(), scale=None):
     scale = scale or 1.0 / math.sqrt(shape[0])
     # scaled in place: an expert leaf is 15.5 GiB at full width
-    return torch.randn((*lead, *shape), generator=gen, device=gen.device,
-                       dtype=torch.float32).mul_(scale)
+    return randn(gen, (*lead, *shape)).mul_(scale)
 
 
 def _zeros(gen, shape, lead=()):

@@ -157,22 +157,25 @@ class Model:
     def init(self, gen) -> dict:
         """Random parameters from a seeded ``torch.Generator`` on the
         model's device (or an int seed for one): the reference's
-        initializers and layouts, not its random numbers."""
-        if not isinstance(gen, torch.Generator):
+        initializers and layouts, not its random numbers.  On the meta
+        device (``Model(cfg, device="meta")``) the seed is ignored and the
+        leaves are meta tensors: shapes and dtypes, nothing allocated."""
+        if self.device.type == "meta":
+            gen = blocks.META_DRAWS
+        elif not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=self.device).manual_seed(int(gen))
         cfg = self.cfg
         L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
         dev = gen.device
         params = {
-            "embed": torch.randn((V, d), generator=gen, device=dev) * 0.02,
+            "embed": blocks.randn(gen, (V, d)) * 0.02,
             "final_norm": torch.zeros((d,), device=dev),
-            "lm_head": torch.randn((d, V), generator=gen, device=dev) * 0.02,
+            "lm_head": blocks.randn(gen, (d, V)) * 0.02,
         }
         if cfg.family in ("dense", "moe", "vlm"):
             params["layers"] = self._init_decoder_layers(gen, L)
             if cfg.family == "vlm":
-                params["vision_proj"] = torch.randn(
-                    (1024, d), generator=gen, device=dev) * 0.02
+                params["vision_proj"] = blocks.randn(gen, (1024, d)) * 0.02
             return params
         if cfg.family == "audio":
             params["enc_layers"] = self._init_decoder_layers(

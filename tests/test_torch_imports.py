@@ -57,7 +57,8 @@ def test_port_files_exist():
                 "configs/internlm2_1_8b.py", "configs/qwen1_5_4b.py",
                 "kernels/ref.py", "tree.py", "optim/adamw.py",
                 "optim/compress.py", "ckpt/__init__.py", "ckpt/manager.py",
-                "runtime/step.py", "runtime/train.py", "launch/train.py"):
+                "runtime/step.py", "runtime/train.py", "launch/train.py",
+                "launch/specs.py"):
         assert mod in names, mod
     assert (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/csd_matvec.cu").exists()

@@ -12,7 +12,8 @@ Neither train launcher feeds patches, so the VLM trains through
 reference's train cell (``launch/specs.py::input_specs``): the tokens and
 labels of ``TokenPipeline`` after patch embeddings (B, P, 1024) drawn in
 f32 from a numpy generator seeded by (seed, step) -- ``chip_smoke.py``'s
-``VlmBatches``, which phase 19 feeds llava-next-34b at full width.
+``SpecBatches`` (laid out by the port's ``launch/specs.py``), which phase
+19 feeds llava-next-34b at full width.
 
 - ``chip_smoke.vlm_leaves`` against the reference's ``eval_shape`` of
   ``Model.init`` at 1, 2 and 60 layers;
@@ -56,6 +57,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_kernel, flash_attention_plain)
 from repro_torch.launch import train as launch_train
 from repro_torch.nn import Model, get_config, params_from_jax
+from repro_torch.nn.types import ShapeSpec
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.runtime.step import make_train_step
 from repro_torch.runtime.train import TrainConfig, TrainLoop
@@ -89,8 +91,9 @@ def _cfgs(variant, **kw):
 
 
 def _pipe(cfg, seed=0):
-    return _smoke().VlmBatches(cfg.vocab, B, cfg.n_patches + T,
-                               cfg.n_patches, seed=seed)
+    return _smoke().SpecBatches(
+        cfg, ShapeSpec("reduced", cfg.n_patches + T, B, "train"), B,
+        seed=seed)
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,9 +154,9 @@ def _jax_step(jcfg):
 # ------------------------------------------------------------ the batches
 
 def test_batches_follow_the_train_cell_layout():
-    """``VlmBatches``: the tokens and labels of ``TokenPipeline`` at
-    ``seq - n_patches`` and f32 patches (B, P, 1024), the same for the
-    same step, other for another step."""
+    """``SpecBatches`` for the VLM: the tokens and labels of
+    ``TokenPipeline`` at ``seq - n_patches`` and f32 patches (B, P, 1024),
+    the same for the same step, other for another step."""
     from repro_torch.data.tokens import TokenPipeline
     cfg = get_config(ARCH).reduced()
     pipe = _pipe(cfg, seed=3)
@@ -291,7 +294,7 @@ def test_train_step_matches_jax():
 def test_train_loop_matches_the_reference_loop(tmp_path):
     """The port's ``TrainLoop`` over ``make_train_step`` against the
     reference's ``TrainLoop`` over its jitted step, GQA variant, remat on,
-    both from the same seeded tree on the same ``VlmBatches`` stream,
+    both from the same seeded tree on the same ``SpecBatches`` stream,
     ``STEPS`` steps at lr 3e-3 on the cosine schedule, a record every 5
     steps and the last: the same steps recorded, losses and xent within
     1e-5 relative at step 0 and 1e-4 after (Adam's steps carry f32
@@ -321,7 +324,7 @@ def test_train_loop_matches_the_reference_loop(tmp_path):
 
 def test_restart_replays_the_run(tmp_path):
     """``TrainLoop`` with a checkpoint every 4 steps and a failure injected
-    at step 6 restores step 4 and replays the ``VlmBatches`` stream from
+    at step 6 restores step 4 and replays the ``SpecBatches`` stream from
     step 5: every final leaf, params and optimizer state, equal bit for
     bit to an uninterrupted run's."""
     _, tcfg = _cfgs("gqa", remat=True)
